@@ -4,9 +4,15 @@
 Phases, each printing its own lines; any failure raises and exits
 non-zero:
   1. device  - a CUDA card of capability (9, 0); its name and power limit
-  2. build   - nvcc builds the kernels from csrc/ (ptxas report printed)
-  3. kernel  - the segmented prefix-sum kernel against its plain PyTorch
-               version, bitwise, at the main path's shapes; both timed
+  2. build   - nvcc builds the kernels from csrc/, one process per source
+               (ptxas report printed)
+  3. kernel  - the segmented one-hot prefix-sum kernel against its plain
+               PyTorch version, bitwise, at the main path's shapes; both
+               timed
+  3c. wkernel - the weighted (compressed-mode) prefix-sum kernel against
+               its plain version at the mixed100k shape and one more:
+               within 2 float32 ulps of each segment's max |prefix|, two
+               launches bitwise equal; both timed
   4. 20k     - the bench.py task (bench/data/bench_20k.sf, 50
                permutations) through the port's entry points; the
                kernel's launches are counted over this run; the first
@@ -14,15 +20,21 @@ non-zero:
                function and must be equal
   5. genome  - ~778k sites over 22 chromosomes (bench/headline.py
                gen_genome1m), scan and 64 permutations
-  6. check   - a small input through the card and through the plain
-               CPU versions must agree
+  5c. mixed100k - bench/data/headline_mixed100k.sf (94,889 sites, 31
+               depths, 1,589 table rows, compressed tables), scan and 64
+               permutations; the weighted kernel's launches are counted
+               over this run; the first chunk's statistic is recomputed
+               with the plain prefix function
+  6. check   - a small single-depth input and a small mixed-depth input
+               through the card and through the plain CPU versions must
+               agree
 Then one JSON line with every kernel's numbers, and last the JSON status
 line.  Run from the repo root: python3 chip_smoke.py
 
 ``--profile`` instead runs phases 1-2 and then torch.profiler over the
-scan and the permutations of the 20k task and of the genome (16
-permutations): device time by kernel and the device's busy share, with
-the tables written under chiprun_out/smoke/.
+scan and the permutations of the 20k task, of the genome (16
+permutations) and of mixed100k (16 permutations): device time by kernel
+and the device's busy share, with the tables written under OUT.
 """
 
 from __future__ import annotations
@@ -36,6 +48,10 @@ import time
 
 REPO = pathlib.Path(__file__).resolve().parent
 OUT = REPO / "chiprun_out" / "smoke"
+# mixed-depth card vs CPU check: CLR and threshold tolerance, and the
+# near-tie band excluded from the count comparison
+MIXED_TOL = 5e-3
+MIXED_BAND = 1e-3
 
 
 def log(msg):
@@ -146,6 +162,107 @@ def phase_kernel(dev, shapes):
     return out
 
 
+def _weighted_inputs(rng, S, w, P, R, n_ids):
+    """Row-id table, sigma and segment starts as _prefix_inputs, with ids
+    in [0, n_ids - 1] (n_ids - 1 = the sentinel), and an [n_ids, R] f32
+    weight table shaped like the compressed tables': centred channels
+    of mixed scale, a count channel of ones, the zero sentinel row."""
+    import numpy as np
+
+    table, sig, seg_g0 = _prefix_inputs(rng, S, w, P, n_ids - 1)
+    wt = rng.normal(size=(n_ids, R)) * np.geomspace(3000.0, 0.1, R)
+    wt[:, R - 1] = 1.0
+    wt[-1] = 0.0
+    return table, wt.astype(np.float32), sig, seg_g0
+
+
+def phase_wkernel(dev, shapes):
+    """Phase 3c: weighted kernel vs plain, determinism, times."""
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch.ops import prefix_sums as ps
+
+    rng = np.random.default_rng(1)
+    eps = float(torch.finfo(torch.float32).eps)
+    out = []
+    for label, S, w, P, R, n_ids in shapes:
+        table, wt, sig, g0 = (torch.as_tensor(x, device=dev) for x in
+                              _weighted_inputs(rng, S, w, P, R, n_ids))
+
+        def kern():
+            return ps.weighted_prefix_sums(table, wt, sig, g0, w_seg_p=w)
+
+        def plain():
+            return ps.weighted_prefix_sums_plain(table, wt, sig, g0,
+                                                 w_seg_p=w)
+
+        got, again, want = kern(), kern(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            fail(f"weighted kernel at {label}: two launches differ")
+        scale = want.reshape(S, w, -1).abs().amax(1, keepdim=True)
+        err = (got - want).abs().reshape(S, w, -1)
+        max_abs = float(err.max())
+        rel = float((err / scale.clamp_min(1e-30)).max())
+        if not bool((err <= 2 * eps * scale).all()):
+            fail(f"weighted kernel != plain at {label}: max |err| "
+                 f"{max_abs:.4g} = {rel / eps:.3f} ulps of the segment's "
+                 "max |prefix| (limit 2)")
+        del got, again, want, err
+        torch.cuda.empty_cache()
+        ms = cuda_time_ms(kern, 20)
+        plain_ms = cuda_time_ms(plain, 3)
+        torch.cuda.empty_cache()
+        mb = S * w * P * R * 4 / 1e6
+        log(f"[wkernel] {label}: S={S} w={w} P={P} R={R} ids={n_ids}; "
+            f"max |err| {max_abs:.6g}, max err / segment max |prefix| "
+            f"{rel:.4g} ({rel / eps:.3f} ulps); kernel {ms:.4f} ms "
+            f"({mb / ms:.1f} GB/s written), plain {plain_ms:.4f} ms")
+        out.append(dict(label=label, S=S, w=w, P=P, R=R, n_ids=n_ids, ms=ms,
+                        plain_ms=plain_ms, max_abs_err=max_abs,
+                        max_rel_err=rel, out_mb=mb))
+    return out
+
+
+def _plain_prefix(table, sig, seg_g0, *, w_seg_p, n_rows, weights=None):
+    """build_prefix_sums_seg with the plain versions of both kernels."""
+    from fscl_tpu_torch.ops import prefix_sums as ps
+
+    if weights is None:
+        return ps.onehot_prefix_sums_plain(table, sig, seg_g0,
+                                           w_seg_p=w_seg_p, n_rows=n_rows)
+    return ps.weighted_prefix_sums_plain(table, weights, sig, seg_g0,
+                                         w_seg_p=w_seg_p)
+
+
+def _first_chunk(data, tables, result, scan_cfg, perm_cfg, dev):
+    """The first chunk's null maxima of every stack, with the kernels and
+    with the plain prefix function: [(kernel, plain)] per stack."""
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch.engine.permute import active_by_chr, setup_hist
+    from fscl_tpu_torch.ops.permute import block_permutation_groups
+
+    fresh = copy.deepcopy(result)
+    hs = setup_hist(data, tables, fresh, scan_cfg, perm_cfg, dev)
+    every = np.ones(fresh.n_points, bool)
+    sigma, pairs = None, []
+    for st in hs.stacks:
+        st.rebuild(fresh, active_by_chr(fresh, st, every))
+        rp = -(-perm_cfg.chunk_replicates // st.sub_rep) * st.sub_rep
+        if sigma is None:
+            sigma = hs.pad_sigma(block_permutation_groups(
+                perm_cfg.seed, data.genome_pos(),
+                perm_cfg.scan_width_mb * 1e6, rp, device=dev))
+        a = st.stat(hs.table, sigma[:rp], perm_cfg)
+        b = st.stat(hs.table, sigma[:rp], perm_cfg, prefix_fn=_plain_prefix)
+        torch.cuda.synchronize()
+        pairs.append((a, b))
+    return hs, pairs
+
+
 def _run_main_path(data, tables, scan_cfg, perm_cfg, dev, tsv):
     import torch
 
@@ -191,16 +308,12 @@ def _load_model(data, compat):
 
 
 def phase_20k(dev):
-    import numpy as np
     import torch
 
-    from fscl_tpu_torch.engine.permute import (
-        PermuteConfig, active_by_chr, setup_hist,
-    )
+    from fscl_tpu_torch.engine.permute import PermuteConfig
     from fscl_tpu_torch.engine.scan import ScanConfig
     from fscl_tpu_torch.io import load_snp_input
     from fscl_tpu_torch.ops import prefix_sums as ps
-    from fscl_tpu_torch.ops.permute import block_permutation_groups
 
     data = load_snp_input(REPO / "bench" / "data" / "bench_20k.sf")
     tables = _load_model(data, compat=True)
@@ -224,21 +337,8 @@ def phase_20k(dev):
         f"kernel launches {launches}")
 
     # first chunk again: kernel vs the plain prefix function on the card
-    fresh = copy.deepcopy(result)
-    hs = setup_hist(data, tables, fresh, scan_cfg, perm_cfg, dev)
-    every = np.ones(fresh.n_points, bool)
-    sigma = None
-    for st in hs.stacks:
-        st.rebuild(fresh, active_by_chr(fresh, st, every))
-        rp = -(-perm_cfg.chunk_replicates // st.sub_rep) * st.sub_rep
-        if sigma is None:
-            sigma = hs.pad_sigma(block_permutation_groups(
-                perm_cfg.seed, data.genome_pos(),
-                perm_cfg.scan_width_mb * 1e6, rp, device=dev))
-        a = st.stat(hs.table, sigma[:rp], perm_cfg)
-        b = st.stat(hs.table, sigma[:rp], perm_cfg,
-                    prefix_fn=ps.onehot_prefix_sums_plain)
-        torch.cuda.synchronize()
+    hs, pairs = _first_chunk(data, tables, result, scan_cfg, perm_cfg, dev)
+    for a, b in pairs:
         if not torch.equal(a, b):
             fail("20k: first-chunk null_max differs between the kernel and "
                  f"the plain prefix (max {float((a - b).abs().max())})")
@@ -305,16 +405,80 @@ def phase_genome(dev, n_permute=64):
                 launches=ps.launches - before)
 
 
-def phase_check(dev):
-    """A small input on the card against the plain CPU versions."""
+def phase_mixed100k(dev, n_permute=64):
+    """Phase 5c: the compressed mixed-depth path at its headline size."""
+    import torch
+
+    from fscl_tpu_torch.engine.permute import (
+        PermuteConfig, _ladder_pad, _sub_rep_for,
+    )
+    from fscl_tpu_torch.engine.scan import ScanConfig, make_scan_hist_tables
+    from fscl_tpu_torch.io import load_snp_input
+    from fscl_tpu_torch.ops import prefix_sums as ps
+
+    t0 = time.monotonic()
+    data = load_snp_input(REPO / "bench" / "data" / "headline_mixed100k.sf")
+    tables = _load_model(data, compat=True)
+    t_setup = time.monotonic() - t0
+    scan_cfg, perm_cfg = ScanConfig(), PermuteConfig(n_permute=n_permute)
+    ps.launches = ps.weighted_launches = 0
+    result, t_scan, t_perm = _run_main_path(
+        data, tables, scan_cfg, perm_cfg, dev, OUT / "mixed100k.tsv")
+    launches, onehot = ps.weighted_launches, ps.launches
+    _check_result(result, "mixed100k")
+    if launches <= 0:
+        fail("mixed100k: the weighted prefix-sum kernel was never launched")
+    if onehot:
+        fail(f"mixed100k: the one-hot kernel ran {onehot} times on "
+             "compressed tables")
+    scan_nc = [make_scan_hist_tables(data, tables, scan_cfg.hist_alphas,
+                                     decimate=d, device=dev).n_cells
+               for d in (scan_cfg.hist_decimate, scan_cfg.tie_decimate)]
+    hs, pairs = _first_chunk(data, tables, result, scan_cfg, perm_cfg, dev)
+    ht = hs.ht
+    if ht.weights is None:
+        fail("mixed100k: the tables are not compressed")
+    stacks = [(st.w_seg_p, len(st.segs), _sub_rep_for(ht, _ladder_pad(
+        len(st.segs)), st.w_seg_p)) for st in hs.stacks]
+    # first chunk: the engine's statistic (bf16 contraction) with the
+    # kernel and with the plain prefix; tolerance 1e-2 of max |stat|, the
+    # bf16 band of tests/test_torch_permute.py
+    d_first = 0.0
+    for a, b in pairs:
+        d = float((a - b).abs().max())
+        if d > 1e-2 * max(float(b.abs().max()), 1.0):
+            fail(f"mixed100k: first-chunk null_max differs by {d:.4g} "
+                 "between the kernel and the plain prefix")
+        d_first = max(d_first, d)
+        log(f"[mixed100k] first chunk: null_max [{a.shape[0]}, "
+            f"{a.shape[1]}] kernel vs plain prefix max |diff| {d:.4g} "
+            f"(max |stat| {float(b.abs().max()):.4g})")
+    pr = int(result.permute_n.sum())
+    log(f"[mixed100k] {data.n_snps} sites over {len(data.chr_limits)} "
+        f"chromosomes, {len(data.sample_depths)} depths, "
+        f"{len(ht.rows_used)} table rows -> {ht.n_rows} channels; NC scan "
+        f"{scan_nc}, permutations {ht.n_cells}; stacks (w_seg_p, "
+        f"chromosomes, sub_rep) {stacks}")
+    log(f"[mixed100k] {result.n_points} points; data+tables {t_setup:.1f}s, "
+        f"scan {t_scan:.3f}s, permute ({n_permute}) {t_perm:.3f}s, {pr} "
+        f"point-rounds, {pr / t_perm:.1f} point-rounds/s, max CLR "
+        f"{result.clr.max():.2f}, weighted kernel launches {launches}")
+    torch.cuda.empty_cache()
+    return dict(sites=data.n_snps, points=result.n_points, scan_s=t_scan,
+                perm_s=t_perm, n_permute=n_permute, point_rounds=pr,
+                point_rounds_per_s=pr / t_perm, stacks=stacks,
+                n_rows=ht.n_rows, rows_used=len(ht.rows_used),
+                n_cells_scan=scan_nc, n_cells_perm=ht.n_cells,
+                max_clr=float(result.clr.max()), first_chunk_diff=d_first,
+                launches=launches)
+
+
+def _single_depth_check_data():
+    """Two 3 Mb chromosomes at depth 30."""
     import numpy as np
 
     from fscl_tpu.data import build_snp_data
-    from fscl_tpu.models import background_fsp, build_tables
     from fscl_tpu.sim import simulate_dataset
-    from fscl_tpu_torch.engine import scan_genome, scan_permute
-    from fscl_tpu_torch.engine.permute import PermuteConfig
-    from fscl_tpu_torch.engine.scan import ScanConfig
 
     chrs, pos, fr = [], [], []
     for c in range(2):
@@ -324,39 +488,95 @@ def phase_check(dev):
         pos.append(sim["pos"])
         fr.append(sim["freq"])
     pos, fr = np.concatenate(pos), np.concatenate(fr)
-    data = build_snp_data(chrs, pos, fr, np.full(len(pos), 30),
+    return build_snp_data(chrs, pos, fr, np.full(len(pos), 30),
                           np.zeros(len(pos), bool))
-    fsp = background_fsp(data.obs_freq, data.depth_p, data.folded,
-                         data.sample_depths)
-    tables = build_tables(fsp, data.sample_depths, grid_points=1024)
-    data.attach_model(tables)
+
+
+def _mixed_check_data():
+    """Two 3 Mb chromosomes of depth-40 samples with missing calls: each
+    site keeps 20-40 of them (hypergeometric subsample), 30% folded, so
+    the data has more than ROWS_MAX distinct table rows."""
+    import numpy as np
+
+    from fscl_tpu.data import build_snp_data
+    from fscl_tpu.sim import simulate_dataset
+
+    rng = np.random.default_rng(71)
+    chrs, pos, fr, dep, fo = [], [], [], [], []
+    for c in range(2):
+        sim = simulate_dataset(seed=80 + c, sample_size=40, mb_length=3.0,
+                               alpha=3e-5)
+        d = rng.integers(20, 41, len(sim["pos"]))
+        f = rng.hypergeometric(sim["freq"], 40 - sim["freq"], d)
+        folded = rng.random(len(d)) < 0.3
+        f = np.where(folded, np.minimum(f, d - f), f)
+        keep = (f >= 1) & (f <= d - 1)
+        chrs += [str(c + 1)] * int(keep.sum())
+        pos.append(sim["pos"][keep])
+        fr.append(f[keep])
+        dep.append(d[keep])
+        fo.append(folded[keep])
+    return build_snp_data(chrs, np.concatenate(pos), np.concatenate(fr),
+                          np.concatenate(dep), np.concatenate(fo))
+
+
+def phase_check(dev):
+    """Small inputs on the card against the plain CPU versions."""
+    import numpy as np
+
+    from fscl_tpu.models import background_fsp, build_tables
+    from fscl_tpu_torch.engine import scan_genome, scan_permute
+    from fscl_tpu_torch.engine.permute import PermuteConfig
+    from fscl_tpu_torch.engine.scan import ScanConfig, make_scan_hist_tables
+
     scan_cfg = ScanConfig(eval_range=1500, small_grid_sp=10000,
                           large_grid_sp=200000, exact_step_max=1.0,
                           selection_bf16=False)
     perm_cfg = PermuteConfig(n_permute=48, seed=3, hist_bf16=False,
                              scan_width_mb=0.1)
-    res = {}
-    for d in (dev, "cpu"):
-        r = scan_genome(data, tables, scan_cfg, device=d)
-        scan_permute(data, tables, r, scan_cfg, perm_cfg, device=d)
-        res[str(d)] = r
-    g, c = res[str(dev)], res["cpu"]
-    d_clr = float(np.abs(g.clr - c.clr).max())
-    d_thr = float(np.abs(g.stat_threshold - c.stat_threshold).max())
-    if d_clr > 1e-3 or d_thr > 1e-3:
-        fail(f"check: card vs CPU clr {d_clr:.3g}, threshold {d_thr:.3g}")
-    tie = [i for i in range(g.n_points) for r in (g, c)
-           if np.any(np.abs(np.asarray(r.null_clr[i]) - r.stat_threshold[i])
-                     < 1e-4)]
-    keep = np.setdiff1d(np.arange(g.n_points), tie)
-    same = (np.array_equal(g.permute_p[keep], c.permute_p[keep])
-            and np.array_equal(g.permute_n[keep], c.permute_n[keep]))
-    if not same:
-        fail("check: permutation counts differ between card and CPU")
-    log(f"[check] {g.n_points} points: card vs CPU max |dCLR| {d_clr:.3g}, "
-        f"max |dthreshold| {d_thr:.3g}; counts equal on {len(keep)} points "
-        f"({len(set(tie))} near-tie points excluded)")
-    return dict(points=g.n_points, d_clr=d_clr, d_thr=d_thr)
+    out = {}
+    # (data, CLR/threshold tolerance, near-tie band): single-depth with
+    # the one-hot bounds; mixed-depth f32 weight sums add the rounding of
+    # sqrt(W)-sized prefixes, hence the wider bounds (tests/
+    # test_torch_mixed_depth.py states the same ones against fscl_tpu)
+    for label, data, tol, band in (
+            ("single-depth", _single_depth_check_data(), 1e-3, 1e-4),
+            ("mixed-depth", _mixed_check_data(), MIXED_TOL, MIXED_BAND)):
+        fsp = background_fsp(data.obs_freq, data.depth_p, data.folded,
+                             data.sample_depths)
+        tables = build_tables(fsp, data.sample_depths, grid_points=1024)
+        data.attach_model(tables)
+        compressed = make_scan_hist_tables(
+            data, tables, scan_cfg.hist_alphas, device="cpu"
+        ).weights is not None
+        if compressed != (label == "mixed-depth"):
+            fail(f"check: {label} data compressed={compressed}")
+        res = {}
+        for d in (dev, "cpu"):
+            r = scan_genome(data, tables, scan_cfg, device=d)
+            scan_permute(data, tables, r, scan_cfg, perm_cfg, device=d)
+            res[str(d)] = r
+        g, c = res[str(dev)], res["cpu"]
+        d_clr = float(np.abs(g.clr - c.clr).max())
+        d_thr = float(np.abs(g.stat_threshold - c.stat_threshold).max())
+        if d_clr > tol or d_thr > tol:
+            fail(f"check {label}: card vs CPU clr {d_clr:.3g}, threshold "
+                 f"{d_thr:.3g} (limit {tol})")
+        tie = [i for i in range(g.n_points) for r in (g, c)
+               if np.any(np.abs(np.asarray(r.null_clr[i])
+                                - r.stat_threshold[i]) < band)]
+        keep = np.setdiff1d(np.arange(g.n_points), tie)
+        same = (np.array_equal(g.permute_p[keep], c.permute_p[keep])
+                and np.array_equal(g.permute_n[keep], c.permute_n[keep]))
+        if not same:
+            fail(f"check {label}: permutation counts differ between card "
+                 "and CPU")
+        log(f"[check] {label}: {data.n_snps} sites, {g.n_points} points: "
+            f"card vs CPU max |dCLR| {d_clr:.3g}, max |dthreshold| "
+            f"{d_thr:.3g}; counts equal on {len(keep)} points "
+            f"({len(set(tie))} near-tie points excluded)")
+        out[label] = dict(points=g.n_points, d_clr=d_clr, d_thr=d_thr)
+    return out
 
 
 def phase_profile(dev):
@@ -373,11 +593,14 @@ def phase_profile(dev):
     t20 = _load_model(d20, compat=True)
     dg = genome_data()
     tg = _load_model(dg, compat=False)
+    dm = load_snp_input(REPO / "bench" / "data" / "headline_mixed100k.sf")
+    tm = _load_model(dm, compat=True)
     runs = [
         ("20k", d20, t20, ScanConfig(small_grid_sp=1000,
                                       large_grid_sp=100000),
          PermuteConfig(n_permute=50, chunk_replicates=32, seed=1)),
         ("genome", dg, tg, ScanConfig(), PermuteConfig(n_permute=16)),
+        ("mixed100k", dm, tm, ScanConfig(), PermuteConfig(n_permute=16)),
     ]
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     for label, data, tables, scan_cfg, perm_cfg in runs:
@@ -404,11 +627,13 @@ def phase_profile(dev):
                     and not e.key.startswith("Command Buffer")]
             busy = sum(t for t, _, _ in kern) / 1e6
             ours = sum(t for t, _, k in kern if "tile_" in k) / 1e6
+            wours = sum(t for t, _, k in kern if "wtile_" in k) / 1e6
             table = ka.table(sort_by="self_device_time_total", row_limit=40)
             (OUT / f"profile_{label}_{stage}.txt").write_text(table)
             log(f"[profile] {label} {stage}: wall {wall:.3f}s (profiled), "
                 f"device kernels {busy:.3f}s = {100 * busy / wall:.1f}% "
-                f"busy; prefix-sum kernel {ours * 1e3:.3f} ms")
+                f"busy; prefix-sum kernels {ours * 1e3:.3f} ms (weighted "
+                f"{wours * 1e3:.3f} ms)")
             for t, n, key in sorted(kern, reverse=True)[:10]:
                 log(f"[profile]   {t / 1e3:10.2f} ms  {n:7d}x  {key[:90]}")
 
@@ -436,12 +661,20 @@ def main():
 
     # table rows at depth 50: 49 unfolded frequencies padded to 56 (20k);
     # 48 after the genome data's K >= 2 filter
-    sub_20k = _sub_rep_for(SimpleNamespace(n_rows=56), 1, 20480)
-    sub_gen = _sub_rep_for(SimpleNamespace(n_rows=48), 24, 36864)
+    sub_20k = _sub_rep_for(SimpleNamespace(n_rows=56, weights=None), 1, 20480)
+    sub_gen = _sub_rep_for(SimpleNamespace(n_rows=48, weights=None), 24,
+                           36864)
     shapes = [("20k main path", 1, 20480, sub_20k, 56),
               ("20k P=16", 1, 20480, 16, 56),
               ("genome", 24, 36864, sub_gen, 48)]
     kern = phase_kernel(dev, shapes)
+    # mixed100k: 4 chromosomes of ~23.7k sites (ladder rung 4, w_seg_p
+    # 24576), 1,589 table rows compressed to 32 f32 channels
+    sub_mix = _sub_rep_for(SimpleNamespace(n_rows=32, weights=True), 4,
+                           24576)
+    wshapes = [("mixed100k main path", 4, 24576, sub_mix, 32, 1590),
+               ("widest R=104, 8193 rows", 1, 36864, 16, 104, 8193)]
+    wkern = phase_wkernel(dev, wshapes)
     r20 = phase_20k(dev)
     if (r20["w_seg_p"], r20["sub_rep"], r20["n_rows"]) != (20480, sub_20k, 56):
         fail(f"20k main path ran at w={r20['w_seg_p']} P={r20['sub_rep']} "
@@ -450,21 +683,37 @@ def main():
     if rg["stacks"] != [(36864, 22, sub_gen)] or rg["n_rows"] != 48:
         fail(f"genome main path ran at {rg['stacks']} R={rg['n_rows']}, "
              "not the shape phase 3 checked")
+    rm = phase_mixed100k(dev)
+    if rm["stacks"] != [(24576, 4, sub_mix)] or rm["n_rows"] != 32 \
+            or rm["rows_used"] != 1589:
+        fail(f"mixed100k main path ran at {rm['stacks']} R={rm['n_rows']} "
+             f"rows={rm['rows_used']}, not the shape phase 3c checked")
     chk = phase_check(dev)
 
-    detail = dict(device=name, nvidia_smi=smi, kernel=kern, bench_20k=r20,
-                  genome=rg, check=chk)
+    detail = dict(device=name, nvidia_smi=smi, kernel=kern, wkernel=wkern,
+                  bench_20k=r20, genome=rg, mixed100k=rm, check=chk)
     (OUT / "smoke.json").write_text(json.dumps(detail, indent=1) + "\n")
-    k20 = kern[0]
+    k20, kmix = kern[0], wkern[0]
     log(json.dumps({"kernels": [{
         "name": "onehot_prefix_sums",
         "route": "cuda",
         "source": "fscl_tpu_torch/csrc/prefix_sums.cu",
-        "replaces": "fscl_tpu/ops/pallas_ps.py:148",
+        "replaces": "fscl_tpu/ops/pallas_ps.py:148 (mode (b), segmented "
+                    "one-hot)",
         "launches": r20["launches"],
         "max_abs_err": max(k["max_abs_err"] for k in kern),
         "ms": k20["ms"],
         "plain_ms": k20["plain_ms"],
+    }, {
+        "name": "weighted_prefix_sums",
+        "route": "cuda",
+        "source": "fscl_tpu_torch/csrc/weighted_prefix_sums.cu",
+        "replaces": "fscl_tpu/ops/pallas_ps.py:148 (mode (c), f32 weight "
+                    "channels)",
+        "launches": rm["launches"],
+        "max_abs_err": max(k["max_abs_err"] for k in wkern),
+        "ms": kmix["ms"],
+        "plain_ms": kmix["plain_ms"],
     }]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

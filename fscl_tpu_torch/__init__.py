@@ -4,9 +4,11 @@ The JAX package ``fscl_tpu`` is the reference; this package computes the
 same scan and block-permutation test on one H100.  Layout mirrors
 ``fscl_tpu`` so each module's counterpart sits at the same path:
 
-  - ``ops/``     hist run geometry, the hist statistic, the block
-                 permutation sigma, and the segmented one-hot prefix sum
-                 whose CUDA kernel lives in ``csrc/``.
+  - ``ops/``     hist tables (exact one-hot and SVD-compressed), run
+                 geometry, the hist statistic, the block permutation
+                 sigma, and the segmented prefix sums (one-hot counts and
+                 weight-channel sums) whose CUDA kernels live in
+                 ``csrc/``.
   - ``engine/``  the hist genome scan, the hist permutation driver with
                  >=20-exceedance pruning, p-values.
   - ``io/``      the SNP file reader and the result writers.

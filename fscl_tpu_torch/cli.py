@@ -5,10 +5,12 @@ sweep-model tables -> null model -> hist scan -> hist permutations ->
 output.  ``--device`` (default ``cuda``) picks where the scan and the
 permutations run; ``cpu`` runs the plain PyTorch versions of the kernels.
 
-Flags and inputs that need a path this port lacks raise NotPortedError
-and never fall back: -m (ms input), --no-hist, --checkpoint, -b,
---output-bs, mixed-depth data above ROWS_MAX rows, datasets the hist
-geometry does not cover, and tie stages coarser than exact_step_max.
+Mixed-depth data (more than ROWS_MAX distinct table rows, up to
+COMPRESS_ROWS_MAX) runs on the SVD-compressed hist tables.  Flags and
+inputs that need a path this port lacks raise NotPortedError and never
+fall back: -m (ms input), --no-hist, --checkpoint, -b, --output-bs,
+datasets the hist geometry does not cover, and tie stages coarser than
+exact_step_max.
 """
 
 from __future__ import annotations

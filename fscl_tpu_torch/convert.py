@@ -15,8 +15,12 @@ from .ops.histclr import HistPoints, HistTables
 
 def hist_tables_from_numpy(*, t3, row_map, rows_used, lalpha, offsets,
                            n_cells, n_rows, n_alpha, step, grid_points,
-                           device="cpu"):
-    """The port's HistTables from the JAX HistTables fields (exact mode)."""
+                           weights=None, device="cpu"):
+    """The port's HistTables from the JAX HistTables fields; ``weights``
+    (compressed mode) is the JAX tables' [R_used+1, R] weight array."""
+    if weights is not None:
+        weights = torch.tensor(np.asarray(weights, dtype=np.float32),
+                               device=device)
     return HistTables(
         t3=torch.tensor(np.asarray(t3, dtype=np.float32), device=device),
         rows_used=np.asarray(rows_used, dtype=np.int64),
@@ -28,6 +32,7 @@ def hist_tables_from_numpy(*, t3, row_map, rows_used, lalpha, offsets,
         step=float(step),
         offsets=np.asarray(offsets, dtype=np.int32),
         lalpha=np.asarray(lalpha, dtype=np.float32),
+        weights=weights,
     )
 
 

@@ -1,5 +1,6 @@
-"""Block-permutation significance engine with adaptive pruning, hist exact
-one-hot path (port of fscl_tpu/engine/permute.py:_scan_permute_hist).
+"""Block-permutation significance engine with adaptive pruning, hist path
+(port of fscl_tpu/engine/permute.py:_scan_permute_hist), in exact one-hot
+and in compressed mixed-depth mode.
 
 Reference: scan_permute (/root/reference/scan-chromosome.c:336-652).  A
 point counts an exceedance when a permuted replicate's statistic is >=
@@ -13,9 +14,10 @@ grid x a dense hist_alphas lattice alpha grid, applied identically to the
 observed data (thresholds, identity sigma) and to every permuted
 replicate.  Live chromosomes of one padded length stack onto one flat
 site axis (_StackGroup); each chunk of replicates runs _stack_stat per
-stack: the fused gather + one-hot + segmented prefix sum
-(ops/prefix_sums.py, a CUDA kernel on the card), then hist_clr_reps_ps
-and the max.  The host counts exceedances and prunes between chunks.
+stack: the fused gather + one-hot (or weight-row) expansion + segmented
+prefix sum (ops/prefix_sums.py, a CUDA kernel on the card), then
+hist_clr_reps_ps and the max.  The host counts exceedances and prunes
+between chunks.
 
 Chunk schedule (_boost) and point order (stacks by segment length, then
 chromosomes, then point ids) follow the JAX package, so the pruning RNG
@@ -199,30 +201,36 @@ def _ladder_pad(n):
 
 
 def _sub_rep_for(ht, n_seg_pad, w_seg_p):
-    """Largest replicate slice (<= 2*HIST_REP_SUB) whose int16 prefix
-    buffer fits PS_BUDGET_BYTES."""
+    """Largest replicate slice (<= 2*HIST_REP_SUB) whose prefix buffer
+    fits PS_BUDGET_BYTES: 2 bytes an element for one-hot counts, 4 for
+    compressed f32 weight channels (fscl_tpu/engine/permute.py:1049)."""
+    bpe = 4 if ht.weights is not None else 2
     p = HIST_REP_SUB * 2
-    while p > 1 and n_seg_pad * w_seg_p * p * ht.n_rows * 2 > PS_BUDGET_BYTES:
+    while p > 1 and (
+        n_seg_pad * w_seg_p * p * ht.n_rows * bpe > PS_BUDGET_BYTES
+    ):
         p //= 2
     return p
 
 
 def _stack_stat(table, sigma, seg_g0, bounds, fbar, t3, *, w_seg_p, n_rows,
                 n_cells, n_alpha, sub_rep, n_pts, Jf, mm_bf16=False,
-                prefix_fn=build_prefix_sums_seg):
+                weights=None, prefix_fn=build_prefix_sums_seg):
     """Statistic maxima for stacked chromosome segments; [rows, n_pts].
 
-    sigma: [n_slices*sub_rep, n_sig] sentinel-padded group sigma.  Per
-    replicate slice: segmented prefix sums of the permuted stream
-    (prefix_fn; the slab of segment s starts one group before its
-    chromosome's first, so local site k sits at flat row PERM_GROUP +
-    off + k, and the leading and trailing spill cancels in the bound
-    differences, fscl_tpu/engine/permute.py:776-795), then the hist
-    statistic and its max over (position, alpha)."""
+    sigma: [n_slices*sub_rep, n_sig] sentinel-padded group sigma;
+    weights: the compressed tables' [R_used+1, R] weight channels, or
+    None in one-hot mode.  Per replicate slice: segmented prefix sums of
+    the permuted stream (prefix_fn; the slab of segment s starts one
+    group before its chromosome's first, so local site k sits at flat
+    row PERM_GROUP + off + k, and the leading and trailing spill cancels
+    in the bound differences, fscl_tpu/engine/permute.py:776-795), then
+    the hist statistic and its max over (position, alpha)."""
     outs = []
     for r0 in range(0, sigma.shape[0], sub_rep):
         sig = sigma[r0:r0 + sub_rep]
-        ps = prefix_fn(table, sig, seg_g0, w_seg_p=w_seg_p, n_rows=n_rows)
+        ps = prefix_fn(table, sig, seg_g0, w_seg_p=w_seg_p, n_rows=n_rows,
+                       weights=weights)
         clr = hist_clr_reps_ps(
             t3, bounds, fbar, ps, n_rep=sig.shape[0], n_cells=n_cells,
             n_rows=n_rows, n_alpha=n_alpha, mm_bf16=mm_bf16,
@@ -302,7 +310,8 @@ class _StackGroup:
             table, sigma, self.seg_g0, self.bounds, self.fbar, ht.t3,
             w_seg_p=self.w_seg_p, n_rows=ht.n_rows, n_cells=ht.n_cells,
             n_alpha=ht.n_alpha, sub_rep=self.sub_rep, n_pts=len(self.pts),
-            Jf=self.Jf, mm_bf16=cfg.hist_bf16, prefix_fn=prefix_fn,
+            Jf=self.Jf, mm_bf16=cfg.hist_bf16, weights=ht.weights,
+            prefix_fn=prefix_fn,
         )
 
 
@@ -311,7 +320,7 @@ class HistSetup:
     """Tables, row-id group table and stacks of one permutation run."""
 
     ht: object
-    table: torch.Tensor  # [G+1, PERM_GROUP] int16
+    table: torch.Tensor  # [G+1, PERM_GROUP] int16 row ids
     stacks: list
     n_groups: int
     margin: int
@@ -327,7 +336,8 @@ class HistSetup:
 
 
 def setup_hist(data, tables, result, scan_cfg, cfg, device):
-    """Hist tables, the thin row-id group table and the stack groups."""
+    """Hist tables, the thin row-id group table (whose ids index the
+    weight rows in compressed mode) and the stack groups."""
     Jf = stat_positions(cfg)
     ht = make_scan_hist_tables(
         data, tables, n_alpha=cfg.hist_alphas, decimate=cfg.hist_decimate,
@@ -336,7 +346,7 @@ def setup_hist(data, tables, result, scan_cfg, cfg, device):
     row_cg = torch.as_tensor(
         ht.row_map[np.asarray(data.row)].astype(np.int32), device=device
     )
-    table = make_row_index_group_table(row_cg, n_rows=ht.n_rows)
+    table = make_row_index_group_table(row_cg, sentinel=ht.sentinel)
     n_groups = table.shape[0] - 1  # sentinel row index
     by_len: dict = {}
     for c, cl in enumerate(data.chr_limits):

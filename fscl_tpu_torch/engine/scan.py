@@ -8,7 +8,8 @@ zoomed to sub-bp_resl pitch (multi-branch refine), and every probed
 position within hist_tie_margin of the winner is re-ranked on the
 decimate-2 lattice, whose winner is reported (tie resolution).  All
 stages evaluate the hist statistic (ops/histclr.py) on prefix sums built
-once per chromosome.
+once per chromosome (once per chromosome and table on compressed
+mixed-depth tables, whose channels differ by table).
 
 Not ported: the lattice kernel, used by fscl_tpu for --no-hist, for
 datasets the hist engine does not cover, and for tie pools whose finest
@@ -137,8 +138,10 @@ def make_scan_hist_tables(data, tables, n_alpha=128, decimate=1,
     """Genome-wide HistTables (memoized per (n_alpha, decimation)).
 
     Decimation is capped so the decimated lattice step stays under ~0.1
-    log_ad units (fscl_tpu/engine/scan.py:710).  Datasets the exact hist
-    engine does not cover raise NotPortedError."""
+    log_ad units (fscl_tpu/engine/scan.py:710).  Above ROWS_MAX distinct
+    rows the tables are SVD-compressed, their channels centred by the
+    dataset's site mix.  Datasets the hist engine does not cover raise
+    NotPortedError."""
     device = canonical(device)
     base_step = (LOG_AD_MAX - LOG_AD_MIN) / max(tables.grid_points - 1, 1)
     decimate = max(1, min(int(decimate), int(0.1 / base_step)))
@@ -161,8 +164,7 @@ def make_scan_hist_tables(data, tables, n_alpha=128, decimate=1,
     if not hist_supported(len(rows_used), max_n):
         raise NotPortedError(
             f"{len(rows_used)} distinct table rows / {max_n} sites per "
-            "chromosome need the compressed hist mode or the lattice path, "
-            "which are not yet ported"
+            "chromosome need the lattice path, which is not yet ported"
         )
     if qb is None or not extents:
         raise NotPortedError(
@@ -175,6 +177,7 @@ def make_scan_hist_tables(data, tables, n_alpha=128, decimate=1,
     ht = build_hist_tables(
         tables.table, tables.grid_points, null_row, rows_used,
         extent_bp=max(extents) + 1, n_alpha=n_alpha, decimate=decimate,
+        site_row_counts=np.bincount(row, minlength=tables.table.shape[0]),
         device=device,
     )
     cache[key] = ht
@@ -194,7 +197,10 @@ def get_hist_device_arrays(data, ht, pos_np, start_index):
 
 def _dataset_mod16(data, ht):
     """Whether int16 mod-2^16 prefix sums are exact for every chromosome:
-    every per-(chromosome, row) site count fits in int16."""
+    every per-(chromosome, row) site count fits in int16.  Never under
+    weights (f32 prefix sums)."""
+    if ht.weights is not None:
+        return False
     cache = _port_cache(data, ht.t3.device)
     key = ("mod16", ht.n_rows)
     if key not in cache:
@@ -211,13 +217,14 @@ def _dataset_mod16(data, ht):
 
 def _chrom_row_stream(data, ht, st):
     """[w_pad] compact-row stream of one chromosome, padded to the
-    4096-site quantum with the sentinel row id (which counts nowhere)."""
+    4096-site quantum with the sentinel row id (which counts nowhere: R in
+    one-hot mode, the zero weight row R_used in compressed mode)."""
     cache = _port_cache(data, ht.t3.device)
     n = st.cl.n_snps
     w_pad = max(-(-n // 4096) * 4096, 4096)
-    key = ("chrom-row", st.cl.start_index, n, ht.n_rows)
+    key = ("chrom-row", st.cl.start_index, n, ht.n_rows, ht.sentinel)
     if key not in cache:
-        rc = np.full(w_pad, ht.n_rows, dtype=np.int32)
+        rc = np.full(w_pad, ht.sentinel, dtype=np.int32)
         sl = slice(st.cl.start_index, st.cl.start_index + n)
         rc[:n] = ht.row_map[np.asarray(data.row[sl])]
         cache[key] = torch.as_tensor(rc, device=ht.t3.device)
@@ -238,15 +245,32 @@ def _build_scan_ps(row_c, *, n_rows, mod16):
     return ps.to(idt)
 
 
+def _build_scan_ps_w(row_c, weights):
+    """[w_pad+1, R] f32 weight-channel prefix sums of one chromosome's
+    site stream (compressed mode; XLA in fscl_tpu/engine/scan.py:510).
+    Summed in float64 and rounded once: centred channels reach about
+    sqrt(W) in magnitude, and the statistic reads their differences."""
+    ps = torch.cumsum(weights.to(torch.float64)[row_c.to(torch.int64)], 0)
+    return torch.nn.functional.pad(ps.to(torch.float32), (0, 0, 1, 0))
+
+
 def _chrom_scan_ps(data, ht, st, mod16):
-    """Memoized per-chromosome prefix sums, shared across scan stages and
-    decimation tables (same row map, same row pad)."""
+    """Memoized per-chromosome prefix sums, shared across scan stages.
+
+    One-hot mode: shared across decimation tables too (same row map,
+    same row pad).  Compressed mode: per table, since each table's
+    channels are the SVD factors of its own decimated columns."""
     cache = _port_cache(data, ht.t3.device)
-    key = ("scan-ps", st.cl.start_index, st.cl.n_snps, ht.n_rows, mod16)
-    if key not in cache:
-        cache[key] = _build_scan_ps(
-            _chrom_row_stream(data, ht, st), n_rows=ht.n_rows, mod16=mod16
-        )
+    row_c = _chrom_row_stream(data, ht, st)
+    if ht.weights is None:
+        key = ("scan-ps", st.cl.start_index, st.cl.n_snps, ht.n_rows, mod16)
+        if key not in cache:
+            cache[key] = _build_scan_ps(row_c, n_rows=ht.n_rows, mod16=mod16)
+    else:
+        key = ("scan-ps-w", st.cl.start_index, st.cl.n_snps, ht.n_cells,
+               round(float(ht.step), 12))
+        if key not in cache:
+            cache[key] = _build_scan_ps_w(row_c, ht.weights)
     return cache[key]
 
 

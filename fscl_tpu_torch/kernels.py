@@ -1,8 +1,9 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``).
 
 The sources have a plain C interface.  At first use ``nvcc`` compiles them
-for Hopper into one shared library under ``fscl_tpu_torch/build/``, named
-by a hash of the sources and flags so a stale build is never loaded, and
+for Hopper, one process per source, all started together, and links the
+objects into one shared library under ``fscl_tpu_torch/build/``, named
+by a hash of the sources and flags so a stale build is never loaded;
 ``ctypes`` loads it.  A failed build raises with nvcc's output.  Nothing
 here runs when the package is imported.
 """
@@ -20,9 +21,9 @@ import time
 PKG = pathlib.Path(__file__).resolve().parent
 CSRC = PKG / "csrc"
 BUILD = PKG / "build"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lib = None
@@ -54,6 +55,20 @@ def library_path() -> pathlib.Path:
     return BUILD / f"libfscl_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _run_all(cmds):
+    """Run the commands concurrently; (log, first failure or None)."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    log, bad = "", None
+    for c, p in zip(cmds, procs):
+        out, _ = p.communicate()
+        log += out
+        if p.returncode != 0 and bad is None:
+            bad = (p.returncode, c)
+    return log, bad
+
+
 def build() -> pathlib.Path:
     """Compile the library if this source hash has no build yet."""
     global build_log, build_seconds
@@ -61,16 +76,26 @@ def build() -> pathlib.Path:
     if so.exists():
         return so
     BUILD.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    nvcc = _nvcc()
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [BUILD / f"{tag}.{s.stem}.o" for s in srcs]
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(s) for s in _sources() if s.suffix == ".cu"]]
     t0 = time.monotonic()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    build_log, bad = _run_all([
+        [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(o)]
+        for s, o in zip(srcs, objs)
+    ])
+    if bad is None:
+        log, bad = _run_all([[nvcc, *ARCH, "-shared", "-o", str(tmp),
+                              *map(str, objs)]])
+        build_log += log
     build_seconds = time.monotonic() - t0
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
+    for o in objs:
+        o.unlink(missing_ok=True)
+    if bad is not None:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{build_log}"
+            f"nvcc failed ({bad[0]}): {' '.join(bad[1])}\n{build_log}"
         )
     os.replace(tmp, so)
     return so
@@ -87,8 +112,13 @@ def load():
         vp, vp, vp, vp, vp, i, i, i, i, i, i, i, vp,
     ]
     lib.fscl_onehot_prefix_sums.restype = i
-    lib.fscl_ps_tile.argtypes = []
-    lib.fscl_ps_tile.restype = i
+    lib.fscl_weighted_prefix_sums.argtypes = [
+        vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, vp,
+    ]
+    lib.fscl_weighted_prefix_sums.restype = i
+    for tile in (lib.fscl_ps_tile, lib.fscl_wps_tile):
+        tile.argtypes = []
+        tile.restype = i
     lib.fscl_cuda_error_string.argtypes = [i]
     lib.fscl_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

@@ -1,5 +1,5 @@
-"""Histogram/prefix-sum CLR engine, exact one-hot mode (port of the
-main-path subset of fscl_tpu/ops/histclr.py).
+"""Histogram/prefix-sum CLR engine (port of the main-path subset of
+fscl_tpu/ops/histclr.py).
 
 Block permutations shuffle SNP attributes and never positions, so every
 distance-derived quantity is replicate-invariant.  For candidate c the
@@ -19,8 +19,11 @@ Reference semantics mirrored: window clamping (scan-chromosome.c:73-89),
 distance clamp to >= 1 bp, active-site cutoff at x <= LOG_AD_MAX, CLR =
 2*(sm_logl - null_logl) over active sites (sm-search.c:269-300).
 
-Only the exact one-hot mode (<= ROWS_MAX distinct table rows) is ported;
-the SVD-compressed mixed-depth mode is not.
+Up to ROWS_MAX distinct table rows run the exact one-hot mode (integer
+prefix counts).  Above it, up to COMPRESS_ROWS_MAX, the row family is
+SVD-compressed to f32 weight channels (_build_hist_tables_compressed):
+each site contributes its weight row instead of a one-hot indicator, and
+the prefix sums become f32 sums of weights.
 """
 
 from __future__ import annotations
@@ -34,11 +37,13 @@ from fscl_tpu import LOG_AD_MAX, LOG_AD_MIN
 
 from .. import NotPortedError
 from .permute import PERM_GROUP
-from .prefix_sums import onehot_prefix_sums
+from .prefix_sums import onehot_prefix_sums, weighted_prefix_sums
 from .windows import candidate_windows
 
 DEFAULT_N_ALPHA = 128
-ROWS_MAX = 128  # exact one-hot gate (fscl_tpu/ops/histclr.py:58)
+ROWS_MAX = 128  # exact one-hot gate: above this the tables are compressed
+COMPRESS_ROWS_MAX = 8192  # hard cap for the SVD row-compression path
+COMPRESS_TOL = 1e-3  # max-entry residual target for the rank choice
 SITES_MAX = 4_000_000  # [W, R] state cap
 # transient bytes of one hist_clr_reps_ps candidate chunk (the gathered
 # [c, 2, NC+1, P*R] prefix rows in f32): bounds device memory only, the
@@ -47,8 +52,10 @@ CHUNK_BYTES = 1 << 28
 
 
 def hist_supported(n_rows_used, n_sites):
-    """Whether the exact one-hot hist engine covers this dataset."""
-    return n_rows_used <= ROWS_MAX and n_sites <= SITES_MAX
+    """Whether the hist engine covers this dataset: exact one-hot mode up
+    to ROWS_MAX distinct rows, compressed mode up to COMPRESS_ROWS_MAX
+    (fscl_tpu/ops/histclr.py:64)."""
+    return n_rows_used <= COMPRESS_ROWS_MAX and n_sites <= SITES_MAX
 
 
 def dense_alpha_offsets(grid_points, n_alpha=DEFAULT_N_ALPHA):
@@ -62,29 +69,51 @@ class HistTables:
 
     t3: torch.Tensor  # [2*NC*R, A] f32: (w0/w1, cell, row) -> alpha row
     rows_used: np.ndarray  # [R_used] original row ids (sorted)
-    row_map: np.ndarray  # [n_rows_total] -> compact id (R for absent)
+    # [n_rows_total] -> compact id; absent rows map to the sentinel id
+    # (R in one-hot mode, R_used in compressed mode)
+    row_map: np.ndarray
     n_cells: int  # NC
-    n_rows: int  # R (padded compact row count)
+    n_rows: int  # R (padded compact row count, or weight-channel count)
     n_alpha: int
     grid_points: int  # lattice points actually packed (after decimation)
     step: float  # log_ad pitch between packed lattice points
     offsets: np.ndarray  # [A] absolute lattice offsets
     lalpha: np.ndarray  # [A] f32 log-alpha values
+    # compressed mode: [R_used + 1, n_rows] f32 weight channels per row
+    # (SVD factors, site-mix-centred, + a count channel; the last row is
+    # the all-zero sentinel).  None = exact one-hot mode.
+    weights: torch.Tensor | None = None
+
+    @property
+    def sentinel(self) -> int:
+        """The row id that counts nowhere: absent rows and padding."""
+        return self.n_rows if self.weights is None else len(self.rows_used)
 
 
 def build_hist_tables(table_np, grid_points, null_row, rows_used, extent_bp,
                       n_alpha=DEFAULT_N_ALPHA, row_pad=8, decimate=1,
-                      device="cpu"):
+                      site_row_counts=None, compress=None, device="cpu"):
     """Pack (table - null) rows for the histogram contraction.
 
     table_np: [n_rows_total, G]; null_row: [n_rows_total] per-row null
     logl.  decimate=s > 1 keeps every s-th lattice column
-    (fscl_tpu/ops/histclr.py:103-182, exact one-hot mode).
+    (fscl_tpu/ops/histclr.py:103-182).  compress (default: when more than
+    ROWS_MAX rows are used) builds the SVD-compressed tables;
+    site_row_counts ([n_rows_total] site counts) weights the centring of
+    their channels by the data's site mix.
     """
-    if len(rows_used) > ROWS_MAX:
+    if len(rows_used) > COMPRESS_ROWS_MAX:
         raise NotPortedError(
-            f"{len(rows_used)} distinct table rows (> {ROWS_MAX}) need the "
-            "compressed mixed-depth hist mode, which is not yet ported"
+            f"{len(rows_used)} distinct table rows (> {COMPRESS_ROWS_MAX}) "
+            "need the lattice path, which is not yet ported"
+        )
+    if compress is None:
+        compress = len(rows_used) > ROWS_MAX
+    if compress:
+        return _build_hist_tables_compressed(
+            table_np, grid_points, null_row, rows_used, extent_bp,
+            n_alpha=n_alpha, row_pad=row_pad, decimate=decimate,
+            site_row_counts=site_row_counts, device=device,
         )
     s = max(int(decimate), 1)
     if s > 1:
@@ -131,6 +160,91 @@ def build_hist_tables(table_np, grid_points, null_row, rows_used, extent_bp,
         step=float(step),
         offsets=q,
         lalpha=lalpha,
+    )
+
+
+def _build_hist_tables_compressed(table_np, grid_points, null_row, rows_used,
+                                  extent_bp, *, n_alpha, row_pad, decimate,
+                                  site_row_counts, device, tol=COMPRESS_TOL):
+    """SVD row compression, the mixed-depth mode
+    (fscl_tpu/ops/histclr.py:198-295, same numpy operations in the same
+    order, so weights and t3 equal the JAX package's on one machine).
+
+    M[row, g] = table - null at the decimated columns is numerically low
+    rank (depths derive from one spectrum by smooth downsampling).  The
+    f64 SVD M ~= Uw @ V with the smallest rank of the ladder whose max
+    entry residual is below tol gives each row an f32 weight vector Uw[row]
+    in place of its one-hot indicator.  Channels are centred by the
+    site-mix mean (prefix magnitudes then grow as sqrt(W)), and one count
+    channel restores the means exactly through the pack row mu @ V.
+    """
+    s = max(int(decimate), 1)
+    cols = np.arange(0, grid_points, s)
+    step = (LOG_AD_MAX - LOG_AD_MIN) / (grid_points - 1) * s
+    G = len(cols)
+    inv_step = 1.0 / step
+    NC = min(G, int(np.log(max(float(extent_bp), 2.0)) * inv_step) + 2)
+    q = dense_alpha_offsets(G, n_alpha)
+    A = len(q)
+    rows_used = np.asarray(rows_used, dtype=np.int64)
+    Ru = len(rows_used)
+    row_map = np.full(np.asarray(table_np).shape[0], Ru, dtype=np.int32)
+    row_map[rows_used] = np.arange(Ru, dtype=np.int32)
+
+    M = (
+        np.asarray(table_np, dtype=np.float64)[rows_used][:, cols]
+        - np.asarray(null_row, dtype=np.float64)[rows_used][:, None]
+    )
+    U, S, Vt = np.linalg.svd(M, full_matrices=False)
+    r = None
+    for cand_r in (8, 16, 24, 32, 48, 64, 96):
+        if cand_r >= len(S):
+            r = len(S)
+            break
+        resid = np.abs(M - (U[:, :cand_r] * S[:cand_r]) @ Vt[:cand_r]).max()
+        if resid < tol:
+            r = cand_r
+            break
+    r = r or 96
+    Uw = U[:, :r] * S[:r]  # [Ru, r]
+    V = Vt[:r]  # [r, G]
+
+    if site_row_counts is not None:
+        cnt = np.asarray(site_row_counts, dtype=np.float64)[rows_used]
+    else:
+        cnt = np.ones(Ru)
+    mu = (cnt @ Uw) / max(cnt.sum(), 1.0)  # site-mix channel means
+    Vhat = np.concatenate([V, (mu @ V)[None, :]], axis=0)  # [r+1, G]
+    Wt = np.concatenate(
+        [Uw - mu[None, :], np.ones((Ru, 1))], axis=1
+    )  # [Ru, r+1]: centred channels + count channel
+
+    R = -(-(r + 1) // row_pad) * row_pad
+    Wt = np.pad(Wt, ((0, 1), (0, R - (r + 1))))  # + zero sentinel row
+    Vhat = np.pad(Vhat, ((0, R - (r + 1)), (0, 0)))
+
+    i = np.arange(NC)[:, None]
+    idx0 = i + q[None, :]
+    active = (idx0 <= G - 1).astype(np.float32)
+    dev = torch.device(device)
+    sub_d = torch.as_tensor(Vhat.astype(np.float32), device=dev)  # [R, G]
+    nr_d = torch.zeros(R, dtype=torch.float32, device=dev)  # null inside M
+    idx0_d = torch.as_tensor(np.clip(idx0, 0, G - 1), device=dev)
+    idx1_d = torch.as_tensor(np.clip(idx0 + 1, 0, G - 1), device=dev)
+    act_d = torch.as_tensor(active, device=dev)
+    lalpha = (LOG_AD_MIN + q.astype(np.float64) * step).astype(np.float32)
+    return HistTables(
+        t3=_device_pack(sub_d, nr_d, idx0_d, idx1_d, act_d, row_pad=R),
+        rows_used=rows_used,
+        row_map=row_map,
+        n_cells=NC,
+        n_rows=R,
+        n_alpha=A,
+        grid_points=G,
+        step=float(step),
+        offsets=q,
+        lalpha=lalpha,
+        weights=torch.as_tensor(Wt.astype(np.float32), device=dev),
     )
 
 
@@ -354,29 +468,40 @@ def make_hist_device_arrays(ht: HistTables, pos_np, qbits=None):
     )
 
 
-def make_row_index_group_table(row_compact, *, n_rows):
+def make_row_index_group_table(row_compact, *, sentinel):
     """[G+1, PERM_GROUP] int16 compact-row-index table (thin gather form,
-    fscl_tpu/ops/histclr.py:741).  Id n_rows (absent row, tail pad and
-    the sentinel row G) expands to an all-zero one-hot row."""
+    fscl_tpu/ops/histclr.py:741).  Ids are clamped at ``sentinel`` (the
+    tables' ``HistTables.sentinel``: R in one-hot mode, where it expands
+    to an all-zero one-hot row; R_used in compressed mode, where it reads
+    the zero weight row), which also fills the tail pad and the sentinel
+    row G.  In compressed mode this replaces the fat [G+1, PERM_GROUP*R]
+    f32 table of make_row_weight_group_table (histclr.py:789): the
+    permutation stream gathers int16 ids and expands them through the
+    [R_used+1, R] weight table (R_used <= COMPRESS_ROWS_MAX fits int16)."""
     W = row_compact.shape[0]
     G = -(-W // PERM_GROUP) if W else 1
-    idx = torch.clamp(row_compact.to(torch.int32), max=n_rows)
+    idx = torch.clamp(row_compact.to(torch.int32), max=sentinel)
     idx = torch.nn.functional.pad(
-        idx, (0, G * PERM_GROUP - W), value=n_rows
+        idx, (0, G * PERM_GROUP - W), value=sentinel
     ).reshape(G, PERM_GROUP)
-    idx = torch.nn.functional.pad(idx, (0, 0, 0, 1), value=n_rows)
+    idx = torch.nn.functional.pad(idx, (0, 0, 0, 1), value=sentinel)
     return idx.to(torch.int16).contiguous()
 
 
-def build_prefix_sums_seg(table, sig, seg_g0, *, w_seg_p, n_rows):
+def build_prefix_sums_seg(table, sig, seg_g0, *, w_seg_p, n_rows,
+                          weights=None):
     """[S*w_seg_p, P*n_rows] segmented prefix sums of the permuted stream.
 
     Dispatches to the fused gather + expand + scan (ops/prefix_sums.py):
-    the plain version for CPU tensors, the CUDA kernel for CUDA tensors.
+    one-hot counts, or with ``weights`` ([R_used+1, n_rows] f32) f32 sums
+    of weight channels.  The plain version runs for CPU tensors, the CUDA
+    kernel for CUDA tensors.
     """
-    return onehot_prefix_sums(
-        table, sig, seg_g0, w_seg_p=w_seg_p, n_rows=n_rows
-    )
+    if weights is None:
+        return onehot_prefix_sums(
+            table, sig, seg_g0, w_seg_p=w_seg_p, n_rows=n_rows
+        )
+    return weighted_prefix_sums(table, weights, sig, seg_g0, w_seg_p=w_seg_p)
 
 
 def _bf16_round(x):

@@ -124,7 +124,8 @@ def test_row_index_group_table_matches(setup):
     rc = hj.row_map[data.row].astype(np.int32)
     want = np.asarray(J.make_row_index_group_table(jnp.asarray(rc),
                                                    n_rows=hj.n_rows))
-    got = T.make_row_index_group_table(torch.as_tensor(rc), n_rows=hj.n_rows)
+    got = T.make_row_index_group_table(torch.as_tensor(rc),
+                                       sentinel=hj.n_rows)
     assert got.dtype == torch.int16
     np.testing.assert_array_equal(got.numpy(), want)
 
@@ -133,4 +134,8 @@ def test_geometry_gates_match(setup):
     data = setup[0]
     assert T.hist_geometry_ok(data.pos) == J.hist_geometry_ok(data.pos)
     assert T.dataset_qbits([data.pos]) == J.dataset_qbits([data.pos])
-    assert T.hist_supported(128, 10) and not T.hist_supported(129, 10)
+    for n in (T.ROWS_MAX, T.ROWS_MAX + 1, T.COMPRESS_ROWS_MAX,
+              T.COMPRESS_ROWS_MAX + 1):
+        assert T.hist_supported(n, 10) == J.hist_supported(n, 10)
+    assert T.hist_supported(T.COMPRESS_ROWS_MAX, 10)
+    assert not T.hist_supported(T.COMPRESS_ROWS_MAX + 1, 10)
