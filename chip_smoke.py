@@ -13,6 +13,13 @@ non-zero:
                its plain version at the mixed100k shape and one more:
                within 2 float32 ulps of each segment's max |prefix|, two
                launches bitwise equal; both timed
+  3a. rkernel - the row-id prefix-sum kernel (mode (a), hist_clr_reps)
+               against its plain version, bitwise, at the 20k path's shape
+               and one genome1m chromosome; both timed
+  3b. pkernel - the permuted single-chromosome prefix-sum kernel (mode
+               (b'), _hist_perm_batch) against its plain version, bitwise,
+               at the 20k path's shape and at an int32 shape with a
+               chromosome start off a group boundary; both timed
   4. 20k     - the bench.py task (bench/data/bench_20k.sf, 50
                permutations) through the port's entry points; the
                kernel's launches are counted over this run; the first
@@ -28,13 +35,22 @@ non-zero:
   6. check   - a small single-depth input and a small mixed-depth input
                through the card and through the plain CPU versions must
                agree
-Then one JSON line with every kernel's numbers, and last the JSON status
-line.  Run from the repo root: python3 chip_smoke.py
+  7. rdp     - four routes to the permutation statistic on one stream of
+               the 20k task (hist_bf16=False): scan_permute with the RDP
+               tail forced on and off (thresholds equal, counts equal off
+               1e-4 near-ties, RDP dispatches only under "on"), then one
+               chunk of the RDP run recomputed through hist_clr_reps
+               (kernel 3a) and _hist_perm_batch (kernel 3b); the phase's
+               launches of every kernel are counted
+Then one JSON line with every kernel's numbers (time, plain time, bound,
+launches on a path of this run), and last the JSON status line.  Run
+from the repo root: python3 chip_smoke.py
 
 ``--profile`` instead runs phases 1-2 and then torch.profiler over the
 scan and the permutations of the 20k task, of the genome (16
-permutations) and of mixed100k (16 permutations): device time by kernel
-and the device's busy share, with the tables written under OUT.
+permutations) and of mixed100k (16 permutations), and over phase 7's
+permutations of the 20k task with RDP forced on and off: device time by
+kernel and the device's busy share, with the tables written under OUT.
 """
 
 from __future__ import annotations
@@ -52,6 +68,11 @@ OUT = REPO / "chiprun_out" / "smoke"
 # near-tie band excluded from the count comparison
 MIXED_TOL = 5e-3
 MIXED_BAND = 1e-3
+# peak rates of one H100 SXM at 700 W (NVIDIA's H100 datasheet): HBM
+# bytes/s, and operations/s outside the tensor cores (the float32 figure;
+# the kernels' compares and adds)
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
 
 
 def log(msg):
@@ -77,6 +98,17 @@ def cuda_time_ms(fn, iters):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def bound(tensors_in, tensors_out, ops):
+    """(bound_ms, bound_by): the larger of the bytes moved (each input
+    read once, each output written once) over the HBM rate and ops over
+    the peak rate."""
+    nbytes = sum(t.numel() * t.element_size()
+                 for t in (*tensors_in, *tensors_out))
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def phase_device():
@@ -147,6 +179,7 @@ def phase_kernel(dev, shapes):
             fail(f"kernel != plain at {label}: {int((bad > 0).sum())} "
                  f"entries differ, max {int(bad.max())}")
         err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+        b_ms, b_by = bound((table, sig, g0), (got,), 2 * got.numel())
         del got, want
         ms = cuda_time_ms(lambda: ps.onehot_prefix_sums(table, sig, g0, **kw),
                           20)
@@ -155,9 +188,10 @@ def phase_kernel(dev, shapes):
         mb = S * w * P * R * (2 if w <= 32767 else 4) / 1e6
         log(f"[kernel] {label}: S={S} w={w} P={P} R={R} bitwise equal; "
             f"kernel {ms:.4f} ms ({mb / ms:.1f} GB/s written), plain "
-            f"{plain_ms:.4f} ms")
+            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
         out.append(dict(label=label, S=S, w=w, P=P, R=R, ms=ms,
-                        plain_ms=plain_ms, max_abs_err=err, out_mb=mb))
+                        plain_ms=plain_ms, max_abs_err=err, out_mb=mb,
+                        bound_ms=b_ms, bound_by=b_by))
         torch.cuda.empty_cache()
     return out
 
@@ -209,6 +243,7 @@ def phase_wkernel(dev, shapes):
             fail(f"weighted kernel != plain at {label}: max |err| "
                  f"{max_abs:.4g} = {rel / eps:.3f} ulps of the segment's "
                  "max |prefix| (limit 2)")
+        b_ms, b_by = bound((table, wt, sig, g0), (got,), got.numel())
         del got, again, want, err
         torch.cuda.empty_cache()
         ms = cuda_time_ms(kern, 20)
@@ -218,10 +253,100 @@ def phase_wkernel(dev, shapes):
         log(f"[wkernel] {label}: S={S} w={w} P={P} R={R} ids={n_ids}; "
             f"max |err| {max_abs:.6g}, max err / segment max |prefix| "
             f"{rel:.4g} ({rel / eps:.3f} ulps); kernel {ms:.4f} ms "
-            f"({mb / ms:.1f} GB/s written), plain {plain_ms:.4f} ms")
+            f"({mb / ms:.1f} GB/s written), plain {plain_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
         out.append(dict(label=label, S=S, w=w, P=P, R=R, n_ids=n_ids, ms=ms,
                         plain_ms=plain_ms, max_abs_err=max_abs,
-                        max_rel_err=rel, out_mb=mb))
+                        max_rel_err=rel, out_mb=mb, bound_ms=b_ms,
+                        bound_by=b_by))
+    return out
+
+
+def _time_pair(tag, label, shape, kern, plain, tensors_in):
+    """Check kern() == plain() bitwise, time both; the phase's record."""
+    import torch
+
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    bad = (got.to(torch.int64) - want.to(torch.int64)).abs()
+    if got.dtype != want.dtype or bool((bad > 0).any()):
+        fail(f"{tag} kernel != plain at {label}: {int((bad > 0).sum())} "
+             f"entries differ, max {int(bad.max())}")
+    err = float(bad.max())
+    del bad
+    b_ms, b_by = bound(tensors_in, (got,), 2 * got.numel())
+    mb = got.numel() * got.element_size() / 1e6
+    dtype = str(got.dtype).replace("torch.", "")
+    del got, want
+    torch.cuda.empty_cache()
+    ms = cuda_time_ms(kern, 20)
+    plain_ms = cuda_time_ms(plain, 5)
+    torch.cuda.empty_cache()
+    log(f"[{tag}] {label}: {shape} {dtype} bitwise equal; kernel "
+        f"{ms:.4f} ms ({mb / ms:.1f} GB/s written), plain {plain_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by})")
+    return dict(label=label, shape=shape, dtype=dtype, ms=ms,
+                plain_ms=plain_ms, max_abs_err=err, out_mb=mb, bound_ms=b_ms,
+                bound_by=b_by)
+
+
+def phase_rkernel(dev, shapes):
+    """Phase 3a: the row-id kernel (mode (a)) vs plain, bitwise, times."""
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch.ops import prefix_sums as ps
+
+    rng = np.random.default_rng(2)
+    out = []
+    for label, P, W, R in shapes:
+        row_rep = torch.as_tensor(
+            rng.integers(0, R + 3, size=(P, W)).astype(np.int32), device=dev)
+        out.append(_time_pair(
+            "rkernel", label, f"P={P} W={W} R={R}",
+            lambda: ps.rowid_prefix_sums(row_rep, n_rows=R),
+            lambda: ps.rowid_prefix_sums_plain(row_rep, n_rows=R),
+            (row_rep,)))
+    return out
+
+
+def _perm_inputs(rng, W_genome, P, R, w_pad):
+    """Thin row-id table of a random genome and a sentinel-padded sigma
+    (random group permutations)."""
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch.ops.histclr import make_row_index_group_table
+
+    row_cg = rng.integers(0, R + 3, size=W_genome).astype(np.int32)
+    G = -(-W_genome // 32)
+    sig = np.stack([rng.permutation(G) for _ in range(P)]).astype(np.int32)
+    sig = np.concatenate([sig, np.full((P, w_pad // 32 + 2), G, np.int32)], 1)
+    table = make_row_index_group_table(torch.as_tensor(row_cg), sentinel=R)
+    return table.numpy(), sig
+
+
+def phase_pkernel(dev, shapes):
+    """Phase 3b: the single-chromosome permuted kernel (mode (b')) vs
+    plain, bitwise, times."""
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch.ops import prefix_sums as ps
+
+    rng = np.random.default_rng(3)
+    out = []
+    for label, W_genome, start, n, w_pad, P, R in shapes:
+        table, sig = (torch.as_tensor(x, device=dev) for x in
+                      _perm_inputs(rng, W_genome, P, R, w_pad))
+        kw = dict(start=start, n=n, w_pad=w_pad, n_rows=R)
+        out.append(_time_pair(
+            "pkernel", label,
+            f"start={start} (off {start % 32}) n={n} w_pad={w_pad} P={P} "
+            f"R={R}",
+            lambda: ps.perm_prefix_sums(table, sig, **kw),
+            lambda: ps.perm_prefix_sums_plain(table, sig, **kw),
+            (table, sig)))
     return out
 
 
@@ -298,7 +423,7 @@ def _check_result(result, label):
 
 
 def _load_model(data, compat):
-    from fscl_tpu.models import background_fsp, build_tables
+    from fscl_tpu_torch.models import background_fsp, build_tables
 
     fsp = background_fsp(data.obs_freq, data.depth_p, data.folded,
                          data.sample_depths, compat_mirror_unfolded=compat)
@@ -307,17 +432,24 @@ def _load_model(data, compat):
     return tables
 
 
+def _task_20k():
+    """bench.py's task: bench/data/bench_20k.sf, its tables and scan
+    configuration."""
+    from fscl_tpu_torch.engine.scan import ScanConfig
+    from fscl_tpu_torch.io import load_snp_input
+
+    data = load_snp_input(REPO / "bench" / "data" / "bench_20k.sf")
+    tables = _load_model(data, compat=True)
+    return data, tables, ScanConfig(small_grid_sp=1000, large_grid_sp=100000)
+
+
 def phase_20k(dev):
     import torch
 
     from fscl_tpu_torch.engine.permute import PermuteConfig
-    from fscl_tpu_torch.engine.scan import ScanConfig
-    from fscl_tpu_torch.io import load_snp_input
     from fscl_tpu_torch.ops import prefix_sums as ps
 
-    data = load_snp_input(REPO / "bench" / "data" / "bench_20k.sf")
-    tables = _load_model(data, compat=True)
-    scan_cfg = ScanConfig(small_grid_sp=1000, large_grid_sp=100000)
+    data, tables, scan_cfg = _task_20k()
     perm_cfg = PermuteConfig(n_permute=50, chunk_replicates=32, seed=1)
 
     # cold pass, then the timed pass with the launch count (bench.py order)
@@ -356,8 +488,8 @@ def genome_data():
     """bench/headline.py gen_genome1m, in memory: 22 x 45.5 Mb, K >= 2."""
     import numpy as np
 
-    from fscl_tpu.data import build_snp_data
-    from fscl_tpu.sim import simulate_dataset
+    from fscl_tpu_torch.data import build_snp_data
+    from fscl_tpu_torch.sim import simulate_dataset
 
     chrs, pos, fr = [], [], []
     for c in range(22):
@@ -373,6 +505,7 @@ def genome_data():
 
 
 def phase_genome(dev, n_permute=64):
+    from fscl_tpu_torch.engine import permute as TP
     from fscl_tpu_torch.engine.permute import (
         PermuteConfig, _ladder_pad, _sub_rep_for, setup_hist,
     )
@@ -387,6 +520,7 @@ def phase_genome(dev, n_permute=64):
     result, t_scan, t_perm = _run_main_path(
         data, tables, ScanConfig(), PermuteConfig(n_permute=n_permute), dev,
         OUT / "genome1m.tsv")
+    rdp_auto = dict(TP.last_stats)  # FSCL_RDP as set (auto by default)
     _check_result(result, "genome")
     hs = setup_hist(data, tables, result, ScanConfig(), PermuteConfig(), dev)
     stacks = [(st.w_seg_p, len(st.segs), _sub_rep_for(hs.ht, _ladder_pad(
@@ -398,11 +532,16 @@ def phase_genome(dev, n_permute=64):
         f" scan {t_scan:.3f}s, permute ({n_permute}) {t_perm:.3f}s, "
         f"{pr} point-rounds, {pr / t_perm:.1f} point-rounds/s, kernel "
         f"launches {ps.launches - before}")
+    log(f"[genome] RDP tail ({TP.RDP_FORCE}): {rdp_auto['rdp_dispatches']} "
+        f"RDP chunks, {rdp_auto['stack_dispatches']} stacked dispatches, "
+        f"{int(result.permute_finished.sum())} of {result.n_points} points "
+        "finished")
     return dict(sites=data.n_snps, points=result.n_points, scan_s=t_scan,
                 perm_s=t_perm, n_permute=n_permute, point_rounds=pr,
                 point_rounds_per_s=pr / t_perm, stacks=stacks,
                 n_rows=hs.ht.n_rows,
-                launches=ps.launches - before)
+                launches=ps.launches - before, rdp_mode=TP.RDP_FORCE,
+                **rdp_auto)
 
 
 def phase_mixed100k(dev, n_permute=64):
@@ -477,8 +616,8 @@ def _single_depth_check_data():
     """Two 3 Mb chromosomes at depth 30."""
     import numpy as np
 
-    from fscl_tpu.data import build_snp_data
-    from fscl_tpu.sim import simulate_dataset
+    from fscl_tpu_torch.data import build_snp_data
+    from fscl_tpu_torch.sim import simulate_dataset
 
     chrs, pos, fr = [], [], []
     for c in range(2):
@@ -498,8 +637,8 @@ def _mixed_check_data():
     the data has more than ROWS_MAX distinct table rows."""
     import numpy as np
 
-    from fscl_tpu.data import build_snp_data
-    from fscl_tpu.sim import simulate_dataset
+    from fscl_tpu_torch.data import build_snp_data
+    from fscl_tpu_torch.sim import simulate_dataset
 
     rng = np.random.default_rng(71)
     chrs, pos, fr, dep, fo = [], [], [], [], []
@@ -524,7 +663,7 @@ def phase_check(dev):
     """Small inputs on the card against the plain CPU versions."""
     import numpy as np
 
-    from fscl_tpu.models import background_fsp, build_tables
+    from fscl_tpu_torch.models import background_fsp, build_tables
     from fscl_tpu_torch.engine import scan_genome, scan_permute
     from fscl_tpu_torch.engine.permute import PermuteConfig
     from fscl_tpu_torch.engine.scan import ScanConfig, make_scan_hist_tables
@@ -579,45 +718,192 @@ def phase_check(dev):
     return out
 
 
+RDP_CHUNK = 32  # replicates of the RDP run's first chunk (chunk_replicates)
+
+
+def phase_rdp(dev):
+    """Phase 7: the four routes to the permutation statistic on the card,
+    on one stream of the 20k task; every kernel's launches counted."""
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch.engine import permute as TP
+    from fscl_tpu_torch.engine.scan import scan_genome
+    from fscl_tpu_torch.ops import histclr as H
+    from fscl_tpu_torch.ops import prefix_sums as ps
+    from fscl_tpu_torch.ops.permute import (
+        PERM_GROUP, block_permutation_runs, expand_group_sigma,
+        sigma_from_runs,
+    )
+
+    data, tables, scan_cfg = _task_20k()
+    perm_cfg = TP.PermuteConfig(n_permute=64, chunk_replicates=RDP_CHUNK,
+                                seed=1, hist_bf16=False)
+    result = scan_genome(data, tables, scan_cfg, device=dev)
+    torch.cuda.synchronize()
+    ps.launches = ps.weighted_launches = 0
+    ps.rowid_launches = ps.perm_launches = 0
+
+    # (i) scan_permute with the RDP tail forced on and off
+    runs, walls, stats = {}, {}, {}
+    saved = TP.RDP_FORCE
+    for force in ("on", "off"):
+        r = copy.deepcopy(result)
+        TP.RDP_FORCE = force
+        try:
+            t0 = time.monotonic()
+            TP.scan_permute(data, tables, r, scan_cfg,
+                            copy.deepcopy(perm_cfg), device=dev)
+            torch.cuda.synchronize()
+            walls[force] = time.monotonic() - t0
+        finally:
+            TP.RDP_FORCE = saved
+        runs[force], stats[force] = r, dict(TP.last_stats)
+    on, off = runs["on"], runs["off"]
+    if stats["on"]["rdp_dispatches"] <= 0 or stats["on"]["stack_dispatches"]:
+        fail(f"rdp: RDP forced on dispatched {stats['on']}")
+    if stats["off"]["rdp_dispatches"] or stats["off"]["stack_dispatches"] <= 0:
+        fail(f"rdp: RDP forced off dispatched {stats['off']}")
+    if not np.array_equal(on.stat_threshold, off.stat_threshold):
+        fail("rdp: thresholds differ between the RDP and stacked runs")
+    near = sorted({
+        i for i in range(result.n_points) for r in (on, off)
+        if np.any(np.abs(np.asarray(r.null_clr[i]) - r.stat_threshold[i])
+                  < 1e-4)
+    })
+    keep = np.setdiff1d(np.arange(result.n_points), near)
+    if not (np.array_equal(on.permute_n[keep], off.permute_n[keep])
+            and np.array_equal(on.permute_p[keep], off.permute_p[keep])):
+        fail("rdp: permutation counts differ between the RDP and stacked "
+             "runs off the near-tie points")
+    d_null = max((float(np.abs(np.subtract(on.null_clr[i][:n],
+                                           off.null_clr[i][:n])).max())
+                  for i in keep
+                  for n in [min(len(on.null_clr[i]), len(off.null_clr[i]))]
+                  if n), default=0.0)
+    pr_on, pr_off = int(on.permute_n.sum()), int(off.permute_n.sum())
+    log(f"[rdp] (i) 20k, 64 permutations, hist_bf16=False: RDP "
+        f"{walls['on']:.3f}s ({stats['on']['rdp_dispatches']} RDP chunks, "
+        f"{pr_on / walls['on']:.1f} point-rounds/s), stacked "
+        f"{walls['off']:.3f}s ({stats['off']['stack_dispatches']} stacked "
+        f"dispatches, {pr_off / walls['off']:.1f} point-rounds/s); "
+        f"thresholds equal; counts equal on {len(keep)} of "
+        f"{result.n_points} points (near-tie points excluded: {near}); max "
+        f"|null statistic difference| {d_null:.3g}")
+
+    # (ii) the RDP run's first chunk through hist_clr_reps (kernel 3a)
+    # and _hist_perm_batch (kernel 3b)
+    fresh = copy.deepcopy(result)
+    hs = TP.setup_hist(data, tables, fresh, scan_cfg, perm_cfg, dev)
+    ht = hs.ht
+    Jf = TP.stat_positions(perm_cfg)
+    width = perm_cfg.scan_width_mb * 1e6
+
+    def runs_source(n, start):
+        return block_permutation_runs(perm_cfg.seed, data.genome_pos(),
+                                      width, n, start=start, device=dev)
+
+    tail = TP._RdpTail(hs, fresh, scan_cfg.eval_range, Jf, runs_source,
+                       False)
+    pts, stat_rdp = tail.chunk(np.ones(fresh.n_points, bool), RDP_CHUNK, 0)
+    _, _, bounds, fbar = tail.ctx
+    src, dst, sz = runs_source(RDP_CHUNK, 0)
+    sigma8 = sigma_from_runs(src, dst, hs.n_groups)
+    kw = dict(n_cells=ht.n_cells, n_rows=ht.n_rows, n_alpha=ht.n_alpha)
+    clr_rdp = H.rdp_clr_reps(ht.t3, bounds, fbar, tail.psite, src, dst, sz,
+                             n_rep=RDP_CHUNK, pg=PERM_GROUP,
+                             n_groups=hs.n_groups, **kw)
+    row_rep = hs.row_cg[expand_group_sigma(sigma8, data.n_snps).long()]
+    clr_h = H.hist_clr_reps(ht.t3, bounds, fbar, row_rep, **kw)
+    stat_h = clr_h.reshape(RDP_CHUNK, len(pts), -1).amax(2)
+    cl = data.chr_limits[0]
+    w_pad = hs.stacks[0].w_seg_p
+    stat_b = TP._hist_perm_batch(
+        ht.t3, bounds - cl.start_index, fbar, hs.row_cg,
+        hs.pad_sigma(sigma8), start=cl.start_index, n=cl.n_snps,
+        w_pad=w_pad, n_pts=len(pts), Jf=Jf, **kw)
+    torch.cuda.synchronize()
+    if len(data.chr_limits) != 1 or len(pts) != result.n_points:
+        fail("rdp: the 20k task is one chromosome with every point active")
+    for what, got, want in (
+            ("hist_clr_reps CLR", clr_h, clr_rdp),
+            ("hist_clr_reps statistic", stat_h, stat_rdp),
+            ("_hist_perm_batch statistic", stat_b, stat_rdp)):
+        if not torch.allclose(got, want, rtol=1e-5, atol=1e-3):
+            d = float((got - want).abs().max())
+            fail(f"rdp: {what} differs from the RDP route by {d:.4g} "
+                 "(limit 1e-5 relative + 1e-3)")
+    d_h = float((clr_h - clr_rdp).abs().max())
+    d_b = float((stat_b - stat_rdp).abs().max())
+    launches = dict(onehot=ps.launches, weighted=ps.weighted_launches,
+                    rowid=ps.rowid_launches, perm=ps.perm_launches)
+    log(f"[rdp] (ii) first RDP chunk ({RDP_CHUNK} replicates, "
+        f"{len(pts)} points, {bounds.shape[0]} candidates): hist_clr_reps "
+        f"CLR max |diff| {d_h:.3g}, _hist_perm_batch statistic max |diff| "
+        f"{d_b:.3g} against the RDP route; the phase's kernel launches "
+        f"{launches}")
+    if min(launches["onehot"], launches["rowid"], launches["perm"]) <= 0 \
+            or launches["weighted"]:
+        fail(f"rdp: a kernel of the path did not launch: {launches}")
+    return dict(walls=walls, stats=stats, near_ties=near, kept=len(keep),
+                d_null=d_null, d_hist_clr_reps=d_h, d_hist_perm_batch=d_b,
+                launches=launches, n_points=result.n_points,
+                rowid_shape=(RDP_CHUNK, data.n_snps, ht.n_rows),
+                perm_shape=(cl.n_snps, w_pad, RDP_CHUNK, ht.n_rows))
+
+
 def phase_profile(dev):
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from fscl_tpu_torch.engine import permute as TP
     from fscl_tpu_torch.engine import scan_genome, scan_permute
     from fscl_tpu_torch.engine.permute import PermuteConfig
     from fscl_tpu_torch.engine.scan import ScanConfig
     from fscl_tpu_torch.io import load_snp_input
 
-    d20 = load_snp_input(REPO / "bench" / "data" / "bench_20k.sf")
-    t20 = _load_model(d20, compat=True)
+    d20, t20, s20 = _task_20k()
+    rdp_cfg = PermuteConfig(n_permute=64, chunk_replicates=RDP_CHUNK,
+                            seed=1, hist_bf16=False)
     dg = genome_data()
     tg = _load_model(dg, compat=False)
     dm = load_snp_input(REPO / "bench" / "data" / "headline_mixed100k.sf")
     tm = _load_model(dm, compat=True)
+    # (label, data, tables, scan config, permutation config, FSCL_RDP,
+    # stages)
     runs = [
-        ("20k", d20, t20, ScanConfig(small_grid_sp=1000,
-                                      large_grid_sp=100000),
-         PermuteConfig(n_permute=50, chunk_replicates=32, seed=1)),
-        ("genome", dg, tg, ScanConfig(), PermuteConfig(n_permute=16)),
-        ("mixed100k", dm, tm, ScanConfig(), PermuteConfig(n_permute=16)),
+        ("20k", d20, t20, s20,
+         PermuteConfig(n_permute=50, chunk_replicates=32, seed=1),
+         TP.RDP_FORCE, ("scan", "permute")),
+        ("genome", dg, tg, ScanConfig(), PermuteConfig(n_permute=16),
+         TP.RDP_FORCE, ("scan", "permute")),
+        ("mixed100k", dm, tm, ScanConfig(), PermuteConfig(n_permute=16),
+         TP.RDP_FORCE, ("scan", "permute")),
+        ("20k_rdp_on", d20, t20, s20, rdp_cfg, "on", ("permute",)),
+        ("20k_rdp_off", d20, t20, s20, rdp_cfg, "off", ("permute",)),
     ]
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    for label, data, tables, scan_cfg, perm_cfg in runs:
+    saved = TP.RDP_FORCE
+    for label, data, tables, scan_cfg, perm_cfg, rdp, stages in runs:
         scan_genome(data, tables, scan_cfg, device=dev)  # warm caches
-        for stage in ("scan", "permute"):
+        for stage in stages:
             if stage == "permute":
                 result = scan_genome(data, tables, scan_cfg, device=dev)
             torch.cuda.synchronize()
-            with profile(activities=acts) as prof:
-                t0 = time.monotonic()
-                if stage == "scan":
-                    scan_genome(data, tables, scan_cfg, device=dev)
-                else:
-                    scan_permute(data, tables, result, scan_cfg, perm_cfg,
-                                 device=dev)
-                torch.cuda.synchronize()
-                wall = time.monotonic() - t0
+            TP.RDP_FORCE = rdp
+            try:
+                with profile(activities=acts) as prof:
+                    t0 = time.monotonic()
+                    if stage == "scan":
+                        scan_genome(data, tables, scan_cfg, device=dev)
+                    else:
+                        scan_permute(data, tables, result, scan_cfg,
+                                     copy.deepcopy(perm_cfg), device=dev)
+                    torch.cuda.synchronize()
+                    wall = time.monotonic() - t0
+            finally:
+                TP.RDP_FORCE = saved
             ka = prof.key_averages()
             # device-side kernel and memcpy events only: an aten op's own
             # device time is its kernels', and runtime stalls such as
@@ -675,6 +961,17 @@ def main():
     wshapes = [("mixed100k main path", 4, 24576, sub_mix, 32, 1590),
                ("widest R=104, 8193 rows", 1, 36864, 16, 104, 8193)]
     wkern = phase_wkernel(dev, wshapes)
+    # 3a/3b: first the shapes phase 7 gives the kernels (the 20k task:
+    # 20,000 sites, one chromosome padded to 20,480, R=56, a 32-replicate
+    # chunk), then the 20k padded width and one genome1m-sized chromosome
+    # in int32 (its longest, 35,351 sites, starting off a group boundary)
+    rshapes = [("20k path", RDP_CHUNK, 20000, 56),
+               ("20k padded", RDP_CHUNK, 20480, 56),
+               ("genome1m chromosome", 16, 35351, 48)]
+    rkern = phase_rkernel(dev, rshapes)
+    pshapes = [("20k path", 20000, 0, 20000, 20480, RDP_CHUNK, 56),
+               ("genome1m chromosome", 80000, 40013, 35351, 36864, 16, 48)]
+    pkern = phase_pkernel(dev, pshapes)
     r20 = phase_20k(dev)
     if (r20["w_seg_p"], r20["sub_rep"], r20["n_rows"]) != (20480, sub_20k, 56):
         fail(f"20k main path ran at w={r20['w_seg_p']} P={r20['sub_rep']} "
@@ -689,32 +986,45 @@ def main():
         fail(f"mixed100k main path ran at {rm['stacks']} R={rm['n_rows']} "
              f"rows={rm['rows_used']}, not the shape phase 3c checked")
     chk = phase_check(dev)
+    rr = phase_rdp(dev)
+    if (rr["rowid_shape"] != (RDP_CHUNK, 20000, 56)
+            or rr["perm_shape"] != (20000, 20480, RDP_CHUNK, 56)):
+        fail(f"rdp path ran the kernels at {rr['rowid_shape']} and "
+             f"{rr['perm_shape']}, not the shapes phases 3a and 3b checked")
 
     detail = dict(device=name, nvidia_smi=smi, kernel=kern, wkernel=wkern,
-                  bench_20k=r20, genome=rg, mixed100k=rm, check=chk)
+                  rkernel=rkern, pkernel=pkern, bench_20k=r20, genome=rg,
+                  mixed100k=rm, check=chk, rdp=rr)
     (OUT / "smoke.json").write_text(json.dumps(detail, indent=1) + "\n")
-    k20, kmix = kern[0], wkern[0]
-    log(json.dumps({"kernels": [{
-        "name": "onehot_prefix_sums",
-        "route": "cuda",
-        "source": "fscl_tpu_torch/csrc/prefix_sums.cu",
-        "replaces": "fscl_tpu/ops/pallas_ps.py:148 (mode (b), segmented "
-                    "one-hot)",
-        "launches": r20["launches"],
-        "max_abs_err": max(k["max_abs_err"] for k in kern),
-        "ms": k20["ms"],
-        "plain_ms": k20["plain_ms"],
-    }, {
-        "name": "weighted_prefix_sums",
-        "route": "cuda",
-        "source": "fscl_tpu_torch/csrc/weighted_prefix_sums.cu",
-        "replaces": "fscl_tpu/ops/pallas_ps.py:148 (mode (c), f32 weight "
-                    "channels)",
-        "launches": rm["launches"],
-        "max_abs_err": max(k["max_abs_err"] for k in wkern),
-        "ms": kmix["ms"],
-        "plain_ms": kmix["plain_ms"],
-    }]}))
+
+    def entry(name, source, replaces, launches, runs):
+        main_shape = runs[0]
+        return {
+            "name": name, "route": "cuda",
+            "source": f"fscl_tpu_torch/csrc/{source}",
+            "replaces": f"fscl_tpu/ops/pallas_ps.py:148 ({replaces})",
+            "launches": launches,
+            "max_abs_err": max(k["max_abs_err"] for k in runs),
+            "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
+            "bound_ms": main_shape["bound_ms"],
+            "bound_by": main_shape["bound_by"],
+            # no single PyTorch call computes these fused functions
+            "library_ms": None,
+        }
+
+    log(smi)
+    log(json.dumps({"kernels": [
+        entry("onehot_prefix_sums", "prefix_sums.cu",
+              "mode (b), segmented one-hot", r20["launches"], kern),
+        entry("weighted_prefix_sums", "weighted_prefix_sums.cu",
+              "mode (c), f32 weight channels", rm["launches"], wkern),
+        entry("rowid_prefix_sums", "rowid_prefix_sums.cu",
+              "mode (a), row ids vs lane % R", rr["launches"]["rowid"],
+              rkern),
+        entry("perm_prefix_sums", "rowid_prefix_sums.cu",
+              "mode (b), unsegmented one-hot", rr["launches"]["perm"],
+              pkern),
+    ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

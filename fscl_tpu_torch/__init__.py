@@ -5,29 +5,34 @@ same scan and block-permutation test on one H100.  Layout mirrors
 ``fscl_tpu`` so each module's counterpart sits at the same path:
 
   - ``ops/``     hist tables (exact one-hot and SVD-compressed), run
-                 geometry, the hist statistic, the block permutation
-                 sigma, and the segmented prefix sums (one-hot counts and
-                 weight-channel sums) whose CUDA kernels live in
-                 ``csrc/``.
+                 geometry, the hist statistic (from per-replicate prefix
+                 sums, or run-decomposed from one site prefix), the block
+                 permutation sigma and its runs, and the prefix sums
+                 (segmented one-hot counts, weight-channel sums, row-id
+                 counts) whose CUDA kernels live in ``csrc/``.
   - ``engine/``  the hist genome scan, the hist permutation driver with
-                 >=20-exceedance pruning, p-values.
+                 >=20-exceedance pruning and its run-decomposed pruning
+                 tail, p-values.
   - ``io/``      the SNP file reader and the result writers.
+  - ``models/``, ``data.py``, ``utils/logging.py``, ``sim/``: host numpy
+                 code copied from the JAX package (sweep-model tables, the
+                 dataset container, logging, the simulator).
 
-The host-only numpy layers are imported from the JAX package unchanged:
-``fscl_tpu.models`` (background SFS, sweep tables), ``fscl_tpu.data``,
-``fscl_tpu.utils.logging`` and ``fscl_tpu.sim``.  None of them imports
-JAX, and this package never does either.
+The package stands alone: it imports neither ``jax`` nor anything of
+``fscl_tpu``.
 
-Every function takes its device explicitly.  ``cpu`` runs the plain
-PyTorch versions of the kernels (the tests use it); ``cuda`` needs a
-Hopper card and launches the hand-written kernels.
+Every entry point takes its device, ``cuda`` by default: a Hopper card,
+on which the hand-written kernels launch, or a RuntimeError where there
+is none.  ``cpu`` must be asked for; it runs the plain PyTorch versions
+of the kernels (the tests use it).
 """
-
-from fscl_tpu import LOG_AD_MAX, LOG_AD_MIN  # noqa: F401
 
 from . import device  # noqa: F401  (sets the float32 matmul precision)
 
 __version__ = "0.1.0"
+
+LOG_AD_MIN = -20.0  # sweep-model grid domain in log(alpha*distance)
+LOG_AD_MAX = 4.0
 
 
 class NotPortedError(NotImplementedError):

@@ -18,14 +18,13 @@ from __future__ import annotations
 import argparse
 import sys
 
-from fscl_tpu.models import background_fsp, build_tables
-from fscl_tpu.models.tables import DEFAULT_GRID_POINTS
-from fscl_tpu.utils.logging import MSG_ERROR, MSG_STATUS, configure_logmsg, logmsg
-
 from . import NotPortedError, __version__
 from .device import parse_device
 from .engine import PermuteConfig, ScanConfig, scan_genome, scan_permute
 from .io import load_snp_input, scan_output, write_null_distribution
+from .models import background_fsp, build_tables
+from .models.tables import DEFAULT_GRID_POINTS
+from .utils.logging import MSG_ERROR, MSG_STATUS, configure_logmsg, logmsg
 
 
 def build_parser():

@@ -2,7 +2,8 @@
 
 With these, a test feeds both packages identical table packs and run
 geometry: the JAX HistTables / HistPoints fields, read back as numpy
-arrays (``np.asarray``), become the port's dataclasses on ``device``.
+arrays (``np.asarray``), become the port's dataclasses on ``device``
+(``cuda`` unless the caller asks for ``cpu``).
 """
 
 from __future__ import annotations
@@ -10,14 +11,16 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .device import parse_device
 from .ops.histclr import HistPoints, HistTables
 
 
 def hist_tables_from_numpy(*, t3, row_map, rows_used, lalpha, offsets,
                            n_cells, n_rows, n_alpha, step, grid_points,
-                           weights=None, device="cpu"):
+                           weights=None, device="cuda"):
     """The port's HistTables from the JAX HistTables fields; ``weights``
     (compressed mode) is the JAX tables' [R_used+1, R] weight array."""
+    device = parse_device(device)
     if weights is not None:
         weights = torch.tensor(np.asarray(weights, dtype=np.float32),
                                device=device)
@@ -37,8 +40,9 @@ def hist_tables_from_numpy(*, t3, row_map, rows_used, lalpha, offsets,
 
 
 def hist_points_from_numpy(bounds, fbar, *, n_cand=None, n_real=None,
-                           device="cpu"):
+                           device="cuda"):
     """The port's HistPoints from JAX bounds [C, 2, NC+1] / fbar [C, 2, NC]."""
+    device = parse_device(device)
     b = torch.tensor(np.asarray(bounds, dtype=np.int32), device=device)
     f = torch.tensor(np.asarray(fbar, dtype=np.float32), device=device)
     C = b.shape[0]

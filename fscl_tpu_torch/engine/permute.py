@@ -2,7 +2,7 @@
 (port of fscl_tpu/engine/permute.py:_scan_permute_hist), in exact one-hot
 and in compressed mixed-depth mode.
 
-Reference: scan_permute (/root/reference/scan-chromosome.c:336-652).  A
+Reference: scan_permute (scan-chromosome.c:336-652).  A
 point counts an exceedance when a permuted replicate's statistic is >=
 its observed statistic; once it has >= 20 exceedances it finishes with
 probability permute_p/permute_n per further exceedance
@@ -19,23 +19,34 @@ prefix sum (ops/prefix_sums.py, a CUDA kernel on the card), then
 hist_clr_reps_ps and the max.  The host counts exceedances and prunes
 between chunks.
 
+Pruning tail (RDP, fscl_tpu/engine/permute.py:1812-1913): once the
+active bound set is far smaller than the live genome
+(RDP_BOUNDS_FACTOR * bound entries < live sites), a chunk runs through
+rdp_clr_reps instead: each replicate's permuted prefix is assembled at the
+bounds from the unpermuted site prefix and the replicate's runs, so its
+cost follows bounds, not sites.  FSCL_RDP=on/off forces the choice
+(exact one-hot tables only; compressed tables keep the stacked path).
+Both paths compute the same window counts, hence the same statistic.
+
 Chunk schedule (_boost) and point order (stacks by segment length, then
-chromosomes, then point ids) follow the JAX package, so the pruning RNG
-is consumed in the same order.  Not ported: speculative dispatch, RDP,
-the group-granular statistic, the warm pool, the sigma element cap,
+chromosomes, then point ids, on both paths) follow the JAX package, so
+the pruning RNG is consumed in the same order.  ``last_stats`` counts the
+last run's dispatches.  Not ported: speculative dispatch, the
+group-granular statistic, the warm pool, the sigma element cap,
 checkpointing and the device mesh.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 import signal
 import time
 
 import numpy as np
 import torch
 
-from fscl_tpu.utils.logging import (
+from ..utils.logging import (
     MSG_DEBUG1,
     MSG_STATUS,
     MSG_WARN,
@@ -44,16 +55,24 @@ from fscl_tpu.utils.logging import (
 )
 
 from .. import NotPortedError
-from ..device import canonical
+from ..device import parse_device
 from ..ops.histclr import (
     build_hist_points,
+    build_prefix_sums_oh,
     build_prefix_sums_seg,
+    build_site_prefix,
     hist_clr_reps_ps,
     hist_geometry_ok,
     hist_supported,
     make_row_index_group_table,
+    rdp_clr_reps,
 )
-from ..ops.permute import PERM_GROUP, block_permutation_groups
+from ..ops.permute import (
+    PERM_GROUP,
+    block_permutation_groups,
+    block_permutation_runs,
+    runs_from_sigma,
+)
 from .scan import get_hist_device_arrays, make_scan_hist_tables
 
 CLR_NULL_DIST_SAVE = 10000  # scan-chromosome.c:227
@@ -65,6 +84,15 @@ HIST_POINT_BUCKET = 256  # point-count scale of the boost tiers
 # byte budget of one slice's [S*w, P*R] prefix buffer: bounds device
 # memory; the statistic's values do not depend on it
 PS_BUDGET_BYTES = 2_400_000_000
+# pruning-tail path: "auto" takes RDP when RDP_BOUNDS_FACTOR * active
+# bound entries < live sites (the JAX package's measured crossover,
+# fscl_tpu/engine/permute.py:93-102); "on"/"off" force it
+RDP_FORCE = os.environ.get("FSCL_RDP", "auto")
+RDP_BOUNDS_FACTOR = 24
+
+# dispatch counts of the last scan_permute call: chunks through the RDP
+# path and stacked statistic dispatches of the chunk loop
+last_stats: dict = {}
 
 
 @dataclasses.dataclass
@@ -239,6 +267,62 @@ def _stack_stat(table, sigma, seg_g0, bounds, fbar, t3, *, w_seg_p, n_rows,
     return torch.cat(outs)
 
 
+def _perm_ps(table, sigma8, *, start, n, w_pad, n_rows):
+    """Permuted-stream prefix sums [w_pad+1, P*n_rows] of one chromosome
+    (fscl_tpu/engine/permute.py:648): sites start..start+n-1 of the
+    permuted genome, zero past n.  table: the thin [G+1, PERM_GROUP]
+    int16 row-id table; sigma8: [P, n_sig] sentinel-padded group sigma.
+    The gather, shift and mask run inside build_prefix_sums_oh."""
+    return build_prefix_sums_oh(table, sigma8, start=start, n=n,
+                                w_pad=w_pad, n_rows=n_rows)
+
+
+def _hist_stat(t3, bounds, fbar, ps, *, n_rep, n_cells, n_rows, n_alpha,
+               n_pts, Jf, mm_bf16=False):
+    """Statistic maxima per (replicate, point) from prebuilt prefix sums;
+    [n_rep, n_pts] (fscl_tpu/engine/permute.py:689)."""
+    clr = hist_clr_reps_ps(
+        t3, bounds, fbar, ps, n_rep=n_rep, n_cells=n_cells, n_rows=n_rows,
+        n_alpha=n_alpha, mm_bf16=mm_bf16,
+    )  # [P, n_pts*Jf, A]
+    return clr.reshape(n_rep, n_pts, Jf * n_alpha).amax(2)
+
+
+def _hist_perm_batch(t3, bounds, fbar, row_cg, sigma8, *, n_cells, n_rows,
+                     n_alpha, start, n, w_pad, n_pts, Jf):
+    """_perm_ps + _hist_stat for one chromosome in one call
+    (fscl_tpu/engine/permute.py:708, the single-chromosome statistic of
+    the micro-benchmarks).  row_cg: [W] int32 compact row ids of the
+    genome; sigma8 carries the sentinel padding _perm_ps needs; bounds
+    are chromosome-local."""
+    table = make_row_index_group_table(row_cg, sentinel=n_rows)
+    ps = _perm_ps(table, sigma8, start=start, n=n, w_pad=w_pad,
+                  n_rows=n_rows)
+    return _hist_stat(
+        t3, bounds, fbar, ps, n_rep=sigma8.shape[0], n_cells=n_cells,
+        n_rows=n_rows, n_alpha=n_alpha, n_pts=n_pts, Jf=Jf,
+    )
+
+
+def _rdp_stat(t3, bounds_gen, fbar, psite, src, dst, sz, *, n_cells,
+              n_rows, n_alpha, pg, n_groups, sub_rep, n_pts, Jf,
+              mm_bf16=False):
+    """Statistic maxima via the run-decomposed prefix; [rows, n_pts]
+    (fscl_tpu/engine/permute.py:918).  src/dst/sz: [rows, B] group-level
+    runs, taken sub_rep replicates at a time; bounds_gen: genome-site
+    bounds [n_pts*Jf, 2, NC+1]."""
+    outs = []
+    for r0 in range(0, src.shape[0], sub_rep):
+        s, d, z = (x[r0:r0 + sub_rep] for x in (src, dst, sz))
+        clr = rdp_clr_reps(
+            t3, bounds_gen, fbar, psite, s, d, z, n_rep=s.shape[0],
+            n_cells=n_cells, n_rows=n_rows, n_alpha=n_alpha, pg=pg,
+            n_groups=n_groups, mm_bf16=mm_bf16,
+        )  # [P, n_pts*Jf, A]
+        outs.append(clr.reshape(s.shape[0], n_pts, Jf * n_alpha).amax(2))
+    return torch.cat(outs)
+
+
 class _StackGroup:
     """Live chromosomes of one padded-length class, stacked for dispatch.
 
@@ -320,6 +404,7 @@ class HistSetup:
     """Tables, row-id group table and stacks of one permutation run."""
 
     ht: object
+    row_cg: torch.Tensor  # [W] int32 compact row id of every site
     table: torch.Tensor  # [G+1, PERM_GROUP] int16 row ids
     stacks: list
     n_groups: int
@@ -373,8 +458,8 @@ def setup_hist(data, tables, result, scan_cfg, cfg, device):
             for st in stacks for seg in st.segs
         ]
     )
-    return HistSetup(ht=ht, table=table, stacks=stacks, n_groups=n_groups,
-                     margin=margin)
+    return HistSetup(ht=ht, row_cg=row_cg, table=table, stacks=stacks,
+                     n_groups=n_groups, margin=margin)
 
 
 def active_by_chr(result, st, act):
@@ -387,17 +472,107 @@ def active_by_chr(result, st, act):
     return out
 
 
+class _RdpTail:
+    """The run-decomposed pruning-tail path of one permutation run
+    (fscl_tpu/engine/permute.py:1812-1913).
+
+    Geometry is genome-site bounds over the active points, in the stacked
+    drain order (stacks, then segments, then ascending point ids), so
+    _apply_round_updates consumes the host RNG exactly as on the stacked
+    path; it is rebuilt whenever the active set changes.  The site prefix
+    psite is built once, at the first RDP chunk."""
+
+    def __init__(self, hs, result, eval_range, Jf, runs_source, mm_bf16):
+        self.hs = hs
+        self.result = result
+        self.eval_range = eval_range
+        self.Jf = Jf
+        self.runs_source = runs_source
+        self.mm_bf16 = mm_bf16
+        self.chr_sites = {seg[0]: seg[2] for st in hs.stacks
+                          for seg in st.segs}
+        self.psite = None
+        self.ctx = None  # (active-set key, pts, bounds_gen, fbar)
+
+    def wanted(self, active):
+        """Whether the next chunk takes the RDP path."""
+        if self.hs.ht.weights is not None or RDP_FORCE == "off":
+            return False
+        if RDP_FORCE == "on":
+            return True
+        n_act = int(active.sum())
+        if n_act == 0:
+            return False
+        live = np.unique(self.result.chr_id[active])
+        live_sites = sum(self.chr_sites.get(int(c), 0) for c in live)
+        bound_entries = n_act * self.Jf * 2 * (self.hs.ht.n_cells + 1)
+        return RDP_BOUNDS_FACTOR * bound_entries < live_sites
+
+    def _rebuild(self, active):
+        ht, result, Jf = self.hs.ht, self.result, self.Jf
+        parts_b, parts_f, pts_all = [], [], []
+        for st in self.hs.stacks:
+            for c, start, _, pos_np, dev_arrays in st.segs:
+                pts = np.where((result.chr_id == c) & active)[0]
+                if len(pts) == 0:
+                    continue
+                hp = build_hist_points(
+                    ht, pos_np, _fine_cand(result, pts, Jf), self.eval_range,
+                    cand_pad=Jf, device_arrays=dev_arrays,
+                )
+                parts_b.append(hp.bounds + start)
+                parts_f.append(hp.fbar)
+                pts_all.append(pts)
+        return (np.concatenate(pts_all), torch.cat(parts_b),
+                torch.cat(parts_f))
+
+    def chunk(self, active, R, start):
+        """(pts, [R, len(pts)] statistic maxima) of replicates
+        start..start+R-1, HIST_REP_SUB replicates a slice."""
+        hs = self.hs
+        ht = hs.ht
+        if self.psite is None:
+            self.psite = build_site_prefix(hs.row_cg, n_rows=ht.n_rows)
+        key = active.tobytes()
+        if self.ctx is None or self.ctx[0] != key:
+            self.ctx = (key, *self._rebuild(active))
+        _, pts, bounds, fbar = self.ctx
+        rp = -(-R // HIST_REP_SUB) * HIST_REP_SUB
+        dev = ht.t3.device
+        src, dst, sz = (
+            torch.as_tensor(x if isinstance(x, torch.Tensor) else np.array(x))
+            .to(device=dev, dtype=torch.int32)
+            for x in self.runs_source(rp, start)
+        )
+        out = _rdp_stat(
+            ht.t3, bounds, fbar, self.psite, src, dst, sz,
+            n_cells=ht.n_cells, n_rows=ht.n_rows, n_alpha=ht.n_alpha,
+            pg=PERM_GROUP, n_groups=hs.n_groups, sub_rep=HIST_REP_SUB,
+            n_pts=len(pts), Jf=self.Jf, mm_bf16=self.mm_bf16,
+        )
+        last_stats["rdp_dispatches"] += 1
+        return pts, out[:R]
+
+
 def scan_permute(data, tables, result, scan_cfg, cfg: PermuteConfig,
-                 dump_fn=None, device="cpu", sigma_source=None):
+                 dump_fn=None, device="cuda", sigma_source=None,
+                 runs_source=None):
     """Run up to cfg.n_permute block-permutation rounds with pruning.
 
     Mutates ``result`` in place: permute_n / permute_p / permute_finished,
     stat_threshold and the per-point null reservoirs.  sigma_source(n,
     start) -> [n, G] int32 group sigma of replicates start..start+n-1;
-    the default is this package's block_permutation_groups.
+    runs_source(n, start) -> their (src, dst, sz) [n, B] int32 runs, for
+    the RDP path.  The defaults are this package's
+    block_permutation_groups and block_permutation_runs, one stream; an
+    injected sigma_source without runs_source gets the runs of its own
+    sigma (runs_from_sigma), so both paths see one stream.
     """
+    device = parse_device(device)
     if cfg.n_permute <= 0:
         return result
+    if RDP_FORCE not in ("auto", "on", "off"):
+        raise ValueError(f"FSCL_RDP={RDP_FORCE!r}: use auto, on or off")
     if not cfg.use_hist:
         raise NotPortedError(
             "the lattice permutation path (--no-hist) is not yet ported"
@@ -415,18 +590,27 @@ def scan_permute(data, tables, result, scan_cfg, cfg: PermuteConfig,
             f"this dataset ({len(rows_used)} distinct rows, {max_n} sites) "
             "needs the lattice permutation path, which is not yet ported"
         )
-    device = canonical(device)
+    gpos = data.genome_pos()
+    width_bp = cfg.scan_width_mb * 1e6
     if sigma_source is None:
-        gpos = data.genome_pos()
-        width_bp = cfg.scan_width_mb * 1e6
-
         def sigma_source(n, start):
             return block_permutation_groups(
                 cfg.seed, gpos, width_bp, n, start=start, device=device
             )
 
+        if runs_source is None:
+            def runs_source(n, start):
+                return block_permutation_runs(
+                    cfg.seed, gpos, width_bp, n, start=start, device=device
+                )
+    if runs_source is None:
+        def runs_source(n, start):
+            return runs_from_sigma(sigma_source(n, start))
+
+    last_stats.clear()
+    last_stats.update(rdp_dispatches=0, stack_dispatches=0)
     _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
-                       sigma_source)
+                       sigma_source, runs_source)
     bad = ~np.isfinite(result.clr)
     if bad.any():
         logmsg(MSG_WARN, "%d scan points with non-finite CLR", int(bad.sum()))
@@ -434,10 +618,12 @@ def scan_permute(data, tables, result, scan_cfg, cfg: PermuteConfig,
 
 
 def _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
-                       sigma_source):
+                       sigma_source, runs_source):
     rng = np.random.default_rng(cfg.seed)
     t0 = time.monotonic()
     hs = setup_hist(data, tables, result, scan_cfg, cfg, device)
+    rdp = _RdpTail(hs, result, scan_cfg.eval_range, stat_positions(cfg),
+                   runs_source, cfg.hist_bf16)
     K = result.n_points
     for i in range(K):
         if result.null_clr[i] is None:
@@ -482,33 +668,29 @@ def _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
             boost = _boost(int(active.sum()), rounds_done)
             R = min(cfg.chunk_replicates * boost,
                     cfg.n_permute - rounds_done)
-            live = [st for st in hs.stacks
-                    if st.pts is not None and active[st.pts].any()]
-            for st in live:
-                if st.due(result, active):
-                    st.rebuild(result, active_by_chr(result, st, active))
-            n_rows_needed = max(-(-R // st.sub_rep) * st.sub_rep
-                                for st in live)
-            sigma = hs.pad_sigma(sigma_source(n_rows_needed, rounds_done))
-            pending = []
-            for st in live:
-                rp = -(-R // st.sub_rep) * st.sub_rep
-                pending.append((st, st.stat(hs.table, sigma[:rp], cfg)[:R]))
-            host = torch.cat([o for _, o in pending], 1).cpu().numpy()
+            if rdp.wanted(active):
+                pts, out = rdp.chunk(active, R, rounds_done)
+                blocks = [(pts, out)]
+                path = "rdp"
+            else:
+                blocks = _stack_chunk(hs, cfg, result, active, R, rounds_done,
+                                      sigma_source)
+                path = "hist"
+            host = torch.cat([o for _, o in blocks], 1).cpu().numpy()
             off = 0
-            for st, _ in pending:
+            for pts, _ in blocks:
                 _apply_round_updates(
-                    result, active, threshold, rng, cfg, st.pts,
-                    host[:, off:off + len(st.pts)], rounds_done, R,
+                    result, active, threshold, rng, cfg, pts,
+                    host[:, off:off + len(pts)], rounds_done, R,
                 )
-                off += len(st.pts)
+                off += len(pts)
             rounds_done += R
             cr_logmsg(
                 MSG_STATUS,
                 "Scanning snp block permutations... %7d (%d scan pts "
                 "remaining)", rounds_done, int(active.sum()),
             )
-            logmsg(MSG_DEBUG1, "hist round chunk of %d: %.2fs", R,
+            logmsg(MSG_DEBUG1, "%s round chunk of %d: %.2fs", path, R,
                    time.monotonic() - tr)
             intr.maybe_dump()
     logmsg(
@@ -517,3 +699,21 @@ def _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
         rounds_done,
     )
     return result
+
+
+def _stack_chunk(hs, cfg, result, active, R, start, sigma_source):
+    """[(pts, [R, len(pts)] statistic maxima)] of one chunk on the stacked
+    path, one entry per live stack (compacted first where due)."""
+    live = [st for st in hs.stacks
+            if st.pts is not None and active[st.pts].any()]
+    for st in live:
+        if st.due(result, active):
+            st.rebuild(result, active_by_chr(result, st, active))
+    n_rows_needed = max(-(-R // st.sub_rep) * st.sub_rep for st in live)
+    sigma = hs.pad_sigma(sigma_source(n_rows_needed, start))
+    blocks = []
+    for st in live:
+        rp = -(-R // st.sub_rep) * st.sub_rep
+        blocks.append((st.pts, st.stat(hs.table, sigma[:rp], cfg)[:R]))
+        last_stats["stack_dispatches"] += 1
+    return blocks

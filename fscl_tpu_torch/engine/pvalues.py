@@ -2,7 +2,7 @@
 
 Numpy copy of fscl_tpu/engine/pvalues.py.
 
-Empirical rule mirrors scan_output (/root/reference/scan-chromosome.c:718-728):
+Empirical rule mirrors scan_output (scan-chromosome.c:718-728):
 p = (permute_p - 1) / (permute_n - 1), or 1 / permute_n when permute_p < 2.
 
 The reference README (README.md:9-13) additionally describes projecting the

@@ -1,6 +1,6 @@
 """Genome scan engine, hist path (port of fscl_tpu/engine/scan.py).
 
-Reference: scan_chromosome (/root/reference/scan-chromosome.c:228-329).
+Reference: scan_chromosome (scan-chromosome.c:228-329).
 The C bisects each coarse interval greedily to bp_resl; here every
 fine-grid position of every interval is evaluated in one batch (dense
 stage, plus SNP-anchored probes), the per-interval top branches are
@@ -24,11 +24,8 @@ import time
 import numpy as np
 import torch
 
-from fscl_tpu import LOG_AD_MAX, LOG_AD_MIN
-from fscl_tpu.utils.logging import MSG_DEBUG1, MSG_STATUS, cr_logmsg, logmsg
-
-from .. import NotPortedError
-from ..device import canonical
+from .. import LOG_AD_MAX, LOG_AD_MIN, NotPortedError
+from ..device import canonical, parse_device
 from ..ops.histclr import (
     build_hist_points,
     build_hist_tables,
@@ -38,6 +35,7 @@ from ..ops.histclr import (
     make_hist_device_arrays,
 )
 from ..ops.windows import candidate_windows
+from ..utils.logging import MSG_DEBUG1, MSG_STATUS, cr_logmsg, logmsg
 
 
 @dataclasses.dataclass
@@ -134,7 +132,7 @@ def _port_cache(data, device):
 
 
 def make_scan_hist_tables(data, tables, n_alpha=128, decimate=1,
-                          device="cpu"):
+                          device="cuda"):
     """Genome-wide HistTables (memoized per (n_alpha, decimation)).
 
     Decimation is capped so the decimated lattice step stays under ~0.1
@@ -142,7 +140,7 @@ def make_scan_hist_tables(data, tables, n_alpha=128, decimate=1,
     rows the tables are SVD-compressed, their channels centred by the
     dataset's site mix.  Datasets the hist engine does not cover raise
     NotPortedError."""
-    device = canonical(device)
+    device = parse_device(device)
     base_step = (LOG_AD_MAX - LOG_AD_MIN) / max(tables.grid_points - 1, 1)
     decimate = max(1, min(int(decimate), int(0.1 / base_step)))
     cache = _port_cache(data, device)
@@ -406,14 +404,14 @@ class _ChrScanState:
         self.cand_x = self.owner_x = None
 
 
-def scan_genome(data, tables, cfg: ScanConfig, device="cpu") -> ScanResult:
+def scan_genome(data, tables, cfg: ScanConfig, device="cuda") -> ScanResult:
     """Scan all chromosomes; returns one scan point per coarse interval.
 
     All chromosomes advance through each stage (dense grid, refine
     rounds, tie resolution) together, with one host readback per stage.
     """
     t0 = time.monotonic()
-    device = canonical(device)
+    device = parse_device(device)
     if not cfg.use_hist:
         raise NotPortedError(
             "the per-site lattice scan (--no-hist) is not yet ported"

@@ -2,7 +2,7 @@
 
 Numpy copy of fscl_tpu/io/output.py (scan_output, write_null_distribution).
 
-scan_output (/root/reference/scan-chromosome.c:666-750):
+scan_output (scan-chromosome.c:666-750):
   * with permutations:  chr pos CLR alpha permute_p permute_n -log10(p)
   * without:            chr pos CLR alpha n_snps win_start_pos win_end_pos
   * --max-only:         one line for the global max (ms replicate mode)
@@ -21,7 +21,7 @@ import sys
 
 import numpy as np
 
-from fscl_tpu.utils.logging import MSG_STATUS, logmsg
+from ..utils.logging import MSG_STATUS, logmsg
 
 from ..engine.pvalues import empirical_pvalues, projected_pvalues
 

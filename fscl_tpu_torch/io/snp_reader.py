@@ -13,8 +13,8 @@ from __future__ import annotations
 
 import numpy as np
 
-from fscl_tpu.data import SNPData, build_snp_data
-from fscl_tpu.utils.logging import MSG_ERROR, MSG_STATUS, cr_logmsg, logmsg
+from ..data import SNPData, build_snp_data
+from ..utils.logging import MSG_ERROR, MSG_STATUS, cr_logmsg, logmsg
 
 
 def _parse_python(path):

@@ -116,7 +116,13 @@ def load():
         vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, i, vp,
     ]
     lib.fscl_weighted_prefix_sums.restype = i
-    for tile in (lib.fscl_ps_tile, lib.fscl_wps_tile):
+    lib.fscl_rowid_prefix_sums.argtypes = [vp, vp, vp, i, i, i, i, vp]
+    lib.fscl_rowid_prefix_sums.restype = i
+    lib.fscl_perm_prefix_sums.argtypes = [
+        vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, vp,
+    ]
+    lib.fscl_perm_prefix_sums.restype = i
+    for tile in (lib.fscl_ps_tile, lib.fscl_wps_tile, lib.fscl_rps_tile):
         tile.argtypes = []
         tile.restype = i
     lib.fscl_cuda_error_string.argtypes = [i]

@@ -24,6 +24,14 @@ prefix counts).  Above it, up to COMPRESS_ROWS_MAX, the row family is
 SVD-compressed to f32 weight channels (_build_hist_tables_compressed):
 each site contributes its weight row instead of a one-hot indicator, and
 the prefix sums become f32 sums of weights.
+
+Step 1 has several sources, one statistic: the stacked segmented prefix
+(build_prefix_sums_seg, the permutation driver's main path), the prefix
+of replicate-stacked row ids (build_prefix_sums, hist_clr_reps), the
+prefix of one chromosome's permuted stream (build_prefix_sums_oh), and,
+in the pruning tail, the run-decomposed prefix assembled at the bounds
+from one unpermuted site prefix (rdp_clr_reps).  Steps 2-3 from the
+window counts onward are one function, _clr_from_windows.
 """
 
 from __future__ import annotations
@@ -33,11 +41,15 @@ import dataclasses
 import numpy as np
 import torch
 
-from fscl_tpu import LOG_AD_MAX, LOG_AD_MIN
-
-from .. import NotPortedError
-from .permute import PERM_GROUP
-from .prefix_sums import onehot_prefix_sums, weighted_prefix_sums
+from .. import LOG_AD_MAX, LOG_AD_MIN, NotPortedError
+from ..device import parse_device
+from .permute import PERM_GROUP, sigma_from_runs
+from .prefix_sums import (
+    onehot_prefix_sums,
+    perm_prefix_sums,
+    rowid_prefix_sums,
+    weighted_prefix_sums,
+)
 from .windows import candidate_windows
 
 DEFAULT_N_ALPHA = 128
@@ -92,7 +104,7 @@ class HistTables:
 
 def build_hist_tables(table_np, grid_points, null_row, rows_used, extent_bp,
                       n_alpha=DEFAULT_N_ALPHA, row_pad=8, decimate=1,
-                      site_row_counts=None, compress=None, device="cpu"):
+                      site_row_counts=None, compress=None, device="cuda"):
     """Pack (table - null) rows for the histogram contraction.
 
     table_np: [n_rows_total, G]; null_row: [n_rows_total] per-row null
@@ -102,6 +114,7 @@ def build_hist_tables(table_np, grid_points, null_row, rows_used, extent_bp,
     site_row_counts ([n_rows_total] site counts) weights the centring of
     their channels by the data's site mix.
     """
+    device = parse_device(device)
     if len(rows_used) > COMPRESS_ROWS_MAX:
         raise NotPortedError(
             f"{len(rows_used)} distinct table rows (> {COMPRESS_ROWS_MAX}) "
@@ -273,12 +286,13 @@ class HistPoints:
 _LIMB_BITS = 20  # position prefix limbs: S = hi * 2^20 + lo
 
 
-def build_pos_prefix(pos_np, device="cpu"):
+def build_pos_prefix(pos_np, device="cuda"):
     """[W+1, 2] int32 limbs (hi, lo) of the exact position prefix sum.
 
     fbar's f32 arithmetic (hi * 2^20 + lo, fscl_tpu/ops/histclr.py:
     440-449) is kept in the same order so fbar agrees with the JAX
     package to f32 rounding."""
+    device = parse_device(device)
     pos = np.asarray(pos_np, dtype=np.int64)
     ps = np.zeros(len(pos) + 1, dtype=np.int64)
     np.cumsum(pos, out=ps[1:])
@@ -504,8 +518,73 @@ def build_prefix_sums_seg(table, sig, seg_g0, *, w_seg_p, n_rows,
     return weighted_prefix_sums(table, weights, sig, seg_g0, w_seg_p=w_seg_p)
 
 
+def build_prefix_sums_oh(table, sig, *, start, n, w_pad, n_rows):
+    """[w_pad+1, P*n_rows] prefix sums of one chromosome's permuted
+    one-hot stream, row 0 zero (fscl_tpu/ops/histclr.py:811 with the
+    gather, shift and mask of its caller _perm_ps fused in front:
+    ops/prefix_sums.py:perm_prefix_sums, a CUDA kernel on the card).
+    int16 where counts fit (w_pad <= 32767), else int32."""
+    return perm_prefix_sums(table, sig, start=start, n=n, w_pad=w_pad,
+                            n_rows=n_rows)
+
+
+def build_prefix_sums(row_rep, *, n_rows):
+    """[W+1, P*n_rows] one-hot prefix sums of replicate-stacked row ids,
+    row 0 zero (fscl_tpu/ops/histclr.py:873).
+
+    row_rep: [P, W] integer compact row ids per replicate (ids >= n_rows
+    count nowhere).  int16 where counts fit (W <= 32767), else int32.
+    ops/prefix_sums.py:rowid_prefix_sums builds them: a CUDA kernel on
+    the card, the plain version on the CPU.
+    """
+    return rowid_prefix_sums(row_rep.to(torch.int32).contiguous(),
+                             n_rows=n_rows)
+
+
+def build_site_prefix(row_compact, *, n_rows):
+    """[W+1, R] int32 prefix of the unpermuted genome one-hot stream
+    (fscl_tpu/ops/histclr.py:930): built once per dataset, the table
+    rdp_clr_reps assembles every replicate's permuted prefix from."""
+    row = row_compact.to(torch.int32)
+    oh = row[:, None] == torch.arange(n_rows, dtype=torch.int32,
+                                      device=row.device)
+    out = torch.zeros((row.shape[0] + 1, n_rows), dtype=torch.int32,
+                      device=row.device)
+    out[1:] = torch.cumsum(oh.to(torch.int32), 0, dtype=torch.int32)
+    return out
+
+
 def _bf16_round(x):
     return x.to(torch.bfloat16).to(torch.float32)
+
+
+def _clr_from_windows(h, fc, t3m, *, n_rep, n_cells, n_rows, n_alpha,
+                      mm_bf16):
+    """2 * contraction of the lerped window counts with the table pack,
+    shared by hist_clr_reps_ps and rdp_clr_reps.
+
+    h: [c, 2, NC, P*R] f32 signed window counts (side, cell, replicate,
+    row); fc: [c, 2, NC] fbar; t3m: [2*NC*R, A] pack (bf16-rounded when
+    mm_bf16).  The fbar lerp splits h into w0 and w1, summed over the two
+    sides; mm_bf16 rounds the operand to bfloat16 and keeps a float32
+    product.  Returns [c, P, A] f32.
+    """
+    NC, R, A, P = n_cells, n_rows, n_alpha, n_rep
+    c = h.shape[0]
+    w0 = (h * (1.0 - fc[..., None])).sum(1)  # [c, NC, P*R]
+    w1 = (h * fc[..., None]).sum(1)
+    k = torch.cat([w0, w1], 1).reshape(c, 2 * NC, P, R)
+    k = k.permute(0, 2, 1, 3).reshape(c * P, 2 * NC * R)
+    if mm_bf16:
+        k = _bf16_round(k)
+    return 2.0 * torch.matmul(k, t3m).reshape(c, P, A)
+
+
+def _chunk_rows(n_cells, n_rep, n_rows):
+    """Candidates per chunk: the gathered [c, 2, NC+1, P*R] prefix rows
+    stay within CHUNK_BYTES at 4 bytes an entry."""
+    return max(1, CHUNK_BYTES // max(2 * (n_cells + 1) * n_rep * n_rows * 4,
+                                     1))
 
 
 def hist_clr_reps_ps(t3, bounds, fbar, ps, *, n_rep, n_cells, n_rows,
@@ -515,32 +594,123 @@ def hist_clr_reps_ps(t3, bounds, fbar, ps, *, n_rep, n_cells, n_rows,
 
     Per candidate chunk: the bounds gather ps[bounds], the signed
     adjacent difference in the prefix dtype (int16 wraps mod 2^16 exactly
-    as the JAX package's mod-2^16 rule relies on), the fbar lerp into w0
-    and w1, then the (cell, row) contraction against t3 as one float32
-    matmul.  mm_bf16 rounds both operands to bfloat16 and keeps the
-    float32 product and accumulation (the JAX package's bf16 inputs with
-    preferred_element_type=f32).  Returns [P, C, A] f32.
+    as the JAX package's mod-2^16 rule relies on), then
+    _clr_from_windows.  mm_bf16 rounds both operands to bfloat16 and
+    keeps the float32 product and accumulation (the JAX package's bf16
+    inputs with preferred_element_type=f32).  Returns [P, C, A] f32.
     """
-    NC, R, A = n_cells, n_rows, n_alpha
-    P = n_rep
+    P, A = n_rep, n_alpha
     C = bounds.shape[0]
     sign = torch.tensor([-1, 1], dtype=ps.dtype, device=ps.device)
     t3m = _bf16_round(t3) if mm_bf16 else t3
-    c_sub = max(1, CHUNK_BYTES // max(2 * (NC + 1) * P * R * 4, 1))
+    c_sub = _chunk_rows(n_cells, P, n_rows)
     outs = []
     for c0 in range(0, C, c_sub):
         bc = bounds[c0:c0 + c_sub].to(torch.int64)
-        fc = fbar[c0:c0 + c_sub]
-        c = bc.shape[0]
         psb = ps[bc]  # [c, 2, NC+1, P*R]
         h = ((psb[:, :, 1:, :] - psb[:, :, :-1, :])
              * sign[None, :, None, None]).to(torch.float32)
-        w0 = (h * (1.0 - fc[..., None])).sum(1)  # [c, NC, P*R]
-        w1 = (h * fc[..., None]).sum(1)
-        k = torch.cat([w0, w1], 1).reshape(c, 2 * NC, P, R)
-        k = k.permute(0, 2, 1, 3).reshape(c * P, 2 * NC * R)
-        if mm_bf16:
-            k = _bf16_round(k)
-        outs.append(2.0 * torch.matmul(k, t3m).reshape(c, P, A))
+        outs.append(_clr_from_windows(
+            h, fbar[c0:c0 + c_sub], t3m, n_rep=P, n_cells=n_cells,
+            n_rows=n_rows, n_alpha=A, mm_bf16=mm_bf16,
+        ))
+    out = torch.cat(outs) if outs else t3.new_zeros((0, P, A))
+    return out.permute(1, 0, 2)
+
+
+def hist_clr_reps(t3, bounds, fbar, row_rep, *, n_cells, n_rows, n_alpha,
+                  mm_bf16=False):
+    """CLR[p, c, a] for every (replicate, candidate, lattice alpha) from
+    per-replicate row ids (fscl_tpu/ops/histclr.py:907).
+
+    Run geometry is replicate-invariant, so the replicates stack into the
+    prefix columns: build_prefix_sums of row_rep ([P, W] int32 compact
+    row ids of each permuted stream), then hist_clr_reps_ps.  Returns
+    [P, C, A] f32.
+    """
+    ps = build_prefix_sums(row_rep, n_rows=n_rows)
+    return hist_clr_reps_ps(
+        t3, bounds, fbar, ps, n_rep=row_rep.shape[0], n_cells=n_cells,
+        n_rows=n_rows, n_alpha=n_alpha, mm_bf16=mm_bf16,
+    )
+
+
+def rdp_clr_reps(t3, bounds_gen, fbar, psite, src_starts, dst_starts,
+                 sizes, *, n_rep, n_cells, n_rows, n_alpha, pg, n_groups,
+                 mm_bf16=False):
+    """CLR[p, c, a] via the run-decomposed permuted prefix (RDP,
+    fscl_tpu/ops/histclr.py:951).
+
+    A replicate's block permutation is B contiguous source runs: output
+    groups [dst[k], dst[k] + sz[k]) take source groups [src[k], ...)
+    (ops/permute.py:block_permutation_runs).  Its permuted one-hot prefix
+    at genome site b telescopes to
+
+        A(b) = D[k(b)] + psite[sigma8[b // pg] * pg + b % pg]
+
+    with k(b) the run of b's group, D[k] = (exclusive prefix of the run
+    totals)[k] - psite[src[k] * pg], and psite the unpermuted site prefix
+    (build_site_prefix).  Per (bound, replicate) that is two row gathers
+    against precomputed tables, so the cost follows bounds x replicates,
+    not sites x replicates.
+
+    Layout: the small per-group tables (run id and source group, [G, P])
+    are transposed and row-gathered at the bound groups, so the large
+    gathers d_flat[k + p_off] + psite[src_site] land directly in
+    [M, P, R] consumption order; nothing large is transposed.  Window
+    differences equal the stacked prefix differences exactly (the same
+    integers), and _clr_from_windows turns them into the same statistic.
+
+    bounds_gen: [C, 2, NC+1] int32 genome-site bounds (all-zero rows, the
+    padding candidates, give h = 0 and CLR exactly 0); fbar [C, 2, NC];
+    psite [W+1, R] int32; src/dst/sizes: [P, B] int32 group-level runs;
+    n_groups = G.  Returns [P, C, A] f32.
+    """
+    NC, R, A, P = n_cells, n_rows, n_alpha, n_rep
+    B = src_starts.shape[1]
+    G = int(n_groups)
+    W1 = psite.shape[0]
+    dev = psite.device
+    src = src_starts.to(torch.int64)
+    dst = dst_starts.to(torch.int64)
+    sz = sizes.to(torch.int64)
+
+    # per-run constants D[p, k]: [P, B] row gathers and a small cumsum
+    s_sites = torch.clamp(src * pg, 0, W1 - 1)
+    e_sites = torch.clamp((src + sz) * pg, 0, W1 - 1)
+    pst_s = psite[s_sites]  # [P, B, R]
+    run_tot = psite[e_sites] - pst_s
+    rps = torch.cumsum(run_tot, 1) - run_tot  # exclusive
+    d_flat = (rps - pst_s).reshape(P * B, R)
+
+    # per-group tables [G, P]: run ids (a 1 at each run's start + cumsum,
+    # so empty runs' shared starts telescope to the owning run) and the
+    # source group map (the sigma construction itself)
+    ones = torch.zeros((P, G + 1), dtype=torch.int64, device=dev)
+    ones.scatter_add_(1, dst, torch.ones_like(dst))  # dst == G is dropped
+    run_of_t = (torch.cumsum(ones[:, :G], 1) - 1).T.contiguous()
+    sigma8_t = sigma_from_runs(src, dst, G).to(torch.int64).T.contiguous()
+    p_off = torch.arange(P, device=dev)[None, :] * B  # [1, P]
+
+    sign = torch.tensor([-1, 1], dtype=torch.int32, device=dev)
+    t3m = _bf16_round(t3) if mm_bf16 else t3
+    C = bounds_gen.shape[0]
+    c_sub = _chunk_rows(NC, P, R)
+    outs = []
+    for c0 in range(0, C, c_sub):
+        bc = bounds_gen[c0:c0 + c_sub].to(torch.int64)
+        c = bc.shape[0]
+        flat_b = bc.reshape(-1)  # [M] genome site bounds
+        g_b = torch.clamp(flat_b // pg, 0, G - 1)
+        o_b = flat_b - g_b * pg
+        src_site = torch.clamp(sigma8_t[g_b] * pg + o_b[:, None], 0, W1 - 1)
+        a = d_flat[run_of_t[g_b] + p_off] + psite[src_site]  # [M, P, R]
+        psb = a.reshape(c, 2, NC + 1, P * R)
+        h = ((psb[:, :, 1:, :] - psb[:, :, :-1, :])
+             * sign[None, :, None, None]).to(torch.float32)
+        outs.append(_clr_from_windows(
+            h, fbar[c0:c0 + c_sub], t3m, n_rep=P, n_cells=NC, n_rows=R,
+            n_alpha=A, mm_bf16=mm_bf16,
+        ))
     out = torch.cat(outs) if outs else t3.new_zeros((0, P, A))
     return out.permute(1, 0, 2)

@@ -27,10 +27,28 @@ weight table instead of a one-hot, and
 in float32, summed in float64 and rounded once.  The sentinel id R_used
 reads the all-zero last row.
 
+``rowid_prefix_sums`` and ``perm_prefix_sums`` are the same TPU kernel's
+unsegmented modes, with a zero first row (csrc/rowid_prefix_sums.cu):
+
+    ps[0, p*R + r] = 0,  ps[k+1, p*R + r] = #{k' <= k : id(p, k') == r}
+
+  (a)  rowid: id(p, k) = row_rep[p, k], the replicate-stacked row ids of
+       build_prefix_sums (fscl_tpu/ops/histclr.py:873);
+  (b') perm:  id(p, k) = table[sig[p, g0 + j // PERM_GROUP],
+       j % PERM_GROUP], j = off + k, for sites k < n of one chromosome
+       that starts at genome site start = g0*PERM_GROUP + off; sites
+       k >= n have no id.  This is _perm_ps's gather, shift and mask in
+       front of build_prefix_sums_oh (fscl_tpu/engine/permute.py:648,
+       fscl_tpu/ops/histclr.py:811), fused as the segmented mode is.
+
+Output is int16 when W <= 32767 and int32 otherwise (W = row_rep's width,
+or w_pad), the rule of the JAX package's prefix functions.
+
 Each wrapper runs the plain PyTorch version for CPU tensors and its CUDA
-kernel (csrc/prefix_sums.cu, csrc/weighted_prefix_sums.cu) for CUDA
-tensors; it never falls back from one to the other.  ``launches`` and
-``weighted_launches`` count the kernels' launches.
+kernel (csrc/prefix_sums.cu, csrc/weighted_prefix_sums.cu,
+csrc/rowid_prefix_sums.cu) for CUDA tensors; it never falls back from one
+to the other.  ``launches``, ``weighted_launches``, ``rowid_launches`` and
+``perm_launches`` count the kernels' launches.
 """
 
 from __future__ import annotations
@@ -39,6 +57,12 @@ import torch
 
 launches = 0  # CUDA kernel launches by onehot_prefix_sums
 weighted_launches = 0  # CUDA kernel launches by weighted_prefix_sums
+rowid_launches = 0  # CUDA kernel launches by rowid_prefix_sums
+perm_launches = 0  # CUDA kernel launches by perm_prefix_sums
+# lanes (P*R) and replicates the row-id kernels take: the tile histogram
+# holds P*R int32 and the staged ids kStage*P int16 in shared memory
+ROWID_LANES_MAX = 8192
+ROWID_REPS_MAX = 256
 
 
 def _out_dtype(w_seg_p, out_dtype):
@@ -193,4 +217,148 @@ def weighted_prefix_sums(table, weights, sig, seg_g0, *, w_seg_p):
     kernels.check(lib, rc, "weighted_prefix_sums")
     global weighted_launches
     weighted_launches += 1
+    return out
+
+
+# ---- unsegmented row-id modes (a) and (b') --------------------------------
+
+def _onehot_prefix(ids, n_rows, out_dtype):
+    """[W, P] ids -> [W+1, P*n_rows] one-hot prefix counts, row 0 zero:
+    an int32 cumsum cast to out_dtype."""
+    W, P = ids.shape
+    oh = ids[..., None] == torch.arange(n_rows, dtype=ids.dtype,
+                                        device=ids.device)
+    body = torch.cumsum(oh.to(torch.int32), dim=0, dtype=torch.int32)
+    out = torch.zeros((W + 1, P * n_rows), dtype=out_dtype, device=ids.device)
+    out[1:] = body.reshape(W, P * n_rows).to(out_dtype)
+    return out
+
+
+def rowid_prefix_sums_plain(row_rep, *, n_rows, out_dtype=None):
+    """Plain PyTorch version of mode (a): one-hot compare, int32 cumsum."""
+    W = row_rep.shape[1]
+    return _onehot_prefix(row_rep.T, n_rows, _out_dtype(W, out_dtype))
+
+
+def _launch_rowid(what, lib_fn, dev, W, P, n_rows, out_dtype, args):
+    """Allocate, check limits, launch one row-id kernel; the output."""
+    odt = _out_dtype(W, out_dtype)
+    L = P * n_rows
+    if odt not in (torch.int16, torch.int32):
+        raise ValueError(f"{what}: output dtype {odt}")
+    if L > ROWID_LANES_MAX or P > ROWID_REPS_MAX or n_rows > 32767:
+        raise ValueError(
+            f"{what}: P*R={L} must be <= {ROWID_LANES_MAX}, "
+            f"P={P} <= {ROWID_REPS_MAX} and R={n_rows} <= 32767"
+        )
+    from .. import kernels
+
+    lib = kernels.load()
+    n_tiles = -(-W // lib.fscl_rps_tile())
+    out = torch.empty((W + 1, L), dtype=odt, device=dev)
+    scratch = torch.empty(max(n_tiles * L, 1), dtype=torch.int32, device=dev)
+    with torch.cuda.device(dev):
+        rc = getattr(lib, lib_fn)(
+            *args(out, scratch), out.element_size(),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    kernels.check(lib, rc, what)
+    return out
+
+
+def rowid_prefix_sums(row_rep, *, n_rows, out_dtype=None):
+    """[W+1, P*n_rows] prefix counts of replicate-stacked row ids, mode (a)
+    (see module doc).
+
+    row_rep: [P, W] int32 compact row ids (ids outside [0, n_rows) count
+    nowhere).  CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise.
+    """
+    dev = row_rep.device
+    if dev.type == "cpu":
+        return rowid_prefix_sums_plain(row_rep, n_rows=n_rows,
+                                       out_dtype=out_dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"rowid_prefix_sums: unsupported device {dev}")
+    _check_inputs("rowid_prefix_sums", dev,
+                  (("row_rep", row_rep, torch.int32),))
+    P, W = row_rep.shape
+    out = _launch_rowid(
+        "rowid_prefix_sums", "fscl_rowid_prefix_sums", dev, W, P, n_rows,
+        out_dtype,
+        lambda out, scratch: (row_rep.data_ptr(), out.data_ptr(),
+                              scratch.data_ptr(), W, P, n_rows),
+    )
+    global rowid_launches
+    rowid_launches += 1
+    return out
+
+
+def _perm_geometry(table, sig, start, n, w_pad):
+    """(g0, off) of a chromosome slab; raises unless its n sites lie in
+    w_pad and in sig's columns."""
+    pg = table.shape[1]
+    g0, off = divmod(int(start), pg)
+    if not 0 <= n <= w_pad:
+        raise ValueError(f"perm_prefix_sums: n={n} outside [0, w_pad={w_pad}]")
+    if n and g0 + (off + n - 1) // pg >= sig.shape[1]:
+        raise ValueError(
+            f"perm_prefix_sums: sigma has {sig.shape[1]} columns; sites up "
+            f"to start + n = {start + n} need the sentinel padding"
+        )
+    return g0, off
+
+
+def perm_row_ids(table, sig, *, start, n, w_pad):
+    """[w_pad, P] row id of each site k of the permuted chromosome slab
+    (see module doc); -1 at sites k >= n."""
+    pg = table.shape[1]
+    g0, off = _perm_geometry(table, sig, start, n, w_pad)
+    j = off + torch.arange(w_pad, device=sig.device)
+    col = torch.clamp(g0 + j // pg, max=sig.shape[1] - 1)
+    sel = sig[:, col].to(torch.int64)  # [P, w_pad]
+    ids = table[sel, (j % pg)[None, :]].to(torch.int32)
+    ids = torch.where(j[None, :] - off < n, ids, -1)
+    return ids.T
+
+
+def perm_prefix_sums_plain(table, sig, *, start, n, w_pad, n_rows,
+                           out_dtype=None):
+    """Plain PyTorch version of mode (b'): the index math, one-hot
+    compare, int32 cumsum."""
+    ids = perm_row_ids(table, sig, start=start, n=n, w_pad=w_pad)
+    return _onehot_prefix(ids, n_rows, _out_dtype(w_pad, out_dtype))
+
+
+def perm_prefix_sums(table, sig, *, start, n, w_pad, n_rows,
+                     out_dtype=None):
+    """[w_pad+1, P*n_rows] prefix counts of one chromosome's permuted
+    stream, mode (b') (see module doc).
+
+    table: [G+1, PERM_GROUP] int16 row-id group table; sig: [P, n_sig]
+    int32 group sigma, sentinel-padded past the last group the
+    chromosome's n sites reach.  CPU tensors take the plain version;
+    CUDA tensors launch the kernel or raise.
+    """
+    dev = table.device
+    if dev.type == "cpu":
+        return perm_prefix_sums_plain(table, sig, start=start, n=n,
+                                      w_pad=w_pad, n_rows=n_rows,
+                                      out_dtype=out_dtype)
+    if dev.type != "cuda":
+        raise ValueError(f"perm_prefix_sums: unsupported device {dev}")
+    _check_inputs("perm_prefix_sums", dev, (
+        ("table", table, torch.int16), ("sig", sig, torch.int32)))
+    g0, off = _perm_geometry(table, sig, start, n, w_pad)
+    P, n_sig = sig.shape
+    pg = table.shape[1]
+    out = _launch_rowid(
+        "perm_prefix_sums", "fscl_perm_prefix_sums", dev, w_pad, P, n_rows,
+        out_dtype,
+        lambda out, scratch: (table.data_ptr(), sig.data_ptr(),
+                              out.data_ptr(), scratch.data_ptr(), w_pad, P,
+                              n_rows, n_sig, g0, off, n, pg),
+    )
+    global perm_launches
+    perm_launches += 1
     return out

@@ -1,7 +1,7 @@
 """Candidate-window geometry: nearest SNP and clamped evaluation windows.
 
 Numpy copy of fscl_tpu/ops/windows.py (nearest_snp_index,
-candidate_windows); reference /root/reference/scan-chromosome.c:39-94.
+candidate_windows); reference scan-chromosome.c:39-94.
 Each candidate gets the index of its nearest SNP and an inclusive window
 of +-eval_range SNPs, clamped at chromosome edges while keeping a
 2*eval_range width when possible:

@@ -51,7 +51,8 @@ def _tables(setup, dec, n_alpha=32):
     data, tables, rows_used, null_row, extent, _ = setup
     args = (tables.table, 256, null_row, rows_used, extent)
     return (J.build_hist_tables(*args, n_alpha=n_alpha, decimate=dec),
-            T.build_hist_tables(*args, n_alpha=n_alpha, decimate=dec))
+            T.build_hist_tables(*args, n_alpha=n_alpha, decimate=dec,
+                                device="cpu"))
 
 
 def _fbar_atol(step):
@@ -94,9 +95,10 @@ def test_hist_clr_reps_ps_matches(setup, mm_bf16):
         t3=np.asarray(hj.t3), row_map=hj.row_map, rows_used=hj.rows_used,
         lalpha=hj.lalpha, offsets=hj.offsets, n_cells=hj.n_cells,
         n_rows=hj.n_rows, n_alpha=hj.n_alpha, step=hj.step,
-        grid_points=hj.grid_points,
+        grid_points=hj.grid_points, device="cpu",
     )
-    pt = hist_points_from_numpy(np.asarray(pj.bounds), np.asarray(pj.fbar))
+    pt = hist_points_from_numpy(np.asarray(pj.bounds), np.asarray(pj.fbar),
+                                device="cpu")
     rng = np.random.default_rng(0)
     rc = hj.row_map[data.row]
     reps = np.stack([rng.permutation(rc) for _ in range(3)])  # [P, W]

@@ -144,7 +144,7 @@ def test_compressed_tables_match(row_family, dec, counts):
                                if counts else None))
     args = (tables.table, tables.grid_points, null, rows_used)
     hj = JH.build_hist_tables(*args, **kw)
-    ht = TH.build_hist_tables(*args, **kw)
+    ht = TH.build_hist_tables(*args, **kw, device="cpu")
     assert hj.weights is not None and ht.weights is not None
     np.testing.assert_array_equal(ht.rows_used, hj.rows_used)
     np.testing.assert_array_equal(ht.row_map, hj.row_map)
@@ -164,11 +164,12 @@ def test_exact_mode_below_rows_max_unchanged(row_family):
     tables, pos, row, null = row_family
     args = (tables.table, tables.grid_points, null)
     few = np.unique(row)[:TH.ROWS_MAX]
-    ht = TH.build_hist_tables(*args, few, extent_bp=10**6, n_alpha=32)
+    ht = TH.build_hist_tables(*args, few, extent_bp=10**6, n_alpha=32,
+                              device="cpu")
     assert ht.weights is None and ht.sentinel == ht.n_rows
     many = np.unique(row)
     ht = TH.build_hist_tables(*args, many, extent_bp=10**6, n_alpha=32,
-                              compress=False)
+                              compress=False, device="cpu")
     assert ht.weights is None and ht.sentinel == ht.n_rows >= len(many)
 
 
@@ -181,6 +182,7 @@ def test_convert_carries_weights(row_family):
         lalpha=hj.lalpha, offsets=hj.offsets, n_cells=hj.n_cells,
         n_rows=hj.n_rows, n_alpha=hj.n_alpha, step=hj.step,
         grid_points=hj.grid_points, weights=np.asarray(hj.weights),
+        device="cpu",
     )
     assert ht.weights.dtype == torch.float32
     np.testing.assert_array_equal(ht.weights.numpy(), np.asarray(hj.weights))
@@ -193,7 +195,8 @@ def test_row_index_table_keeps_ids_above_channel_count(mixed):
     """In compressed mode compact ids run to R_used (far above the channel
     count R): the thin table must clamp at R_used, not at R."""
     data, tables, _ = mixed
-    ht = TS.make_scan_hist_tables(data, tables, 32, decimate=8)
+    ht = TS.make_scan_hist_tables(data, tables, 32, decimate=8,
+                                  device="cpu")
     rc = ht.row_map[np.asarray(data.row)].astype(np.int32)
     assert rc.max() > ht.n_rows  # ids that a clamp at R would fold
     got = TH.make_row_index_group_table(torch.as_tensor(rc),
@@ -206,7 +209,8 @@ def test_row_index_table_keeps_ids_above_channel_count(mixed):
 
 def test_chrom_row_stream_pads_with_zero_weight_row(mixed):
     data, tables, _ = mixed
-    ht = TS.make_scan_hist_tables(data, tables, 32, decimate=8)
+    ht = TS.make_scan_hist_tables(data, tables, 32, decimate=8,
+                                  device="cpu")
     st = SimpleNamespace(cl=data.chr_limits[0])
     rc = TS._chrom_row_stream(data, ht, st).numpy()
     n = st.cl.n_snps
@@ -279,7 +283,8 @@ def test_hist_clr_reps_ps_on_float_prefix(mixed):
     """hist_clr_reps_ps needs no change for f32 prefixes: the sign takes
     the prefix dtype and the bf16 mode rounds the weight sums as JAX."""
     data, tables, _ = mixed
-    ht = TS.make_scan_hist_tables(data, tables, 64, decimate=2)
+    ht = TS.make_scan_hist_tables(data, tables, 64, decimate=2,
+                                  device="cpu")
     hj = JS.make_scan_hist_tables(data, tables, 64, decimate=2)
     n = data.chr_limits[0].n_snps
     pos = data.pos[:n]
@@ -341,8 +346,10 @@ def test_scan_tables_do_not_share_a_prefix(mixed):
     """The selection (decimation 8) and tie (decimation 2) tables have
     different SVD channels, so each needs its own prefix sums."""
     data, tables, _ = mixed
-    h8 = TS.make_scan_hist_tables(data, tables, 128, decimate=8)
-    h2 = TS.make_scan_hist_tables(data, tables, 128, decimate=2)
+    h8 = TS.make_scan_hist_tables(data, tables, 128, decimate=8,
+                                  device="cpu")
+    h2 = TS.make_scan_hist_tables(data, tables, 128, decimate=2,
+                                  device="cpu")
     assert h8.n_rows == h2.n_rows  # one row pad: an R-keyed cache would mix
     st = SimpleNamespace(cl=data.chr_limits[1])
     p8 = TS._chrom_scan_ps(data, h8, st, False)
@@ -375,7 +382,8 @@ def test_scan_permute_matches_with_shared_sigma(mixed):
 
     r_port = _fresh(result)
     TP.scan_permute(data, tables, r_port, TS.ScanConfig(**SCAN),
-                    TP.PermuteConfig(**pc), sigma_source=sigma_source)
+                    TP.PermuteConfig(**pc), device="cpu",
+                    sigma_source=sigma_source)
 
     np.testing.assert_allclose(r_port.stat_threshold, r_jax.stat_threshold,
                                rtol=0, atol=TOL)

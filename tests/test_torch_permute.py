@@ -79,7 +79,7 @@ def gpos():
 
 
 def test_sigma_rows_are_block_bijections(gpos):
-    sig = block_permutation_groups(7, gpos, 1e6, 24).numpy()
+    sig = block_permutation_groups(7, gpos, 1e6, 24, device="cpu").numpy()
     G = -(-len(gpos) // PERM_GROUP)
     assert sig.shape == (24, G) and sig.dtype == np.int32
     for row in sig:
@@ -93,10 +93,13 @@ def test_sigma_rows_are_block_bijections(gpos):
 
 
 def test_sigma_chunking_replays_stream(gpos):
-    full = block_permutation_groups(11, gpos, 5e5, 12, start=4).numpy()
-    part = block_permutation_groups(11, gpos, 5e5, 5, start=9).numpy()
+    full = block_permutation_groups(11, gpos, 5e5, 12, start=4,
+                                    device="cpu").numpy()
+    part = block_permutation_groups(11, gpos, 5e5, 5, start=9,
+                                    device="cpu").numpy()
     np.testing.assert_array_equal(full[5:10], part)
-    other = block_permutation_groups(12, gpos, 5e5, 12, start=4).numpy()
+    other = block_permutation_groups(12, gpos, 5e5, 12, start=4,
+                                     device="cpu").numpy()
     assert not np.array_equal(full, other)
 
 
@@ -104,7 +107,7 @@ def test_short_genome_still_mixes():
     """A shuffle that moves only empty blocks is still the identity; the
     rejection works on sigma, so every row moves something."""
     g = np.arange(0, 2_500_000, 400, dtype=np.int64)
-    sig = block_permutation_groups(3, g, 1e6, 16).numpy()
+    sig = block_permutation_groups(3, g, 1e6, 16, device="cpu").numpy()
     for row in sig:
         assert not np.array_equal(row, np.arange(sig.shape[1]))
 
@@ -171,7 +174,8 @@ def test_scan_permute_matches_with_shared_sigma(scanned):
 
     r_port = _fresh(result)
     TP.scan_permute(data, tables, r_port, _scan_cfg(),
-                    TP.PermuteConfig(**pc), sigma_source=sigma_source)
+                    TP.PermuteConfig(**pc), device="cpu",
+                    sigma_source=sigma_source)
 
     np.testing.assert_allclose(r_port.stat_threshold, r_jax.stat_threshold,
                                rtol=0, atol=1e-3)

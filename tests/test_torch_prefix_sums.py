@@ -29,6 +29,7 @@ from fscl_tpu.ops.histclr import (
     build_prefix_sums_seg,
     make_row_weight_group_table,
 )
+from fscl_tpu.engine.permute import _perm_ps
 from fscl_tpu.ops.pallas_ps import onehot_prefix_sums as pallas_ps
 from fscl_tpu_torch.ops import prefix_sums as tps
 
@@ -252,3 +253,162 @@ def test_weighted_kernel_matches_plain_on_card(S, w, P, R, n_ids):
     ulp = torch.finfo(torch.float32).eps * scale
     err = (got - want).abs().reshape(S, w, -1)
     assert bool((err <= 2 * ulp).all()), float((err / ulp).max())
+
+
+# ---- unsegmented row-id modes (a) and (b') ---------------------------------
+#
+# Stated tolerance: bitwise (integer counts, cast to int16 or int32 as
+# the JAX package casts them).  The Pallas kernel runs in interpret mode
+# on the Pallas layout (W a multiple of 512, lanes a multiple of 128) and
+# has no zero first row; the JAX prefix functions (build_prefix_sums,
+# _perm_ps) run their XLA versions on the CPU.
+
+def _row_rep(seed, P, W, R):
+    """[P, W] int32 row ids in [0, R + 2]: ids R.. count nowhere."""
+    rng = np.random.default_rng(seed)
+    return rng.integers(0, R + 3, size=(P, W)).astype(np.int32)
+
+
+@pytest.mark.parametrize("out", ["int16", "int32"])
+def test_rowid_plain_matches_pallas_mode_a_interpret(out):
+    P, W, R = 16, 1024, 8  # lanes 128
+    row_rep = _row_rep(10, P, W, R)
+    rows_exp = jnp.repeat(jnp.asarray(row_rep).T, R, axis=1)  # [W, P*R]
+    want = np.asarray(pallas_ps(rows_exp, n_rows=R, out_dtype=getattr(
+        jnp, out), interpret=True))
+    got = tps.rowid_prefix_sums(torch.as_tensor(row_rep), n_rows=R,
+                                out_dtype=getattr(torch, out)).numpy()
+    assert got.dtype == want.dtype and got.shape == (W + 1, P * R)
+    assert not got[0].any()
+    np.testing.assert_array_equal(got[1:], want)
+
+
+@pytest.mark.parametrize("P, W, R, dtype", [
+    (3, 1000, 7, np.int16),  # no Pallas layout: any W, any lane count
+    (2, 33000, 5, np.int32),  # W > 32767 switches to int32
+])
+def test_rowid_plain_matches_build_prefix_sums(P, W, R, dtype):
+    from fscl_tpu.ops.histclr import build_prefix_sums
+
+    row_rep = _row_rep(11, P, W, R)
+    want = np.asarray(build_prefix_sums(jnp.asarray(row_rep), n_rows=R))
+    before = tps.rowid_launches
+    got = tps.rowid_prefix_sums(torch.as_tensor(row_rep), n_rows=R).numpy()
+    assert tps.rowid_launches == before  # plain version on the CPU
+    assert got.dtype == want.dtype == dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def _perm_inputs(seed, W_genome, P, R, w_pad):
+    """Genome row ids, JAX's fat one-hot table, the port's thin id table
+    and a sentinel-padded sigma (G = the sentinel row)."""
+    from fscl_tpu.ops.histclr import make_row_onehot_group_table
+    from fscl_tpu_torch.ops.histclr import make_row_index_group_table
+
+    rng = np.random.default_rng(seed)
+    row_cg = rng.integers(0, R + 3, size=W_genome).astype(np.int32)
+    G = -(-W_genome // PG)
+    sig = np.stack([rng.permutation(G) for _ in range(P)]).astype(np.int32)
+    sig = np.concatenate([sig, np.full((P, w_pad // PG + 2), G, np.int32)],
+                         1)
+    fat = make_row_onehot_group_table(jnp.asarray(row_cg), n_rows=R)
+    thin = make_row_index_group_table(torch.as_tensor(row_cg),
+                                      sentinel=R).numpy()
+    return fat, thin, sig
+
+
+def _jax_perm_stream(fat, sig, start, n, w_pad, R):
+    """_perm_ps's gather, shift and mask (fscl_tpu/engine/permute.py:
+    664-679): the [w_pad, P*R] int8 one-hot that build_prefix_sums_oh
+    takes."""
+    P = sig.shape[0]
+    g0, off = divmod(start, PG)
+    idx8 = jnp.asarray(sig)[:, g0:g0 + w_pad // PG + 1].T
+    oh = fat[idx8].reshape(-1, P, PG, R).transpose(0, 2, 1, 3)
+    oh = oh.reshape(-1, P, R)[off:off + w_pad]
+    mask = (jnp.arange(w_pad) < n)[:, None, None]
+    return jnp.where(mask, oh, jnp.int8(0)).reshape(w_pad, P * R)
+
+
+def _port_perm(thin, sig, start, n, w_pad, R, out_dtype=None):
+    return tps.perm_prefix_sums(
+        torch.as_tensor(thin), torch.as_tensor(sig), start=start, n=n,
+        w_pad=w_pad, n_rows=R, out_dtype=out_dtype).numpy()
+
+
+@pytest.mark.parametrize("start, n, out", [
+    (0, 1024, "int16"),  # aligned, every site real
+    (77, 900, "int32"),  # off = 13, sites past n masked
+])
+def test_perm_plain_matches_pallas_mode_b_interpret(start, n, out):
+    P, R, w_pad = 16, 8, 1024
+    fat, thin, sig = _perm_inputs(12, 3000, P, R, w_pad)
+    stream = _jax_perm_stream(fat, sig, start, n, w_pad, R)
+    want = np.asarray(pallas_ps(stream, out_dtype=getattr(jnp, out),
+                                interpret=True))
+    got = _port_perm(thin, sig, start, n, w_pad, R,
+                     out_dtype=getattr(torch, out))
+    assert got.dtype == want.dtype and got.shape == (w_pad + 1, P * R)
+    assert not got[0].any()
+    np.testing.assert_array_equal(got[1:], want)
+
+
+@pytest.mark.parametrize("W_genome, start, n, w_pad, dtype", [
+    (9000, 4133, 3700, 4096, np.int16),  # off = 5, n < w_pad
+    (40000, 1000, 34001, 36864, np.int32),  # w_pad > 32767: int32
+])
+def test_perm_plain_matches_perm_ps(W_genome, start, n, w_pad, dtype):
+    P, R = 3, 6
+    fat, thin, sig = _perm_inputs(13, W_genome, P, R, w_pad)
+    want = np.asarray(_perm_ps(fat, jnp.asarray(sig), start=start, n=n,
+                               w_pad=w_pad))
+    before = tps.perm_launches
+    got = _port_perm(thin, sig, start, n, w_pad, R)
+    assert tps.perm_launches == before  # plain version on the CPU
+    assert got.dtype == want.dtype == dtype
+    np.testing.assert_array_equal(got, want)
+
+
+def test_perm_refuses_unpadded_sigma():
+    P, R, w_pad = 2, 4, 512
+    _, thin, sig = _perm_inputs(14, 600, P, R, w_pad)
+    G = -(-600 // PG)
+    with pytest.raises(ValueError, match="sentinel padding"):
+        _port_perm(thin, sig[:, :G], 590, 100, w_pad, R)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("P, W, R, dtype", [
+    (32, 20480, 56, torch.int16),  # the 20k shape
+    (16, 35351, 48, torch.int32),  # one genome1m chromosome
+])
+def test_rowid_kernel_matches_plain_on_card(P, W, R, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the CUDA kernel runs only on the card")
+    row_rep = torch.as_tensor(_row_rep(15, P, W, R), device="cuda")
+    before = tps.rowid_launches
+    got = tps.rowid_prefix_sums(row_rep, n_rows=R)
+    want = tps.rowid_prefix_sums_plain(row_rep, n_rows=R)
+    torch.cuda.synchronize()
+    assert tps.rowid_launches == before + 1
+    assert got.dtype == want.dtype == dtype
+    assert torch.equal(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W_genome, start, n, w_pad, P, R", [
+    (20000, 0, 20000, 20480, 32, 56),  # the 20k shape
+    (80000, 40013, 35351, 36864, 16, 48),  # off = 13, int32
+])
+def test_perm_kernel_matches_plain_on_card(W_genome, start, n, w_pad, P, R):
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the CUDA kernel runs only on the card")
+    _, thin, sig = _perm_inputs(16, W_genome, P, R, w_pad)
+    t, s = (torch.as_tensor(x, device="cuda") for x in (thin, sig))
+    kw = dict(start=start, n=n, w_pad=w_pad, n_rows=R)
+    before = tps.perm_launches
+    got = tps.perm_prefix_sums(t, s, **kw)
+    want = tps.perm_prefix_sums_plain(t, s, **kw)
+    torch.cuda.synchronize()
+    assert tps.perm_launches == before + 1
+    assert torch.equal(got, want)

@@ -93,9 +93,10 @@ def _interval_index(chr_id):
 def test_scan_refuses_unported_paths(dataset):
     data, tables = dataset
     with pytest.raises(NotPortedError):
-        scan_genome(data, tables, ScanConfig(**SCAN, use_hist=False))
+        scan_genome(data, tables, ScanConfig(**SCAN, use_hist=False),
+                    device="cpu")
     with pytest.raises(NotPortedError):  # grid 1024: tie step 0.047 > 0.035
-        scan_genome(data, tables, ScanConfig(eval_range=1500))
+        scan_genome(data, tables, ScanConfig(eval_range=1500), device="cpu")
 
 
 @pytest.fixture(scope="module")
