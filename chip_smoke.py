@@ -20,18 +20,34 @@ non-zero:
                (b'), _hist_perm_batch) against its plain version, bitwise,
                at the 20k path's shape and at an int32 shape with a
                chromosome start off a group boundary; both timed
+  3d. gkernel - the row gather (pallas_gather's function) against its
+               plain version, bitwise, at the probe's own shape
+               (bench/micro_pallas_gather.py: [20481, 128] int16 and
+               float32, 65,536 sorted indices); kernel, plain and
+               torch.index_select timed.  Its RDP shape (psite [20001,
+               56] int32 at one slice's unsorted indices) runs in phase 7
+  3e. okernel - the window operand (gather -> difference -> lerp) against
+               its plain version, bitwise (zeros compared without their
+               sign), mm_bf16 off and on, on the inputs the main path
+               gives it (bounds and fbar from build_hist_points on the real
+               data): the 20k scan (P=1) and stacked slice run in phase 4,
+               genome in 5, mixed100k in 5c, an RDP slice in 7; both timed
   4. 20k     - the bench.py task (bench/data/bench_20k.sf, 50
                permutations) through the port's entry points; the
-               kernel's launches are counted over this run; the first
-               chunk's statistic is recomputed with the plain prefix
-               function and must be equal
+               prefix kernel's launches are counted over this run and the
+               window kernel's over its scan and its permutations; the
+               first chunk's statistic is recomputed with the plain
+               prefix function, then with the plain window operand too,
+               and must be equal
   5. genome  - ~778k sites over 22 chromosomes (bench/headline.py
-               gen_genome1m), scan and 64 permutations
+               gen_genome1m), scan and 64 permutations; window launches
+               counted over each; the first chunk recomputed as in 4
   5c. mixed100k - bench/data/headline_mixed100k.sf (94,889 sites, 31
                depths, 1,589 table rows, compressed tables), scan and 64
                permutations; the weighted kernel's launches are counted
-               over this run; the first chunk's statistic is recomputed
-               with the plain prefix function
+               over this run and the window kernel's over each stage; the
+               first chunk's statistic is recomputed with the plain
+               prefix function, then with the plain window operand too
   6. check   - a small single-depth input and a small mixed-depth input
                through the card and through the plain CPU versions must
                agree
@@ -41,9 +57,12 @@ non-zero:
                1e-4 near-ties, RDP dispatches only under "on"), then one
                chunk of the RDP run recomputed through hist_clr_reps
                (kernel 3a) and _hist_perm_batch (kernel 3b); the phase's
-               launches of every kernel are counted
+               launches of every kernel are counted (the row gather only
+               under RDP on)
 Then one JSON line with every kernel's numbers (time, plain time, bound,
-launches on a path of this run), and last the JSON status line.  Run
+launches on a path of this run, the one-call PyTorch equivalent's time
+where there is one), and last the JSON status line.  Kernel times are the
+median of 5 CUDA-event readings, each a mean over its launches.  Run
 from the repo root: python3 chip_smoke.py
 
 ``--profile`` instead runs phases 1-2 and then torch.profiler over the
@@ -84,31 +103,51 @@ def fail(msg):
     sys.exit(1)
 
 
-def cuda_time_ms(fn, iters):
+def cuda_time_ms(fn, iters, readings=5):
+    """Median over `readings` CUDA-event readings of the mean time of
+    `iters` back-to-back calls, after two warm-up calls."""
+    import statistics
+
     import torch
 
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    a = torch.cuda.Event(enable_timing=True)
-    b = torch.cuda.Event(enable_timing=True)
-    a.record()
-    for _ in range(iters):
-        fn()
-    b.record()
-    torch.cuda.synchronize()
-    return a.elapsed_time(b) / iters
+    out = []
+    for _ in range(readings):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(iters):
+            fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / iters)
+    return statistics.median(out)
 
 
-def bound(tensors_in, tensors_out, ops):
-    """(bound_ms, bound_by): the larger of the bytes moved (each input
-    read once, each output written once) over the HBM rate and ops over
-    the peak rate."""
-    nbytes = sum(t.numel() * t.element_size()
-                 for t in (*tensors_in, *tensors_out))
+def bound_ms(nbytes, ops):
+    """(bound_ms, bound_by): the larger of nbytes over the HBM rate and
+    ops over the peak rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = ops / OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bound(tensors_in, tensors_out, ops):
+    """bound_ms of every input read once and every output written once."""
+    return bound_ms(sum(t.numel() * t.element_size()
+                        for t in (*tensors_in, *tensors_out)), ops)
+
+
+def gathered_bytes(table, idx):
+    """Bytes a row gather must read: the distinct rows of table at idx,
+    and idx itself."""
+    import torch
+
+    rows = torch.unique(idx).numel()
+    return (rows * table.shape[1] * table.element_size()
+            + idx.numel() * idx.element_size())
 
 
 def phase_device():
@@ -262,32 +301,59 @@ def phase_wkernel(dev, shapes):
     return out
 
 
-def _time_pair(tag, label, shape, kern, plain, tensors_in):
-    """Check kern() == plain() bitwise, time both; the phase's record."""
+def _differing(got, want):
+    """(entries that differ, max |difference|): integers exactly, floats
+    by bit pattern after +0.0 (which maps -0 to +0: a two-term sum that
+    starts from +0 may give either zero)."""
+    import torch
+
+    if got.dtype.is_floating_point:
+        bad = ((got + 0.0).view(torch.int32)
+               != (want + 0.0).view(torch.int32))
+        diff = (got - want).abs()
+    else:
+        diff = (got.to(torch.int64) - want.to(torch.int64)).abs()
+        bad = diff > 0
+    return int(bad.sum()), float(diff.max()) if diff.numel() else 0.0
+
+
+def _time_pair(tag, label, shape, kern, plain, tensors_in, nbytes=None,
+               ops=None, library=None):
+    """Check kern() == plain() bitwise, time both (and library(), one
+    PyTorch call computing the same function, where given); the phase's
+    record.  The bound counts nbytes and ops where given, else every input
+    read once and the output written once at 2 operations an entry."""
     import torch
 
     got, want = kern(), plain()
     torch.cuda.synchronize()
-    bad = (got.to(torch.int64) - want.to(torch.int64)).abs()
-    if got.dtype != want.dtype or bool((bad > 0).any()):
-        fail(f"{tag} kernel != plain at {label}: {int((bad > 0).sum())} "
-             f"entries differ, max {int(bad.max())}")
-    err = float(bad.max())
-    del bad
-    b_ms, b_by = bound(tensors_in, (got,), 2 * got.numel())
-    mb = got.numel() * got.element_size() / 1e6
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{tag} kernel != plain at {label}: {got.dtype} "
+             f"{tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    n_bad, err = _differing(got, want)
+    if n_bad:
+        fail(f"{tag} kernel != plain at {label}: {n_bad} entries differ, "
+             f"max {err:.6g}")
+    out_bytes = got.numel() * got.element_size()
+    if nbytes is None:
+        b_ms, b_by = bound(tensors_in, (got,), 2 * got.numel())
+    else:
+        b_ms, b_by = bound_ms(nbytes + out_bytes, ops)
+    mb = out_bytes / 1e6
     dtype = str(got.dtype).replace("torch.", "")
     del got, want
     torch.cuda.empty_cache()
     ms = cuda_time_ms(kern, 20)
     plain_ms = cuda_time_ms(plain, 5)
+    lib_ms = cuda_time_ms(library, 20) if library is not None else None
     torch.cuda.empty_cache()
+    lib = "" if lib_ms is None else f", library {lib_ms:.4f} ms"
     log(f"[{tag}] {label}: {shape} {dtype} bitwise equal; kernel "
-        f"{ms:.4f} ms ({mb / ms:.1f} GB/s written), plain {plain_ms:.4f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"{ms:.4f} ms ({mb / ms:.1f} GB/s written), plain {plain_ms:.4f} ms"
+        f"{lib}, bound {b_ms:.4f} ms ({b_by})")
     return dict(label=label, shape=shape, dtype=dtype, ms=ms,
-                plain_ms=plain_ms, max_abs_err=err, out_mb=mb, bound_ms=b_ms,
-                bound_by=b_by)
+                plain_ms=plain_ms, library_ms=lib_ms, max_abs_err=err,
+                out_mb=mb, bound_ms=b_ms, bound_by=b_by)
 
 
 def phase_rkernel(dev, shapes):
@@ -350,6 +416,103 @@ def phase_pkernel(dev, shapes):
     return out
 
 
+def _gather_case(label, table, idx):
+    """Row gather vs plain, bitwise; kernel, plain and index_select
+    timed; the bound counts the distinct rows read."""
+    import torch
+
+    from fscl_tpu_torch.ops import gather as G
+
+    return _time_pair(
+        "gkernel", label,
+        f"table {list(table.shape)} {len(idx)} indices",
+        lambda: G.row_gather(table, idx),
+        lambda: G.row_gather_plain(table, idx), (table, idx),
+        nbytes=gathered_bytes(table, idx), ops=0,
+        library=lambda: torch.index_select(table, 0, idx))
+
+
+def phase_gkernel(dev):
+    """Phase 3d: the row gather at the probe's shape
+    (bench/micro_pallas_gather.py: W=20480, 128 columns, 64k sorted
+    indices, its inputs' distribution)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(4)
+    out = []
+    for dt in (np.int16, np.float32):
+        table = torch.as_tensor(
+            rng.integers(0, 20000, size=(20481, 128)).astype(dt), device=dev)
+        idx = torch.as_tensor(np.sort(rng.integers(0, 20481, size=65536))
+                              .astype(np.int32), device=dev)
+        out.append(_gather_case(f"probe {np.dtype(dt).name}", table, idx))
+    return out
+
+
+def _window_case(label, ps, bounds, fbar, *, n_rep, n_cells, n_rows,
+                 bf16_modes=(False, True)):
+    """Window operand vs plain, bitwise, for each mm_bf16 mode; the bound
+    counts the distinct bound rows read, bounds, fbar and the operand
+    written, and 6 float operations an operand entry."""
+    import torch
+
+    from fscl_tpu_torch.ops import gather as G
+
+    kw = dict(n_rep=n_rep, n_cells=n_cells, n_rows=n_rows)
+    nbytes = (torch.unique(bounds).numel() * ps.shape[1] * ps.element_size()
+              + bounds.numel() * 4 + fbar.numel() * 4)
+    ops = 6 * bounds.shape[0] * n_rep * 2 * n_cells * n_rows
+    shape = (f"ps {list(ps.shape)} c={bounds.shape[0]} NC={n_cells} "
+             f"P={n_rep} R={n_rows} {str(ps.dtype).replace('torch.', '')}")
+    out = []
+    for bf in bf16_modes:
+        out.append(_time_pair(
+            "okernel", f"{label}, mm_bf16={bf}", shape,
+            lambda: G.window_operand(ps, bounds, fbar, mm_bf16=bf, **kw),
+            lambda: G.window_operand_plain(ps, bounds, fbar, mm_bf16=bf,
+                                           **kw),
+            (), nbytes=nbytes, ops=ops))
+    return out
+
+
+def _first_slice_window(ps, bounds, fbar, ht, P):
+    """The window operand's inputs at its first launch of a statistic
+    call: the first candidate chunk of hist_clr_reps_ps."""
+    from fscl_tpu_torch.ops.histclr import _chunk_rows
+
+    c = _chunk_rows(ht.n_cells, P, ht.n_rows)
+    return dict(ps=ps, bounds=bounds[:c].contiguous(),
+                fbar=fbar[:c].contiguous(), n_rep=P, n_cells=ht.n_cells,
+                n_rows=ht.n_rows)
+
+
+def _scan_window_inputs(data, tables, scan_cfg, dev):
+    """The dense scan stage's window-operand inputs on the first
+    chromosome: its single-replicate prefix, and bounds and fbar of its
+    fine-grid candidates on the selection tables."""
+    from types import SimpleNamespace
+
+    from fscl_tpu_torch.engine.scan import (
+        _chrom_scan_ps, _dataset_mod16, chromosome_candidates,
+        get_hist_device_arrays, make_scan_hist_tables,
+    )
+    from fscl_tpu_torch.ops.histclr import build_hist_points
+
+    ht = make_scan_hist_tables(data, tables, scan_cfg.hist_alphas,
+                               decimate=scan_cfg.hist_decimate, device=dev)
+    cl = data.chr_limits[0]
+    st = SimpleNamespace(cl=cl, pos_np=data.pos[
+        cl.start_index:cl.start_index + cl.n_snps])
+    cand, valid, _, _ = chromosome_candidates(cl, scan_cfg)
+    hp = build_hist_points(
+        ht, st.pos_np, cand[valid], scan_cfg.eval_range, cand_pad=1,
+        device_arrays=get_hist_device_arrays(data, ht, st.pos_np,
+                                             cl.start_index))
+    ps = _chrom_scan_ps(data, ht, st, _dataset_mod16(data, ht))
+    return _first_slice_window(ps, hp.bounds, hp.fbar, ht, 1)
+
+
 def _plain_prefix(table, sig, seg_g0, *, w_seg_p, n_rows, weights=None):
     """build_prefix_sums_seg with the plain versions of both kernels."""
     from fscl_tpu_torch.ops import prefix_sums as ps
@@ -362,18 +525,23 @@ def _plain_prefix(table, sig, seg_g0, *, w_seg_p, n_rows, weights=None):
 
 
 def _first_chunk(data, tables, result, scan_cfg, perm_cfg, dev):
-    """The first chunk's null maxima of every stack, with the kernels and
-    with the plain prefix function: [(kernel, plain)] per stack."""
+    """The first chunk's null maxima of every stack with the kernels, with
+    the plain prefix function, and with the plain prefix function and
+    the plain window operand: [(kernels, plain prefix, both plain)] per
+    stack; and the window operand's inputs at the first stack's first
+    slice (its prefix from the kernel, as the path builds it)."""
     import numpy as np
     import torch
 
     from fscl_tpu_torch.engine.permute import active_by_chr, setup_hist
+    from fscl_tpu_torch.ops.gather import window_operand_plain
+    from fscl_tpu_torch.ops.histclr import build_prefix_sums_seg
     from fscl_tpu_torch.ops.permute import block_permutation_groups
 
     fresh = copy.deepcopy(result)
     hs = setup_hist(data, tables, fresh, scan_cfg, perm_cfg, dev)
     every = np.ones(fresh.n_points, bool)
-    sigma, pairs = None, []
+    sigma, triples, win = None, [], None
     for st in hs.stacks:
         st.rebuild(fresh, active_by_chr(fresh, st, every))
         rp = -(-perm_cfg.chunk_replicates // st.sub_rep) * st.sub_rep
@@ -383,29 +551,63 @@ def _first_chunk(data, tables, result, scan_cfg, perm_cfg, dev):
                 perm_cfg.scan_width_mb * 1e6, rp, device=dev))
         a = st.stat(hs.table, sigma[:rp], perm_cfg)
         b = st.stat(hs.table, sigma[:rp], perm_cfg, prefix_fn=_plain_prefix)
+        c = st.stat(hs.table, sigma[:rp], perm_cfg, prefix_fn=_plain_prefix,
+                    window_fn=window_operand_plain)
         torch.cuda.synchronize()
-        pairs.append((a, b))
-    return hs, pairs
+        triples.append((a, b, c))
+        if win is None:
+            sig = sigma[:st.sub_rep]
+            ps = build_prefix_sums_seg(
+                hs.table, sig, st.seg_g0, w_seg_p=st.w_seg_p,
+                n_rows=hs.ht.n_rows, weights=hs.ht.weights)
+            win = _first_slice_window(ps, st.bounds, st.fbar, hs.ht,
+                                      sig.shape[0])
+    return hs, triples, win
 
 
-def _run_main_path(data, tables, scan_cfg, perm_cfg, dev, tsv):
+def _check_plain_window(triples, label):
+    """The plain window operand gives the statistic the kernel gives."""
+    import torch
+
+    for _, b, c in triples:
+        if not torch.equal(b, c):
+            fail(f"{label}: first-chunk null_max differs between the window "
+                 f"kernel and the plain window operand (max "
+                 f"{float((b - c).abs().max())})")
+    log(f"[{label}] first chunk: null_max equal with the window kernel and "
+        "with the plain window operand")
+
+
+def _run_main_path(data, tables, scan_cfg, perm_cfg, dev, tsv, label):
+    """Scan, permutations and output; (result, scan s, permutation s).
+    The window kernel's launches are counted over the scan and over the
+    permutations, and each must be > 0."""
     import torch
 
     from fscl_tpu_torch.engine import scan_genome, scan_permute
     from fscl_tpu_torch.io import scan_output, write_null_distribution
+    from fscl_tpu_torch.ops import gather as G
 
     torch.cuda.synchronize()
+    G.window_launches = 0
     t0 = time.monotonic()
     result = scan_genome(data, tables, scan_cfg, device=dev)
     torch.cuda.synchronize()
     t_scan = time.monotonic() - t0
+    w_scan, G.window_launches = G.window_launches, 0
     t0 = time.monotonic()
     scan_permute(data, tables, result, scan_cfg, perm_cfg, device=dev)
     torch.cuda.synchronize()
     t_perm = time.monotonic() - t0
+    w_perm = G.window_launches
+    if w_scan <= 0 or w_perm <= 0:
+        fail(f"{label}: the window kernel launched {w_scan} times in the "
+             f"scan and {w_perm} in the permutations")
+    log(f"[{label}] window kernel launches: scan {w_scan}, permutations "
+        f"{w_perm}")
     scan_output(tsv, data, result, n_permute=perm_cfg.n_permute)
     write_null_distribution(tsv, data, result)
-    return result, t_scan, t_perm
+    return result, t_scan, t_perm, (w_scan, w_perm)
 
 
 def _check_result(result, label):
@@ -454,10 +656,10 @@ def phase_20k(dev):
 
     # cold pass, then the timed pass with the launch count (bench.py order)
     _run_main_path(data, tables, scan_cfg, copy.deepcopy(perm_cfg), dev,
-                   OUT / "bench_20k_cold.tsv")
+                   OUT / "bench_20k_cold.tsv", "20k cold")
     ps.launches = 0
-    result, t_scan, t_perm = _run_main_path(
-        data, tables, scan_cfg, perm_cfg, dev, OUT / "bench_20k.tsv")
+    result, t_scan, t_perm, wl = _run_main_path(
+        data, tables, scan_cfg, perm_cfg, dev, OUT / "bench_20k.tsv", "20k")
     launches = ps.launches
     _check_result(result, "20k")
     if launches <= 0:
@@ -468,20 +670,28 @@ def phase_20k(dev):
         f"{pr / t_perm:.1f} point-rounds/s, max CLR {result.clr.max():.2f}, "
         f"kernel launches {launches}")
 
-    # first chunk again: kernel vs the plain prefix function on the card
-    hs, pairs = _first_chunk(data, tables, result, scan_cfg, perm_cfg, dev)
-    for a, b in pairs:
+    # first chunk again: the kernels vs the plain prefix function, then
+    # vs the plain prefix and the plain window operand, on the card
+    hs, triples, win = _first_chunk(data, tables, result, scan_cfg,
+                                    perm_cfg, dev)
+    for a, b, _ in triples:
         if not torch.equal(a, b):
             fail("20k: first-chunk null_max differs between the kernel and "
                  f"the plain prefix (max {float((a - b).abs().max())})")
         log(f"[20k] first chunk: null_max [{a.shape[0]}, {a.shape[1]}] "
             "equal with the kernel and with the plain prefix sums")
+    _check_plain_window(triples, "20k")
+    # phase 3e at the 20k path's shapes: the scan and a stacked slice
+    okern = (_window_case("20k scan", **_scan_window_inputs(
+                 data, tables, scan_cfg, dev))
+             + _window_case("20k stacked slice", **win))
     return dict(sites=data.n_snps, points=result.n_points, scan_s=t_scan,
                 perm_s=t_perm, point_rounds=pr,
                 point_rounds_per_s=pr / t_perm,
                 max_clr=float(result.clr.max()), launches=launches,
-                sub_rep=hs.stacks[0].sub_rep,
-                w_seg_p=hs.stacks[0].w_seg_p, n_rows=hs.ht.n_rows)
+                window_launches=wl, sub_rep=hs.stacks[0].sub_rep,
+                w_seg_p=hs.stacks[0].w_seg_p, n_rows=hs.ht.n_rows,
+                okernel=okern)
 
 
 def genome_data():
@@ -517,21 +727,27 @@ def phase_genome(dev, n_permute=64):
     tables = _load_model(data, compat=False)
     t_setup = time.monotonic() - t0
     before = ps.launches
-    result, t_scan, t_perm = _run_main_path(
-        data, tables, ScanConfig(), PermuteConfig(n_permute=n_permute), dev,
-        OUT / "genome1m.tsv")
+    perm_cfg = PermuteConfig(n_permute=n_permute)
+    result, t_scan, t_perm, wl = _run_main_path(
+        data, tables, ScanConfig(), perm_cfg, dev, OUT / "genome1m.tsv",
+        "genome")
     rdp_auto = dict(TP.last_stats)  # FSCL_RDP as set (auto by default)
+    launches = ps.launches - before
     _check_result(result, "genome")
     hs = setup_hist(data, tables, result, ScanConfig(), PermuteConfig(), dev)
     stacks = [(st.w_seg_p, len(st.segs), _sub_rep_for(hs.ht, _ladder_pad(
         len(st.segs)), st.w_seg_p)) for st in hs.stacks]
+    _, triples, win = _first_chunk(data, tables, result, ScanConfig(),
+                                   perm_cfg, dev)
+    _check_plain_window(triples, "genome")
+    okern = _window_case("genome stacked slice", **win)
     log(f"[genome] stacks (w_seg_p, chromosomes, sub_rep): {stacks}")
     pr = int(result.permute_n.sum())
     log(f"[genome] {data.n_snps} sites over {len(data.chr_limits)} "
         f"chromosomes, {result.n_points} points; data+tables {t_setup:.1f}s,"
         f" scan {t_scan:.3f}s, permute ({n_permute}) {t_perm:.3f}s, "
         f"{pr} point-rounds, {pr / t_perm:.1f} point-rounds/s, kernel "
-        f"launches {ps.launches - before}")
+        f"launches {launches}")
     log(f"[genome] RDP tail ({TP.RDP_FORCE}): {rdp_auto['rdp_dispatches']} "
         f"RDP chunks, {rdp_auto['stack_dispatches']} stacked dispatches, "
         f"{int(result.permute_finished.sum())} of {result.n_points} points "
@@ -539,8 +755,8 @@ def phase_genome(dev, n_permute=64):
     return dict(sites=data.n_snps, points=result.n_points, scan_s=t_scan,
                 perm_s=t_perm, n_permute=n_permute, point_rounds=pr,
                 point_rounds_per_s=pr / t_perm, stacks=stacks,
-                n_rows=hs.ht.n_rows,
-                launches=ps.launches - before, rdp_mode=TP.RDP_FORCE,
+                n_rows=hs.ht.n_rows, launches=launches,
+                window_launches=wl, okernel=okern, rdp_mode=TP.RDP_FORCE,
                 **rdp_auto)
 
 
@@ -561,8 +777,9 @@ def phase_mixed100k(dev, n_permute=64):
     t_setup = time.monotonic() - t0
     scan_cfg, perm_cfg = ScanConfig(), PermuteConfig(n_permute=n_permute)
     ps.launches = ps.weighted_launches = 0
-    result, t_scan, t_perm = _run_main_path(
-        data, tables, scan_cfg, perm_cfg, dev, OUT / "mixed100k.tsv")
+    result, t_scan, t_perm, wl = _run_main_path(
+        data, tables, scan_cfg, perm_cfg, dev, OUT / "mixed100k.tsv",
+        "mixed100k")
     launches, onehot = ps.weighted_launches, ps.launches
     _check_result(result, "mixed100k")
     if launches <= 0:
@@ -573,7 +790,8 @@ def phase_mixed100k(dev, n_permute=64):
     scan_nc = [make_scan_hist_tables(data, tables, scan_cfg.hist_alphas,
                                      decimate=d, device=dev).n_cells
                for d in (scan_cfg.hist_decimate, scan_cfg.tie_decimate)]
-    hs, pairs = _first_chunk(data, tables, result, scan_cfg, perm_cfg, dev)
+    hs, triples, win = _first_chunk(data, tables, result, scan_cfg,
+                                    perm_cfg, dev)
     ht = hs.ht
     if ht.weights is None:
         fail("mixed100k: the tables are not compressed")
@@ -583,7 +801,7 @@ def phase_mixed100k(dev, n_permute=64):
     # kernel and with the plain prefix; tolerance 1e-2 of max |stat|, the
     # bf16 band of tests/test_torch_permute.py
     d_first = 0.0
-    for a, b in pairs:
+    for a, b, _ in triples:
         d = float((a - b).abs().max())
         if d > 1e-2 * max(float(b.abs().max()), 1.0):
             fail(f"mixed100k: first-chunk null_max differs by {d:.4g} "
@@ -592,6 +810,8 @@ def phase_mixed100k(dev, n_permute=64):
         log(f"[mixed100k] first chunk: null_max [{a.shape[0]}, "
             f"{a.shape[1]}] kernel vs plain prefix max |diff| {d:.4g} "
             f"(max |stat| {float(b.abs().max()):.4g})")
+    _check_plain_window(triples, "mixed100k")
+    okern = _window_case("mixed100k stacked slice", **win)
     pr = int(result.permute_n.sum())
     log(f"[mixed100k] {data.n_snps} sites over {len(data.chr_limits)} "
         f"chromosomes, {len(data.sample_depths)} depths, "
@@ -609,7 +829,7 @@ def phase_mixed100k(dev, n_permute=64):
                 n_rows=ht.n_rows, rows_used=len(ht.rows_used),
                 n_cells_scan=scan_nc, n_cells_perm=ht.n_cells,
                 max_clr=float(result.clr.max()), first_chunk_diff=d_first,
-                launches=launches)
+                launches=launches, window_launches=wl, okernel=okern)
 
 
 def _single_depth_check_data():
@@ -729,6 +949,7 @@ def phase_rdp(dev):
 
     from fscl_tpu_torch.engine import permute as TP
     from fscl_tpu_torch.engine.scan import scan_genome
+    from fscl_tpu_torch.ops import gather as G
     from fscl_tpu_torch.ops import histclr as H
     from fscl_tpu_torch.ops import prefix_sums as ps
     from fscl_tpu_torch.ops.permute import (
@@ -744,12 +965,14 @@ def phase_rdp(dev):
     ps.launches = ps.weighted_launches = 0
     ps.rowid_launches = ps.perm_launches = 0
 
-    # (i) scan_permute with the RDP tail forced on and off
-    runs, walls, stats = {}, {}, {}
+    # (i) scan_permute with the RDP tail forced on and off; the row
+    # gather and the window kernel counted in each
+    runs, walls, stats, glaunch = {}, {}, {}, {}
     saved = TP.RDP_FORCE
     for force in ("on", "off"):
         r = copy.deepcopy(result)
         TP.RDP_FORCE = force
+        G.gather_launches = G.window_launches = 0
         try:
             t0 = time.monotonic()
             TP.scan_permute(data, tables, r, scan_cfg,
@@ -759,7 +982,13 @@ def phase_rdp(dev):
         finally:
             TP.RDP_FORCE = saved
         runs[force], stats[force] = r, dict(TP.last_stats)
+        glaunch[force] = dict(gather=G.gather_launches,
+                              window=G.window_launches)
     on, off = runs["on"], runs["off"]
+    if glaunch["on"]["gather"] <= 0 or glaunch["off"]["gather"] \
+            or min(glaunch["on"]["window"], glaunch["off"]["window"]) <= 0:
+        fail(f"rdp: row gather / window kernel launches {glaunch} (the "
+             "gather must run under RDP on only, the window kernel in both)")
     if stats["on"]["rdp_dispatches"] <= 0 or stats["on"]["stack_dispatches"]:
         fail(f"rdp: RDP forced on dispatched {stats['on']}")
     if stats["off"]["rdp_dispatches"] or stats["off"]["stack_dispatches"] <= 0:
@@ -836,7 +1065,10 @@ def phase_rdp(dev):
     d_h = float((clr_h - clr_rdp).abs().max())
     d_b = float((stat_b - stat_rdp).abs().max())
     launches = dict(onehot=ps.launches, weighted=ps.weighted_launches,
-                    rowid=ps.rowid_launches, perm=ps.perm_launches)
+                    rowid=ps.rowid_launches, perm=ps.perm_launches,
+                    gather_rdp_on=glaunch["on"]["gather"],
+                    window_rdp_on=glaunch["on"]["window"],
+                    window_rdp_off=glaunch["off"]["window"])
     log(f"[rdp] (ii) first RDP chunk ({RDP_CHUNK} replicates, "
         f"{len(pts)} points, {bounds.shape[0]} candidates): hist_clr_reps "
         f"CLR max |diff| {d_h:.3g}, _hist_perm_batch statistic max |diff| "
@@ -845,11 +1077,35 @@ def phase_rdp(dev):
     if min(launches["onehot"], launches["rowid"], launches["perm"]) <= 0 \
             or launches["weighted"]:
         fail(f"rdp: a kernel of the path did not launch: {launches}")
+
+    # phases 3d and 3e at the RDP tail's shapes: the first slice
+    # (HIST_REP_SUB replicates, what one rdp_clr_reps call takes) of the
+    # first chunk, its first candidate chunk
+    P, R, NC = TP.HIST_REP_SUB, ht.n_rows, ht.n_cells
+    s, d, z = (x[:P].to(device=dev, dtype=torch.int32) for x in (src, dst,
+                                                                 sz))
+    tabs = H._rdp_tables(tail.psite, s, d, z, pg=PERM_GROUP,
+                         n_groups=hs.n_groups)
+    bc = bounds[:H._chunk_rows(NC, P, R)]
+    d_idx, s_idx = H._rdp_rows(bc, tabs, pg=PERM_GROUP,
+                               n_sites1=tail.psite.shape[0])
+    gkern = [_gather_case("20k RDP psite rows", tail.psite, s_idx),
+             _gather_case("20k RDP run constants", tabs[0], d_idx)]
+    M = bc.numel()
+    a = G.row_gather(tabs[0], d_idx) + G.row_gather(tail.psite, s_idx)
+    ident = torch.arange(M, dtype=torch.int32, device=dev).view(-1, 2,
+                                                                NC + 1)
+    okern = _window_case("20k RDP slice (identity bounds)",
+                         a.view(M, P * R), ident,
+                         fbar[:bc.shape[0]].contiguous(), n_rep=P,
+                         n_cells=NC, n_rows=R)
     return dict(walls=walls, stats=stats, near_ties=near, kept=len(keep),
                 d_null=d_null, d_hist_clr_reps=d_h, d_hist_perm_batch=d_b,
                 launches=launches, n_points=result.n_points,
                 rowid_shape=(RDP_CHUNK, data.n_snps, ht.n_rows),
-                perm_shape=(cl.n_snps, w_pad, RDP_CHUNK, ht.n_rows))
+                perm_shape=(cl.n_snps, w_pad, RDP_CHUNK, ht.n_rows),
+                psite_shape=tuple(tail.psite.shape), gkernel=gkern,
+                okernel=okern)
 
 
 def phase_profile(dev):
@@ -914,12 +1170,17 @@ def phase_profile(dev):
             busy = sum(t for t, _, _ in kern) / 1e6
             ours = sum(t for t, _, k in kern if "tile_" in k) / 1e6
             wours = sum(t for t, _, k in kern if "wtile_" in k) / 1e6
+            gath = sum(t for t, _, k in kern if "gather_rows" in k) / 1e6
+            win = sum(t for t, _, k in kern
+                      if "window_operand_kernel" in k) / 1e6
             table = ka.table(sort_by="self_device_time_total", row_limit=40)
             (OUT / f"profile_{label}_{stage}.txt").write_text(table)
             log(f"[profile] {label} {stage}: wall {wall:.3f}s (profiled), "
                 f"device kernels {busy:.3f}s = {100 * busy / wall:.1f}% "
                 f"busy; prefix-sum kernels {ours * 1e3:.3f} ms (weighted "
-                f"{wours * 1e3:.3f} ms)")
+                f"{wours * 1e3:.3f} ms); window operand {win * 1e3:.3f} ms "
+                f"({100 * win / busy:.1f}%); row gather {gath * 1e3:.3f} ms "
+                f"({100 * gath / busy:.1f}%)")
             for t, n, key in sorted(kern, reverse=True)[:10]:
                 log(f"[profile]   {t / 1e3:10.2f} ms  {n:7d}x  {key[:90]}")
 
@@ -954,6 +1215,7 @@ def main():
               ("20k P=16", 1, 20480, 16, 56),
               ("genome", 24, 36864, sub_gen, 48)]
     kern = phase_kernel(dev, shapes)
+    gkern = phase_gkernel(dev)
     # mixed100k: 4 chromosomes of ~23.7k sites (ladder rung 4, w_seg_p
     # 24576), 1,589 table rows compressed to 32 f32 channels
     sub_mix = _sub_rep_for(SimpleNamespace(n_rows=32, weights=True), 4,
@@ -992,38 +1254,59 @@ def main():
         fail(f"rdp path ran the kernels at {rr['rowid_shape']} and "
              f"{rr['perm_shape']}, not the shapes phases 3a and 3b checked")
 
+    gkern = rr["gkernel"] + gkern  # the RDP path's shape first
+    okern = (r20["okernel"] + rg["okernel"] + rm["okernel"]
+             + rr["okernel"])
     detail = dict(device=name, nvidia_smi=smi, kernel=kern, wkernel=wkern,
-                  rkernel=rkern, pkernel=pkern, bench_20k=r20, genome=rg,
-                  mixed100k=rm, check=chk, rdp=rr)
+                  rkernel=rkern, pkernel=pkern, gkernel=gkern,
+                  okernel=okern, bench_20k=r20, genome=rg, mixed100k=rm,
+                  check=chk, rdp=rr)
     (OUT / "smoke.json").write_text(json.dumps(detail, indent=1) + "\n")
 
-    def entry(name, source, replaces, launches, runs):
-        main_shape = runs[0]
-        return {
+    def entry(name, source, replaces, launches, runs, main=0, note=None):
+        """The kernel's line: the main path's shape (runs[main]) for the
+        times and bound, the largest error over every shape checked."""
+        m = runs[main]
+        out = {
             "name": name, "route": "cuda",
             "source": f"fscl_tpu_torch/csrc/{source}",
-            "replaces": f"fscl_tpu/ops/pallas_ps.py:148 ({replaces})",
-            "launches": launches,
+            "replaces": replaces, "launches": launches,
             "max_abs_err": max(k["max_abs_err"] for k in runs),
-            "ms": main_shape["ms"], "plain_ms": main_shape["plain_ms"],
-            "bound_ms": main_shape["bound_ms"],
-            "bound_by": main_shape["bound_by"],
-            # no single PyTorch call computes these fused functions
-            "library_ms": None,
+            "ms": m["ms"], "plain_ms": m["plain_ms"],
+            "bound_ms": m["bound_ms"], "bound_by": m["bound_by"],
+            "library_ms": m.get("library_ms"),
         }
+        if note:
+            out["library_note"] = note
+        return out
 
+    pallas_ps = "fscl_tpu/ops/pallas_ps.py:148 "
+    fused = ("no single PyTorch call computes this fused gather + one-hot "
+             "(or weight) + prefix function")
     log(smi)
     log(json.dumps({"kernels": [
         entry("onehot_prefix_sums", "prefix_sums.cu",
-              "mode (b), segmented one-hot", r20["launches"], kern),
+              pallas_ps + "(mode (b), segmented one-hot)", r20["launches"],
+              kern, note=fused),
         entry("weighted_prefix_sums", "weighted_prefix_sums.cu",
-              "mode (c), f32 weight channels", rm["launches"], wkern),
+              pallas_ps + "(mode (c), f32 weight channels)", rm["launches"],
+              wkern, note=fused),
         entry("rowid_prefix_sums", "rowid_prefix_sums.cu",
-              "mode (a), row ids vs lane % R", rr["launches"]["rowid"],
-              rkern),
+              pallas_ps + "(mode (a), row ids vs lane % R)",
+              rr["launches"]["rowid"], rkern, note=fused),
         entry("perm_prefix_sums", "rowid_prefix_sums.cu",
-              "mode (b), unsegmented one-hot", rr["launches"]["perm"],
-              pkern),
+              pallas_ps + "(mode (b), unsegmented one-hot)",
+              rr["launches"]["perm"], pkern, note=fused),
+        entry("row_gather", "row_gather.cu",
+              "bench/micro_pallas_gather.py:40 pallas_gather",
+              rr["launches"]["gather_rdp_on"], gkern),
+        # main shape: the 20k stacked slice at the permutations' default
+        # bfloat16 contraction (okern[2] is mm_bf16=False, [3] True)
+        entry("window_operand", "row_gather.cu",
+              "fscl_tpu/ops/histclr.py:1116-1126 (XLA-fused, no Pallas "
+              "kernel)", sum(r20["window_launches"]), okern, main=3,
+              note="no single PyTorch call computes the gather -> "
+                   "difference -> lerp chain"),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

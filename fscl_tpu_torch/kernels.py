@@ -107,7 +107,7 @@ def load():
     if _lib is not None:
         return _lib
     lib = ctypes.CDLL(str(build()))
-    vp, i = ctypes.c_void_p, ctypes.c_int
+    vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.fscl_onehot_prefix_sums.argtypes = [
         vp, vp, vp, vp, vp, i, i, i, i, i, i, i, vp,
     ]
@@ -122,6 +122,12 @@ def load():
         vp, vp, vp, vp, i, i, i, i, i, i, i, i, i, vp,
     ]
     lib.fscl_perm_prefix_sums.restype = i
+    lib.fscl_row_gather.argtypes = [vp, vp, vp, i64, i64, i, i, vp]
+    lib.fscl_row_gather.restype = i
+    lib.fscl_window_operand.argtypes = [
+        vp, vp, vp, vp, i, i, i, i, i64, i, i, vp,
+    ]
+    lib.fscl_window_operand.restype = i
     for tile in (lib.fscl_ps_tile, lib.fscl_wps_tile, lib.fscl_rps_tile):
         tile.argtypes = []
         tile.restype = i

@@ -30,8 +30,10 @@ Step 1 has several sources, one statistic: the stacked segmented prefix
 of replicate-stacked row ids (build_prefix_sums, hist_clr_reps), the
 prefix of one chromosome's permuted stream (build_prefix_sums_oh), and,
 in the pruning tail, the run-decomposed prefix assembled at the bounds
-from one unpermuted site prefix (rdp_clr_reps).  Steps 2-3 from the
-window counts onward are one function, _clr_from_windows.
+from one unpermuted site prefix (rdp_clr_reps, whose two large row
+gathers are ops/gather.py:row_gather).  Steps 2-3 are one function,
+_clr_from_windows: the window operand (ops/gather.py:window_operand, one
+kernel for the gather, difference and lerp) and the contraction.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ import torch
 
 from .. import LOG_AD_MAX, LOG_AD_MIN, NotPortedError
 from ..device import parse_device
+from .gather import bf16_round, row_gather, window_operand
 from .permute import PERM_GROUP, sigma_from_runs
 from .prefix_sums import (
     onehot_prefix_sums,
@@ -57,9 +60,10 @@ ROWS_MAX = 128  # exact one-hot gate: above this the tables are compressed
 COMPRESS_ROWS_MAX = 8192  # hard cap for the SVD row-compression path
 COMPRESS_TOL = 1e-3  # max-entry residual target for the rank choice
 SITES_MAX = 4_000_000  # [W, R] state cap
-# transient bytes of one hist_clr_reps_ps candidate chunk (the gathered
-# [c, 2, NC+1, P*R] prefix rows in f32): bounds device memory only, the
-# values do not depend on it
+# transient bytes of one candidate chunk of the statistic (the window
+# operand [c*P, 2*NC*R] f32, and under RDP the assembled [c, 2, NC+1, P*R]
+# int32 prefix rows): bounds device memory only, the values do not
+# depend on it
 CHUNK_BYTES = 1 << 28
 
 
@@ -554,66 +558,57 @@ def build_site_prefix(row_compact, *, n_rows):
     return out
 
 
-def _bf16_round(x):
-    return x.to(torch.bfloat16).to(torch.float32)
+def _clr_from_windows(ps, bounds, fbar, t3m, *, n_rep, n_cells, n_rows,
+                      n_alpha, mm_bf16, window_fn=window_operand):
+    """2 * contraction of the window operand with the table pack, shared
+    by hist_clr_reps_ps and rdp_clr_reps.
 
-
-def _clr_from_windows(h, fc, t3m, *, n_rep, n_cells, n_rows, n_alpha,
-                      mm_bf16):
-    """2 * contraction of the lerped window counts with the table pack,
-    shared by hist_clr_reps_ps and rdp_clr_reps.
-
-    h: [c, 2, NC, P*R] f32 signed window counts (side, cell, replicate,
-    row); fc: [c, 2, NC] fbar; t3m: [2*NC*R, A] pack (bf16-rounded when
-    mm_bf16).  The fbar lerp splits h into w0 and w1, summed over the two
-    sides; mm_bf16 rounds the operand to bfloat16 and keeps a float32
-    product.  Returns [c, P, A] f32.
+    ps: [*, P*R] prefix rows; bounds: [c, 2, NC+1] int32 rows of ps;
+    fbar: [c, 2, NC]; t3m: [2*NC*R, A] pack (bf16-rounded when mm_bf16).
+    window_fn (ops/gather.py:window_operand, a CUDA kernel on the card, or
+    its plain version) gathers the bound rows, differences and lerps them
+    into the operand k [c*P, 2*NC*R] (bfloat16-rounded when mm_bf16); the
+    product keeps float32.  Returns [c, P, A] f32.
     """
-    NC, R, A, P = n_cells, n_rows, n_alpha, n_rep
-    c = h.shape[0]
-    w0 = (h * (1.0 - fc[..., None])).sum(1)  # [c, NC, P*R]
-    w1 = (h * fc[..., None]).sum(1)
-    k = torch.cat([w0, w1], 1).reshape(c, 2 * NC, P, R)
-    k = k.permute(0, 2, 1, 3).reshape(c * P, 2 * NC * R)
-    if mm_bf16:
-        k = _bf16_round(k)
-    return 2.0 * torch.matmul(k, t3m).reshape(c, P, A)
+    k = window_fn(ps, bounds, fbar, n_rep=n_rep, n_cells=n_cells,
+                  n_rows=n_rows, mm_bf16=mm_bf16)
+    return 2.0 * torch.matmul(k, t3m).reshape(bounds.shape[0], n_rep,
+                                              n_alpha)
 
 
 def _chunk_rows(n_cells, n_rep, n_rows):
-    """Candidates per chunk: the gathered [c, 2, NC+1, P*R] prefix rows
-    stay within CHUNK_BYTES at 4 bytes an entry."""
+    """Candidates per chunk: the operand k [c*P, 2*NC*R] and, under RDP,
+    the assembled [c, 2, NC+1, P*R] prefix rows stay within CHUNK_BYTES
+    at 4 bytes an entry."""
     return max(1, CHUNK_BYTES // max(2 * (n_cells + 1) * n_rep * n_rows * 4,
                                      1))
 
 
 def hist_clr_reps_ps(t3, bounds, fbar, ps, *, n_rep, n_cells, n_rows,
-                     n_alpha, mm_bf16=False):
+                     n_alpha, mm_bf16=False, window_fn=window_operand):
     """CLR[p, c, a] given prebuilt prefix sums ps [W+1, P*R]
     (fscl_tpu/ops/histclr.py:1078).
 
-    Per candidate chunk: the bounds gather ps[bounds], the signed
-    adjacent difference in the prefix dtype (int16 wraps mod 2^16 exactly
-    as the JAX package's mod-2^16 rule relies on), then
-    _clr_from_windows.  mm_bf16 rounds both operands to bfloat16 and
+    Per candidate chunk, _clr_from_windows: the window operand (the
+    bounds gather ps[bounds], the signed adjacent difference in the
+    prefix dtype -- int16 wraps mod 2^16 exactly as the JAX package's
+    mod-2^16 rule relies on -- and the fbar lerp, one kernel on the card)
+    and the contraction.  mm_bf16 rounds both operands to bfloat16 and
     keeps the float32 product and accumulation (the JAX package's bf16
     inputs with preferred_element_type=f32).  Returns [P, C, A] f32.
     """
     P, A = n_rep, n_alpha
     C = bounds.shape[0]
-    sign = torch.tensor([-1, 1], dtype=ps.dtype, device=ps.device)
-    t3m = _bf16_round(t3) if mm_bf16 else t3
+    t3m = bf16_round(t3) if mm_bf16 else t3
     c_sub = _chunk_rows(n_cells, P, n_rows)
-    outs = []
-    for c0 in range(0, C, c_sub):
-        bc = bounds[c0:c0 + c_sub].to(torch.int64)
-        psb = ps[bc]  # [c, 2, NC+1, P*R]
-        h = ((psb[:, :, 1:, :] - psb[:, :, :-1, :])
-             * sign[None, :, None, None]).to(torch.float32)
-        outs.append(_clr_from_windows(
-            h, fbar[c0:c0 + c_sub], t3m, n_rep=P, n_cells=n_cells,
-            n_rows=n_rows, n_alpha=A, mm_bf16=mm_bf16,
-        ))
+    outs = [
+        _clr_from_windows(
+            ps, bounds[c0:c0 + c_sub], fbar[c0:c0 + c_sub], t3m, n_rep=P,
+            n_cells=n_cells, n_rows=n_rows, n_alpha=A, mm_bf16=mm_bf16,
+            window_fn=window_fn,
+        )
+        for c0 in range(0, C, c_sub)
+    ]
     out = torch.cat(outs) if outs else t3.new_zeros((0, P, A))
     return out.permute(1, 0, 2)
 
@@ -656,10 +651,12 @@ def rdp_clr_reps(t3, bounds_gen, fbar, psite, src_starts, dst_starts,
 
     Layout: the small per-group tables (run id and source group, [G, P])
     are transposed and row-gathered at the bound groups, so the large
-    gathers d_flat[k + p_off] + psite[src_site] land directly in
-    [M, P, R] consumption order; nothing large is transposed.  Window
-    differences equal the stacked prefix differences exactly (the same
-    integers), and _clr_from_windows turns them into the same statistic.
+    gathers d_flat[k + p_off] + psite[src_site] (row_gather, a CUDA
+    kernel on the card) land directly in [M, P, R] consumption order;
+    nothing large is transposed.  Their int32 sum, read through identity
+    bounds, gives window differences equal to the stacked prefix
+    differences exactly (the same integers), and _clr_from_windows turns
+    them into the same statistic.
 
     bounds_gen: [C, 2, NC+1] int32 genome-site bounds (all-zero rows, the
     padding candidates, give h = 0 and CLR exactly 0); fbar [C, 2, NC];
@@ -667,9 +664,39 @@ def rdp_clr_reps(t3, bounds_gen, fbar, psite, src_starts, dst_starts,
     n_groups = G.  Returns [P, C, A] f32.
     """
     NC, R, A, P = n_cells, n_rows, n_alpha, n_rep
-    B = src_starts.shape[1]
+    tabs = _rdp_tables(psite, src_starts, dst_starts, sizes, pg=pg,
+                       n_groups=n_groups)
+    t3m = bf16_round(t3) if mm_bf16 else t3
+    C = bounds_gen.shape[0]
+    c_sub = _chunk_rows(NC, P, R)
+    ident = torch.arange(min(C, c_sub) * 2 * (NC + 1), dtype=torch.int32,
+                         device=psite.device)
+    outs = []
+    for c0 in range(0, C, c_sub):
+        bc = bounds_gen[c0:c0 + c_sub]
+        c, M = bc.shape[0], bc.numel()
+        d_idx, s_idx = _rdp_rows(bc, tabs, pg=pg, n_sites1=psite.shape[0])
+        # [M*P, R] int32: the assembled prefix rows in consumption order
+        a = row_gather(tabs[0], d_idx) + row_gather(psite, s_idx)
+        # identity bounds: window j of candidate c reads assembled rows
+        # (c, s, j) and (c, s, j+1), as the stacked path reads ps rows
+        outs.append(_clr_from_windows(
+            a.view(M, P * R), ident[:M].view(c, 2, NC + 1),
+            fbar[c0:c0 + c_sub], t3m, n_rep=P, n_cells=NC, n_rows=R,
+            n_alpha=A, mm_bf16=mm_bf16,
+        ))
+    out = torch.cat(outs) if outs else t3.new_zeros((0, P, A))
+    return out.permute(1, 0, 2)
+
+
+def _rdp_tables(psite, src_starts, dst_starts, sizes, *, pg, n_groups):
+    """Per-slice tables of rdp_clr_reps: (d_flat [P*B, R] int32 run
+    constants D, run_of_t [G, P] and sigma8_t [G, P] int64 per-group run
+    ids and source groups, p_off [1, P] row offsets of each replicate's
+    runs in d_flat)."""
+    P, B = src_starts.shape
     G = int(n_groups)
-    W1 = psite.shape[0]
+    W1, R = psite.shape
     dev = psite.device
     src = src_starts.to(torch.int64)
     dst = dst_starts.to(torch.int64)
@@ -680,7 +707,7 @@ def rdp_clr_reps(t3, bounds_gen, fbar, psite, src_starts, dst_starts,
     e_sites = torch.clamp((src + sz) * pg, 0, W1 - 1)
     pst_s = psite[s_sites]  # [P, B, R]
     run_tot = psite[e_sites] - pst_s
-    rps = torch.cumsum(run_tot, 1) - run_tot  # exclusive
+    rps = torch.cumsum(run_tot, 1, dtype=torch.int32) - run_tot  # exclusive
     d_flat = (rps - pst_s).reshape(P * B, R)
 
     # per-group tables [G, P]: run ids (a 1 at each run's start + cumsum,
@@ -691,26 +718,22 @@ def rdp_clr_reps(t3, bounds_gen, fbar, psite, src_starts, dst_starts,
     run_of_t = (torch.cumsum(ones[:, :G], 1) - 1).T.contiguous()
     sigma8_t = sigma_from_runs(src, dst, G).to(torch.int64).T.contiguous()
     p_off = torch.arange(P, device=dev)[None, :] * B  # [1, P]
+    return d_flat, run_of_t, sigma8_t, p_off
 
-    sign = torch.tensor([-1, 1], dtype=torch.int32, device=dev)
-    t3m = _bf16_round(t3) if mm_bf16 else t3
-    C = bounds_gen.shape[0]
-    c_sub = _chunk_rows(NC, P, R)
-    outs = []
-    for c0 in range(0, C, c_sub):
-        bc = bounds_gen[c0:c0 + c_sub].to(torch.int64)
-        c = bc.shape[0]
-        flat_b = bc.reshape(-1)  # [M] genome site bounds
-        g_b = torch.clamp(flat_b // pg, 0, G - 1)
-        o_b = flat_b - g_b * pg
-        src_site = torch.clamp(sigma8_t[g_b] * pg + o_b[:, None], 0, W1 - 1)
-        a = d_flat[run_of_t[g_b] + p_off] + psite[src_site]  # [M, P, R]
-        psb = a.reshape(c, 2, NC + 1, P * R)
-        h = ((psb[:, :, 1:, :] - psb[:, :, :-1, :])
-             * sign[None, :, None, None]).to(torch.float32)
-        outs.append(_clr_from_windows(
-            h, fbar[c0:c0 + c_sub], t3m, n_rep=P, n_cells=NC, n_rows=R,
-            n_alpha=A, mm_bf16=mm_bf16,
-        ))
-    out = torch.cat(outs) if outs else t3.new_zeros((0, P, A))
-    return out.permute(1, 0, 2)
+
+def _rdp_rows(bc, tabs, *, pg, n_sites1):
+    """Row indices of rdp_clr_reps' two large gathers for bounds bc
+    [c, 2, NC+1]: (d_flat rows, psite rows), each [M*P] int32 in (bound,
+    replicate) order, M = bc.numel().  The bound's group and its source
+    site are clamped into the tables here, so the gathers see only rows
+    that exist."""
+    _, run_of_t, sigma8_t, p_off = tabs
+    G = run_of_t.shape[0]
+    flat_b = bc.reshape(-1).to(torch.int64)  # [M] genome site bounds
+    g_b = torch.clamp(flat_b // pg, 0, G - 1)
+    o_b = flat_b - g_b * pg
+    src_site = torch.clamp(sigma8_t[g_b] * pg + o_b[:, None], 0,
+                           n_sites1 - 1)
+    d_rows = run_of_t[g_b] + p_off  # [M, P]
+    return (d_rows.reshape(-1).to(torch.int32),
+            src_site.reshape(-1).to(torch.int32))
