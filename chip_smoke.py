@@ -30,24 +30,36 @@ non-zero:
                its plain version, bitwise (zeros compared without their
                sign), mm_bf16 off and on, on the inputs the main path
                gives it (bounds and fbar from build_hist_points on the real
-               data): the 20k scan (P=1) and stacked slice run in phase 4,
-               genome in 5, mixed100k in 5c, an RDP slice in 7; both timed
+               data): the 20k scan (P=1, and its float32 tie stage) and
+               stacked slice run in phase 4, genome in 5, mixed100k in
+               5c, an RDP slice in 7; both timed
+  3f. fkernel - the fused window contraction (window_clr: operand and
+               bfloat16 tensor-core contraction in one kernel) against its
+               plain version within 2e-4 S + 1e-5 per entry (S = 2 sum_k
+               |k t|), at the 20k scan, 20k stacked, genome and mixed100k
+               first-chunk inputs of 3e; kernel, plain, and two
+               yardsticks timed: window_operand + float32 matmul (the
+               route it replaces) and window_operand + bfloat16 matmul
+               (cuBLAS tensor cores)
   4. 20k     - the bench.py task (bench/data/bench_20k.sf, 50
                permutations) through the port's entry points; the
-               prefix kernel's launches are counted over this run and the
-               window kernel's over its scan and its permutations; the
-               first chunk's statistic is recomputed with the plain
-               prefix function, then with the plain window operand too,
-               and must be equal
+               prefix kernel's launches are counted over this run, and
+               over its scan and its permutations the fused window
+               kernel's (bfloat16 stages) and the window operand's (the
+               scan's float32 tie stage; none in the bfloat16
+               permutations); the first chunk's statistic is recomputed
+               with the plain prefix function (equal), then with the
+               plain window route too (within 3f's tolerance, exceedance
+               counts on the run's thresholds equal off near-ties)
   5. genome  - ~778k sites over 22 chromosomes (bench/headline.py
                gen_genome1m), scan and 64 permutations; window launches
                counted over each; the first chunk recomputed as in 4
   5c. mixed100k - bench/data/headline_mixed100k.sf (94,889 sites, 31
                depths, 1,589 table rows, compressed tables), scan and 64
                permutations; the weighted kernel's launches are counted
-               over this run and the window kernel's over each stage; the
+               over this run and the window kernels' over each stage; the
                first chunk's statistic is recomputed with the plain
-               prefix function, then with the plain window operand too
+               prefix function, then with the plain window route too
   6. check   - a small single-depth input and a small mixed-depth input
                through the card and through the plain CPU versions must
                agree
@@ -58,10 +70,14 @@ non-zero:
                chunk of the RDP run recomputed through hist_clr_reps
                (kernel 3a) and _hist_perm_batch (kernel 3b); the phase's
                launches of every kernel are counted (the row gather only
-               under RDP on)
+               under RDP on, the window operand and never the fused
+               kernel on these float32 routes); then the same chunk on
+               the bfloat16 route through rdp_clr_reps and hist_clr_reps
+               (fused kernel only)
 Then one JSON line with every kernel's numbers (time, plain time, bound,
 launches on a path of this run, the one-call PyTorch equivalent's time
-where there is one), and last the JSON status line.  Kernel times are the
+where there is one; for the fused window kernel also its largest error
+over its stated tolerance), and last the JSON status line.  Kernel times are the
 median of 5 CUDA-event readings, each a mean over its launches.  Run
 from the repo root: python3 chip_smoke.py
 
@@ -69,7 +85,9 @@ from the repo root: python3 chip_smoke.py
 scan and the permutations of the 20k task, of the genome (16
 permutations) and of mixed100k (16 permutations), and over phase 7's
 permutations of the 20k task with RDP forced on and off: device time by
-kernel and the device's busy share, with the tables written under OUT.
+kernel (the prefix-sum kernels, the fused window kernel, the window
+operand, the matmuls, the row gather) and the device's busy share, with
+the tables written under OUT.
 """
 
 from __future__ import annotations
@@ -88,10 +106,16 @@ OUT = REPO / "chiprun_out" / "smoke"
 MIXED_TOL = 5e-3
 MIXED_BAND = 1e-3
 # peak rates of one H100 SXM at 700 W (NVIDIA's H100 datasheet): HBM
-# bytes/s, and operations/s outside the tensor cores (the float32 figure;
-# the kernels' compares and adds)
+# bytes/s, operations/s outside the tensor cores (the float32 figure;
+# the kernels' compares and adds), and dense bfloat16 tensor-core
+# operations/s
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
+BF16_MMA_PER_S = 989e12
+# the fused window contraction against its plain version: |diff| <=
+# CLR_REL * S + CLR_ABS per entry, S = 2 sum_k |k t|
+CLR_REL = 2e-4
+CLR_ABS = 1e-5
 
 
 def log(msg):
@@ -476,21 +500,133 @@ def _window_case(label, ps, bounds, fbar, *, n_rep, n_cells, n_rows,
     return out
 
 
-def _first_slice_window(ps, bounds, fbar, ht, P):
-    """The window operand's inputs at its first launch of a statistic
-    call: the first candidate chunk of hist_clr_reps_ps."""
+def _abs_clr(ps, bounds, fbar, t3, *, n_rep, n_cells, n_rows, n_alpha,
+             mm_bf16=True):
+    """S = 2 sum_k |k t| per entry [c, P, A] of the bfloat16 route (its
+    operand from the window-operand kernel, its pack bf16_pack), a
+    candidate chunk at a time: the scale of that route's tolerance.  It
+    has the signature of the statistic's clr_fn."""
+    import torch
+
+    from fscl_tpu_torch.ops import gather as G
+    from fscl_tpu_torch.ops.histclr import _chunk_rows
+    from fscl_tpu_torch.ops.window_clr import bf16_pack
+
+    t = bf16_pack(t3)[:, :n_alpha].float().abs()
+    per = _chunk_rows(n_cells, n_rep, n_rows)
+    c = bounds.shape[0]
+    outs = [2.0 * torch.matmul(G.window_operand(
+                ps, bounds[c0:c0 + per], fbar[c0:c0 + per], n_rep=n_rep,
+                n_cells=n_cells, n_rows=n_rows, mm_bf16=True).abs(), t)
+            for c0 in range(0, c, per)]
+    if not outs:
+        return torch.zeros((0, n_rep, n_alpha), device=ps.device)
+    return torch.cat(outs).reshape(c, n_rep, n_alpha)
+
+
+def _window_clr_case(label, ps, bounds, fbar, *, n_rep, n_cells, n_rows,
+                     t3, n_alpha, iters=20):
+    """Phase 3f: the fused window contraction vs its plain version within
+    CLR_REL * S + CLR_ABS per entry; kernel, plain and two yardsticks
+    timed: window_operand + float32 matmul (the two-step route it
+    replaces) and window_operand + bfloat16 matmul (cuBLAS's tensor
+    cores, bfloat16 output), both a candidate chunk (_chunk_rows) at a
+    time as the float32 route takes them.  The bound is the larger of
+    the bytes (the distinct bound rows read, bounds, fbar, the bfloat16
+    pack and the output) over the HBM rate and the operations (the MMA's
+    2 c P K A at the bfloat16 tensor-core rate plus 6 float operations
+    per operand entry at the float32 rate)."""
+    import torch
+
+    from fscl_tpu_torch.ops import gather as G
+    from fscl_tpu_torch.ops import window_clr as W
     from fscl_tpu_torch.ops.histclr import _chunk_rows
 
-    c = _chunk_rows(ht.n_cells, P, ht.n_rows)
+    kw = dict(n_rep=n_rep, n_cells=n_cells, n_rows=n_rows)
+    pack = W.bf16_pack(t3)
+    t3m = pack[:, :n_alpha].float().contiguous()
+    t3b = pack[:, :n_alpha].contiguous()
+    per = _chunk_rows(n_cells, n_rep, n_rows)
+    chunks = [(bounds[c0:c0 + per], fbar[c0:c0 + per])
+              for c0 in range(0, bounds.shape[0], per)]
+
+    def kern():
+        return W.window_clr(ps, bounds, fbar, pack, n_alpha=n_alpha, **kw)
+
+    def plain():
+        return W.window_clr_plain(ps, bounds, fbar, pack, n_alpha=n_alpha,
+                                  **kw)
+
+    def two_step_f32():
+        return [2.0 * torch.matmul(G.window_operand(
+            ps, b, f, mm_bf16=True, **kw), t3m) for b, f in chunks]
+
+    def two_step_bf16():
+        return [torch.matmul(G.window_operand(
+            ps, b, f, mm_bf16=True, **kw).to(torch.bfloat16), t3b)
+            for b, f in chunks]
+
+    got, want = kern(), plain()
+    lim = CLR_REL * _abs_clr(ps, bounds, fbar, t3, n_alpha=n_alpha,
+                             **kw) + CLR_ABS
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        fail(f"fkernel at {label}: {tuple(got.shape)} vs plain "
+             f"{tuple(want.shape)}")
+    err = (got - want).abs()
+    max_err, ratio = float(err.max()), float((err / lim).max())
+    if not bool((err <= lim).all()):
+        fail(f"fkernel != plain at {label}: max |err| {max_err:.6g}, "
+             f"{ratio:.3g} x the tolerance {CLR_REL} S + {CLR_ABS}")
+    c, P, A = got.shape
+    K = 2 * n_cells * n_rows
+    nbytes = (torch.unique(bounds).numel() * ps.shape[1] * ps.element_size()
+              + bounds.numel() * 4 + fbar.numel() * 4 + K * A * 2
+              + got.numel() * 4)
+    mma, lerp = 2 * c * P * K * A, 6 * c * P * K
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (mma / BF16_MMA_PER_S + lerp / OPS_PER_S) * 1e3
+    b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                  else (t_ops, "operations"))
+    del got, want, err, lim
+    torch.cuda.empty_cache()
+    ms = cuda_time_ms(kern, iters)
+    plain_ms = cuda_time_ms(plain, max(1, iters // 4))
+    f32_ms = cuda_time_ms(two_step_f32, iters)
+    bf16_ms = cuda_time_ms(two_step_bf16, iters)
+    torch.cuda.empty_cache()
+    shape = (f"ps {list(ps.shape)} c={c} NC={n_cells} P={P} R={n_rows} "
+             f"A={A} {str(ps.dtype).replace('torch.', '')}, "
+             f"{(c * P + 63) // 64} blocks of 64 rows")
+    log(f"[fkernel] {label}: {shape}; max |err| {max_err:.4g} "
+        f"({ratio:.3g} x tolerance); kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, window_operand + f32 matmul {f32_ms:.4f} ms, "
+        f"+ bf16 matmul {bf16_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
+        f"{nbytes / 1e6:.2f} MB, {mma / 1e9:.3f} GFLOP MMA)")
+    return dict(label=label, shape=shape, ms=ms, plain_ms=plain_ms,
+                two_step_f32_ms=f32_ms, two_step_bf16_ms=bf16_ms,
+                library_ms=None, max_abs_err=max_err,
+                max_err_over_tol=ratio, bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, mma_ops=mma, lerp_ops=lerp)
+
+
+def _first_slice_window(ps, bounds, fbar, ht, P, whole=False):
+    """The window kernels' inputs at the first launch of a statistic call:
+    the first candidate chunk of the float32 route (window_operand), or
+    with whole the call's every candidate (window_clr's launch)."""
+    from fscl_tpu_torch.ops.histclr import _chunk_rows
+
+    c = bounds.shape[0] if whole else _chunk_rows(ht.n_cells, P, ht.n_rows)
     return dict(ps=ps, bounds=bounds[:c].contiguous(),
                 fbar=fbar[:c].contiguous(), n_rep=P, n_cells=ht.n_cells,
                 n_rows=ht.n_rows)
 
 
-def _scan_window_inputs(data, tables, scan_cfg, dev):
+def _scan_window_inputs(data, tables, scan_cfg, dev, decimate=None):
     """The dense scan stage's window-operand inputs on the first
     chromosome: its single-replicate prefix, and bounds and fbar of its
-    fine-grid candidates on the selection tables."""
+    fine-grid candidates on the selection tables (or on the tables of
+    another lattice decimation: the tie stage's), and those tables."""
     from types import SimpleNamespace
 
     from fscl_tpu_torch.engine.scan import (
@@ -500,7 +636,8 @@ def _scan_window_inputs(data, tables, scan_cfg, dev):
     from fscl_tpu_torch.ops.histclr import build_hist_points
 
     ht = make_scan_hist_tables(data, tables, scan_cfg.hist_alphas,
-                               decimate=scan_cfg.hist_decimate, device=dev)
+                               decimate=decimate or scan_cfg.hist_decimate,
+                               device=dev)
     cl = data.chr_limits[0]
     st = SimpleNamespace(cl=cl, pos_np=data.pos[
         cl.start_index:cl.start_index + cl.n_snps])
@@ -510,7 +647,9 @@ def _scan_window_inputs(data, tables, scan_cfg, dev):
         device_arrays=get_hist_device_arrays(data, ht, st.pos_np,
                                              cl.start_index))
     ps = _chrom_scan_ps(data, ht, st, _dataset_mod16(data, ht))
-    return _first_slice_window(ps, hp.bounds, hp.fbar, ht, 1)
+    return (_first_slice_window(ps, hp.bounds, hp.fbar, ht, 1),
+            _first_slice_window(ps, hp.bounds, hp.fbar, ht, 1, whole=True),
+            ht)
 
 
 def _plain_prefix(table, sig, seg_g0, *, w_seg_p, n_rows, weights=None):
@@ -527,21 +666,25 @@ def _plain_prefix(table, sig, seg_g0, *, w_seg_p, n_rows, weights=None):
 def _first_chunk(data, tables, result, scan_cfg, perm_cfg, dev):
     """The first chunk's null maxima of every stack with the kernels, with
     the plain prefix function, and with the plain prefix function and
-    the plain window operand: [(kernels, plain prefix, both plain)] per
-    stack; and the window operand's inputs at the first stack's first
-    slice (its prefix from the kernel, as the path builds it)."""
+    the plain window route: [(kernels, plain prefix, both plain, scale,
+    point ids)] per stack, scale the null maxima of S = 2 sum_k |k t|
+    on the bfloat16 route (None on the float32 route); and the window
+    inputs at the first stack's first slice (its prefix from the kernel,
+    as the path builds it): its first candidate chunk, and all of its
+    candidates."""
     import numpy as np
     import torch
 
     from fscl_tpu_torch.engine.permute import active_by_chr, setup_hist
-    from fscl_tpu_torch.ops.gather import window_operand_plain
-    from fscl_tpu_torch.ops.histclr import build_prefix_sums_seg
+    from fscl_tpu_torch.ops.histclr import (
+        _clr_from_windows_plain, build_prefix_sums_seg,
+    )
     from fscl_tpu_torch.ops.permute import block_permutation_groups
 
     fresh = copy.deepcopy(result)
     hs = setup_hist(data, tables, fresh, scan_cfg, perm_cfg, dev)
     every = np.ones(fresh.n_points, bool)
-    sigma, triples, win = None, [], None
+    sigma, firsts, win = None, [], None
     for st in hs.stacks:
         st.rebuild(fresh, active_by_chr(fresh, st, every))
         rp = -(-perm_cfg.chunk_replicates // st.sub_rep) * st.sub_rep
@@ -552,62 +695,114 @@ def _first_chunk(data, tables, result, scan_cfg, perm_cfg, dev):
         a = st.stat(hs.table, sigma[:rp], perm_cfg)
         b = st.stat(hs.table, sigma[:rp], perm_cfg, prefix_fn=_plain_prefix)
         c = st.stat(hs.table, sigma[:rp], perm_cfg, prefix_fn=_plain_prefix,
-                    window_fn=window_operand_plain)
+                    clr_fn=_clr_from_windows_plain)
+        scale = (st.stat(hs.table, sigma[:rp], perm_cfg,
+                         prefix_fn=_plain_prefix, clr_fn=_abs_clr)
+                 if perm_cfg.hist_bf16 else None)
         torch.cuda.synchronize()
-        triples.append((a, b, c))
+        firsts.append((a, b, c, scale, st.pts))
         if win is None:
             sig = sigma[:st.sub_rep]
             ps = build_prefix_sums_seg(
                 hs.table, sig, st.seg_g0, w_seg_p=st.w_seg_p,
                 n_rows=hs.ht.n_rows, weights=hs.ht.weights)
-            win = _first_slice_window(ps, st.bounds, st.fbar, hs.ht,
-                                      sig.shape[0])
-    return hs, triples, win
+            win = (_first_slice_window(ps, st.bounds, st.fbar, hs.ht,
+                                       sig.shape[0]),
+                   _first_slice_window(ps, st.bounds, st.fbar, hs.ht,
+                                       sig.shape[0], whole=True))
+    return hs, firsts, win
 
 
-def _check_plain_window(triples, label):
-    """The plain window operand gives the statistic the kernel gives."""
+def _check_plain_window(firsts, result, label, bf16):
+    """The plain window route gives the statistic the kernels give: the
+    float32 route bitwise; the bfloat16 route within CLR_REL * S +
+    CLR_ABS (S the largest 2 sum_k |k t| of the entries a null maximum
+    takes), and its exceedances on the run's thresholds equal except for
+    replicates within that tolerance of their threshold.  Counted: the
+    (replicate, point) entries whose exceedance differs, and those within
+    the tolerance, and within the largest observed difference, of their
+    threshold."""
     import torch
 
-    for _, b, c in triples:
-        if not torch.equal(b, c):
-            fail(f"{label}: first-chunk null_max differs between the window "
-                 f"kernel and the plain window operand (max "
-                 f"{float((b - c).abs().max())})")
-    log(f"[{label}] first chunk: null_max equal with the window kernel and "
-        "with the plain window operand")
+    worst, n, flips, near_tol, near_obs = 0.0, 0, 0, 0, 0
+    for _, b, c, scale, pts in firsts:
+        d = (b - c).abs()
+        dmax = float(d.max()) if d.numel() else 0.0
+        worst = max(worst, dmax)
+        if not bf16:
+            if not torch.equal(b, c):
+                fail(f"{label}: first-chunk null_max differs between the "
+                     f"window kernel and the plain window operand (max "
+                     f"{dmax:.4g})")
+            continue
+        lim = CLR_REL * scale + CLR_ABS
+        if not bool((d <= lim).all()):
+            fail(f"{label}: first-chunk null_max of the fused window kernel "
+                 f"and of the plain route differ by {dmax:.4g}, "
+                 f"{float((d / lim).max()):.3g} x the tolerance")
+        thr = torch.as_tensor(result.stat_threshold[pts], dtype=torch.float32,
+                              device=c.device)[None, :]
+        flip = (b >= thr) != (c >= thr)
+        off = (c - thr).abs()
+        if bool((flip & (off > lim)).any()):
+            fail(f"{label}: first-chunk exceedances differ between the fused "
+                 "window kernel and the plain route off the near-ties")
+        n += flip.numel()
+        flips += int(flip.sum())
+        near_tol += int((off <= lim).sum())
+        near_obs += int((off <= dmax).sum())
+    if bf16:
+        log(f"[{label}] first chunk: null_max of the fused window kernel vs "
+            f"the plain route max |diff| {worst:.4g} (within {CLR_REL} S + "
+            f"{CLR_ABS}); exceedances differ on {flips} of {n} (replicate, "
+            f"point) entries; {near_tol} lie within the tolerance of their "
+            f"threshold, {near_obs} within the largest observed difference")
+    else:
+        log(f"[{label}] first chunk: null_max equal with the window kernel "
+            "and with the plain window operand")
+    return dict(max_abs_diff=worst, entries=n, flips=flips,
+                near_tol=near_tol, near_observed=near_obs)
 
 
 def _run_main_path(data, tables, scan_cfg, perm_cfg, dev, tsv, label):
-    """Scan, permutations and output; (result, scan s, permutation s).
-    The window kernel's launches are counted over the scan and over the
-    permutations, and each must be > 0."""
+    """Scan, permutations and output; (result, scan s, permutation s,
+    launches).  The launches of both window kernels are counted over the
+    scan and over the permutations: the fused kernel must run in both
+    (the scan's bfloat16 dense and refine stages, the bfloat16
+    permutations), the window operand in the scan (its float32 tie
+    stage) and in the permutations only at hist_bf16=False."""
     import torch
 
     from fscl_tpu_torch.engine import scan_genome, scan_permute
     from fscl_tpu_torch.io import scan_output, write_null_distribution
     from fscl_tpu_torch.ops import gather as G
+    from fscl_tpu_torch.ops import window_clr as W
 
     torch.cuda.synchronize()
-    G.window_launches = 0
+    G.window_launches = W.window_clr_launches = 0
     t0 = time.monotonic()
     result = scan_genome(data, tables, scan_cfg, device=dev)
     torch.cuda.synchronize()
     t_scan = time.monotonic() - t0
-    w_scan, G.window_launches = G.window_launches, 0
+    w_scan, c_scan = G.window_launches, W.window_clr_launches
+    G.window_launches = W.window_clr_launches = 0
     t0 = time.monotonic()
     scan_permute(data, tables, result, scan_cfg, perm_cfg, device=dev)
     torch.cuda.synchronize()
     t_perm = time.monotonic() - t0
-    w_perm = G.window_launches
-    if w_scan <= 0 or w_perm <= 0:
-        fail(f"{label}: the window kernel launched {w_scan} times in the "
-             f"scan and {w_perm} in the permutations")
-    log(f"[{label}] window kernel launches: scan {w_scan}, permutations "
-        f"{w_perm}")
+    w_perm, c_perm = G.window_launches, W.window_clr_launches
+    launches = dict(window_operand=(w_scan, w_perm),
+                    window_clr=(c_scan, c_perm))
+    perm_ok = ((c_perm > 0 and w_perm == 0) if perm_cfg.hist_bf16
+               else (c_perm == 0 and w_perm > 0))
+    if c_scan <= 0 or w_scan <= 0 or not perm_ok:
+        fail(f"{label}: window kernel launches (scan, permutations) "
+             f"{launches}, hist_bf16={perm_cfg.hist_bf16}")
+    log(f"[{label}] window kernel launches (scan, permutations): fused "
+        f"{(c_scan, c_perm)}, window operand {(w_scan, w_perm)}")
     scan_output(tsv, data, result, n_permute=perm_cfg.n_permute)
     write_null_distribution(tsv, data, result)
-    return result, t_scan, t_perm, (w_scan, w_perm)
+    return result, t_scan, t_perm, launches
 
 
 def _check_result(result, label):
@@ -671,27 +866,41 @@ def phase_20k(dev):
         f"kernel launches {launches}")
 
     # first chunk again: the kernels vs the plain prefix function, then
-    # vs the plain prefix and the plain window operand, on the card
-    hs, triples, win = _first_chunk(data, tables, result, scan_cfg,
-                                    perm_cfg, dev)
-    for a, b, _ in triples:
+    # vs the plain prefix and the plain window route, on the card
+    hs, firsts, win = _first_chunk(data, tables, result, scan_cfg,
+                                   perm_cfg, dev)
+    for a, b, *_ in firsts:
         if not torch.equal(a, b):
             fail("20k: first-chunk null_max differs between the kernel and "
                  f"the plain prefix (max {float((a - b).abs().max())})")
         log(f"[20k] first chunk: null_max [{a.shape[0]}, {a.shape[1]}] "
             "equal with the kernel and with the plain prefix sums")
-    _check_plain_window(triples, "20k")
-    # phase 3e at the 20k path's shapes: the scan and a stacked slice
-    okern = (_window_case("20k scan", **_scan_window_inputs(
-                 data, tables, scan_cfg, dev))
-             + _window_case("20k stacked slice", **win))
+    plain_window = _check_plain_window(firsts, result, "20k",
+                                       perm_cfg.hist_bf16)
+    # phases 3e and 3f at the 20k path's shapes: the scan (its dense
+    # stage, and for 3e its float32 tie stage too) and a stacked slice
+    win_scan, call_scan, ht_scan = _scan_window_inputs(data, tables,
+                                                       scan_cfg, dev)
+    win_tie, _, _ = _scan_window_inputs(data, tables, scan_cfg, dev,
+                                        decimate=scan_cfg.tie_decimate)
+    okern = (_window_case("20k scan", **win_scan)
+             + _window_case("20k scan tie stage", **win_tie,
+                            bf16_modes=(False,))
+             + _window_case("20k stacked slice", **win[0]))
+    ts, tp = (dict(t3=h.t3, n_alpha=h.n_alpha) for h in (ht_scan, hs.ht))
+    fkern = [_window_clr_case("20k scan", **win_scan, **ts),
+             _window_clr_case("20k stacked slice", **win[0], **tp),
+             _window_clr_case("20k scan (whole call)", **call_scan, **ts,
+                              iters=5),
+             _window_clr_case("20k stacked slice (whole call)", **win[1],
+                              **tp, iters=5)]
     return dict(sites=data.n_snps, points=result.n_points, scan_s=t_scan,
                 perm_s=t_perm, point_rounds=pr,
                 point_rounds_per_s=pr / t_perm,
                 max_clr=float(result.clr.max()), launches=launches,
                 window_launches=wl, sub_rep=hs.stacks[0].sub_rep,
                 w_seg_p=hs.stacks[0].w_seg_p, n_rows=hs.ht.n_rows,
-                okernel=okern)
+                plain_window=plain_window, okernel=okern, fkernel=fkern)
 
 
 def genome_data():
@@ -737,10 +946,15 @@ def phase_genome(dev, n_permute=64):
     hs = setup_hist(data, tables, result, ScanConfig(), PermuteConfig(), dev)
     stacks = [(st.w_seg_p, len(st.segs), _sub_rep_for(hs.ht, _ladder_pad(
         len(st.segs)), st.w_seg_p)) for st in hs.stacks]
-    _, triples, win = _first_chunk(data, tables, result, ScanConfig(),
+    hs, firsts, win = _first_chunk(data, tables, result, ScanConfig(),
                                    perm_cfg, dev)
-    _check_plain_window(triples, "genome")
-    okern = _window_case("genome stacked slice", **win)
+    plain_window = _check_plain_window(firsts, result, "genome",
+                                       perm_cfg.hist_bf16)
+    okern = _window_case("genome stacked slice", **win[0])
+    tp = dict(t3=hs.ht.t3, n_alpha=hs.ht.n_alpha)
+    fkern = [_window_clr_case("genome stacked slice", **win[0], **tp),
+             _window_clr_case("genome stacked slice (whole call)", **win[1],
+                              **tp, iters=2)]
     log(f"[genome] stacks (w_seg_p, chromosomes, sub_rep): {stacks}")
     pr = int(result.permute_n.sum())
     log(f"[genome] {data.n_snps} sites over {len(data.chr_limits)} "
@@ -756,7 +970,8 @@ def phase_genome(dev, n_permute=64):
                 perm_s=t_perm, n_permute=n_permute, point_rounds=pr,
                 point_rounds_per_s=pr / t_perm, stacks=stacks,
                 n_rows=hs.ht.n_rows, launches=launches,
-                window_launches=wl, okernel=okern, rdp_mode=TP.RDP_FORCE,
+                window_launches=wl, plain_window=plain_window,
+                okernel=okern, fkernel=fkern, rdp_mode=TP.RDP_FORCE,
                 **rdp_auto)
 
 
@@ -790,8 +1005,8 @@ def phase_mixed100k(dev, n_permute=64):
     scan_nc = [make_scan_hist_tables(data, tables, scan_cfg.hist_alphas,
                                      decimate=d, device=dev).n_cells
                for d in (scan_cfg.hist_decimate, scan_cfg.tie_decimate)]
-    hs, triples, win = _first_chunk(data, tables, result, scan_cfg,
-                                    perm_cfg, dev)
+    hs, firsts, win = _first_chunk(data, tables, result, scan_cfg,
+                                   perm_cfg, dev)
     ht = hs.ht
     if ht.weights is None:
         fail("mixed100k: the tables are not compressed")
@@ -801,7 +1016,7 @@ def phase_mixed100k(dev, n_permute=64):
     # kernel and with the plain prefix; tolerance 1e-2 of max |stat|, the
     # bf16 band of tests/test_torch_permute.py
     d_first = 0.0
-    for a, b, _ in triples:
+    for a, b, *_ in firsts:
         d = float((a - b).abs().max())
         if d > 1e-2 * max(float(b.abs().max()), 1.0):
             fail(f"mixed100k: first-chunk null_max differs by {d:.4g} "
@@ -810,8 +1025,13 @@ def phase_mixed100k(dev, n_permute=64):
         log(f"[mixed100k] first chunk: null_max [{a.shape[0]}, "
             f"{a.shape[1]}] kernel vs plain prefix max |diff| {d:.4g} "
             f"(max |stat| {float(b.abs().max()):.4g})")
-    _check_plain_window(triples, "mixed100k")
-    okern = _window_case("mixed100k stacked slice", **win)
+    plain_window = _check_plain_window(firsts, result, "mixed100k",
+                                       perm_cfg.hist_bf16)
+    okern = _window_case("mixed100k stacked slice", **win[0])
+    tp = dict(t3=ht.t3, n_alpha=ht.n_alpha)
+    fkern = [_window_clr_case("mixed100k stacked slice", **win[0], **tp),
+             _window_clr_case("mixed100k stacked slice (whole call)",
+                              **win[1], **tp, iters=5)]
     pr = int(result.permute_n.sum())
     log(f"[mixed100k] {data.n_snps} sites over {len(data.chr_limits)} "
         f"chromosomes, {len(data.sample_depths)} depths, "
@@ -829,7 +1049,8 @@ def phase_mixed100k(dev, n_permute=64):
                 n_rows=ht.n_rows, rows_used=len(ht.rows_used),
                 n_cells_scan=scan_nc, n_cells_perm=ht.n_cells,
                 max_clr=float(result.clr.max()), first_chunk_diff=d_first,
-                launches=launches, window_launches=wl, okernel=okern)
+                launches=launches, window_launches=wl,
+                plain_window=plain_window, okernel=okern, fkernel=fkern)
 
 
 def _single_depth_check_data():
@@ -952,6 +1173,7 @@ def phase_rdp(dev):
     from fscl_tpu_torch.ops import gather as G
     from fscl_tpu_torch.ops import histclr as H
     from fscl_tpu_torch.ops import prefix_sums as ps
+    from fscl_tpu_torch.ops import window_clr as W
     from fscl_tpu_torch.ops.permute import (
         PERM_GROUP, block_permutation_runs, expand_group_sigma,
         sigma_from_runs,
@@ -972,7 +1194,7 @@ def phase_rdp(dev):
     for force in ("on", "off"):
         r = copy.deepcopy(result)
         TP.RDP_FORCE = force
-        G.gather_launches = G.window_launches = 0
+        G.gather_launches = G.window_launches = W.window_clr_launches = 0
         try:
             t0 = time.monotonic()
             TP.scan_permute(data, tables, r, scan_cfg,
@@ -983,12 +1205,15 @@ def phase_rdp(dev):
             TP.RDP_FORCE = saved
         runs[force], stats[force] = r, dict(TP.last_stats)
         glaunch[force] = dict(gather=G.gather_launches,
-                              window=G.window_launches)
+                              window=G.window_launches,
+                              window_clr=W.window_clr_launches)
     on, off = runs["on"], runs["off"]
     if glaunch["on"]["gather"] <= 0 or glaunch["off"]["gather"] \
-            or min(glaunch["on"]["window"], glaunch["off"]["window"]) <= 0:
+            or min(glaunch["on"]["window"], glaunch["off"]["window"]) <= 0 \
+            or glaunch["on"]["window_clr"] or glaunch["off"]["window_clr"]:
         fail(f"rdp: row gather / window kernel launches {glaunch} (the "
-             "gather must run under RDP on only, the window kernel in both)")
+             "gather must run under RDP on only, the window operand in "
+             "both, the fused kernel on neither float32 route)")
     if stats["on"]["rdp_dispatches"] <= 0 or stats["on"]["stack_dispatches"]:
         fail(f"rdp: RDP forced on dispatched {stats['on']}")
     if stats["off"]["rdp_dispatches"] or stats["off"]["stack_dispatches"] <= 0:
@@ -1078,6 +1303,26 @@ def phase_rdp(dev):
             or launches["weighted"]:
         fail(f"rdp: a kernel of the path did not launch: {launches}")
 
+    # (iii) the same chunk on the bfloat16 route: rdp_clr_reps (its
+    # identity bounds) and hist_clr_reps reach the fused kernel only
+    G.window_launches = W.window_clr_launches = 0
+    clr_rdp16 = H.rdp_clr_reps(ht.t3, bounds, fbar, tail.psite, src, dst, sz,
+                               n_rep=RDP_CHUNK, pg=PERM_GROUP,
+                               n_groups=hs.n_groups, mm_bf16=True, **kw)
+    clr_h16 = H.hist_clr_reps(ht.t3, bounds, fbar, row_rep, mm_bf16=True,
+                              **kw)
+    torch.cuda.synchronize()
+    bf16_launches = dict(window_clr=W.window_clr_launches,
+                         window_operand=G.window_launches)
+    if bf16_launches["window_clr"] <= 0 or bf16_launches["window_operand"]:
+        fail(f"rdp: bfloat16 routes launched {bf16_launches}")
+    if not torch.allclose(clr_h16, clr_rdp16, rtol=1e-5, atol=1e-3):
+        fail("rdp: bfloat16 hist_clr_reps differs from the RDP route by "
+             f"{float((clr_h16 - clr_rdp16).abs().max()):.4g}")
+    d_16 = float((clr_h16 - clr_rdp16).abs().max())
+    log(f"[rdp] (iii) the same chunk with bfloat16 operands: hist_clr_reps "
+        f"vs rdp_clr_reps max |diff| {d_16:.3g}; launches {bf16_launches}")
+
     # phases 3d and 3e at the RDP tail's shapes: the first slice
     # (HIST_REP_SUB replicates, what one rdp_clr_reps call takes) of the
     # first chunk, its first candidate chunk
@@ -1101,6 +1346,7 @@ def phase_rdp(dev):
                          n_cells=NC, n_rows=R)
     return dict(walls=walls, stats=stats, near_ties=near, kept=len(keep),
                 d_null=d_null, d_hist_clr_reps=d_h, d_hist_perm_batch=d_b,
+                d_bf16=d_16, bf16_launches=bf16_launches,
                 launches=launches, n_points=result.n_points,
                 rowid_shape=(RDP_CHUNK, data.n_snps, ht.n_rows),
                 perm_shape=(cl.n_snps, w_pad, RDP_CHUNK, ht.n_rows),
@@ -1173,14 +1419,20 @@ def phase_profile(dev):
             gath = sum(t for t, _, k in kern if "gather_rows" in k) / 1e6
             win = sum(t for t, _, k in kern
                       if "window_operand_kernel" in k) / 1e6
+            fused = sum(t for t, _, k in kern
+                        if "window_clr_kernel" in k) / 1e6
+            gemm = sum(t for t, _, k in kern if "gemm" in k.lower()) / 1e6
             table = ka.table(sort_by="self_device_time_total", row_limit=40)
             (OUT / f"profile_{label}_{stage}.txt").write_text(table)
             log(f"[profile] {label} {stage}: wall {wall:.3f}s (profiled), "
                 f"device kernels {busy:.3f}s = {100 * busy / wall:.1f}% "
                 f"busy; prefix-sum kernels {ours * 1e3:.3f} ms (weighted "
-                f"{wours * 1e3:.3f} ms); window operand {win * 1e3:.3f} ms "
-                f"({100 * win / busy:.1f}%); row gather {gath * 1e3:.3f} ms "
-                f"({100 * gath / busy:.1f}%)")
+                f"{wours * 1e3:.3f} ms); fused window kernel "
+                f"{fused * 1e3:.3f} ms ({100 * fused / busy:.1f}%); window "
+                f"operand {win * 1e3:.3f} ms ({100 * win / busy:.1f}%); "
+                f"matmul (gemm) {gemm * 1e3:.3f} ms "
+                f"({100 * gemm / busy:.1f}%); row gather {gath * 1e3:.3f} "
+                f"ms ({100 * gath / busy:.1f}%)")
             for t, n, key in sorted(kern, reverse=True)[:10]:
                 log(f"[profile]   {t / 1e3:10.2f} ms  {n:7d}x  {key[:90]}")
 
@@ -1257,10 +1509,11 @@ def main():
     gkern = rr["gkernel"] + gkern  # the RDP path's shape first
     okern = (r20["okernel"] + rg["okernel"] + rm["okernel"]
              + rr["okernel"])
+    fkern = r20["fkernel"] + rg["fkernel"] + rm["fkernel"]
     detail = dict(device=name, nvidia_smi=smi, kernel=kern, wkernel=wkern,
                   rkernel=rkern, pkernel=pkern, gkernel=gkern,
-                  okernel=okern, bench_20k=r20, genome=rg, mixed100k=rm,
-                  check=chk, rdp=rr)
+                  okernel=okern, fkernel=fkern, bench_20k=r20, genome=rg,
+                  mixed100k=rm, check=chk, rdp=rr)
     (OUT / "smoke.json").write_text(json.dumps(detail, indent=1) + "\n")
 
     def entry(name, source, replaces, launches, runs, main=0, note=None):
@@ -1278,6 +1531,8 @@ def main():
         }
         if note:
             out["library_note"] = note
+        if "max_err_over_tol" in m:  # the error against its stated bound
+            out["max_err_over_tol"] = max(k["max_err_over_tol"] for k in runs)
         return out
 
     pallas_ps = "fscl_tpu/ops/pallas_ps.py:148 "
@@ -1300,13 +1555,25 @@ def main():
         entry("row_gather", "row_gather.cu",
               "bench/micro_pallas_gather.py:40 pallas_gather",
               rr["launches"]["gather_rdp_on"], gkern),
-        # main shape: the 20k stacked slice at the permutations' default
-        # bfloat16 contraction (okern[2] is mm_bf16=False, [3] True)
+        # main shape: the 20k scan's float32 tie stage, the route that
+        # still writes the operand
         entry("window_operand", "row_gather.cu",
               "fscl_tpu/ops/histclr.py:1116-1126 (XLA-fused, no Pallas "
-              "kernel)", sum(r20["window_launches"]), okern, main=3,
+              "kernel)", sum(r20["window_launches"]["window_operand"]),
+              okern, main=[k["label"] for k in okern].index(
+                  "20k scan tie stage, mm_bf16=False"),
               note="no single PyTorch call computes the gather -> "
                    "difference -> lerp chain"),
+        # main shape: the 20k permutations' launch, one stacked slice's
+        # whole call (the bfloat16 statistic takes every candidate at once)
+        entry("window_clr", "window_clr.cu",
+              "fscl_tpu/ops/histclr.py:1116-1131 (mm_bf16=True; XLA-fused, "
+              "no Pallas kernel)", sum(r20["window_launches"]["window_clr"]),
+              fkern, main=[k["label"] for k in fkern].index(
+                  "20k stacked slice (whole call)"),
+              note="no single PyTorch call computes the windows-to-CLR "
+                   "function; its two-step yardsticks are in smoke.json "
+                   "(two_step_f32_ms, two_step_bf16_ms)"),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,11 +24,9 @@
 //   k[c*P + p, (s'*NC + j)*R + r] = w_s'[j]          (s' = 0 -> w0, 1 -> w1)
 //
 // rounded to bfloat16 and back when mm_bf16.  Bitwise equal to the plain
-// PyTorch chain: the int16 difference and the sign product wrap mod 2^16
-// as torch's int16 arithmetic does (the JAX package's mod-2^16 prefixes
-// rely on it), and every float operation is a separately rounded
-// __fsub_rn / __fmul_rn / __fadd_rn, so nvcc cannot contract the lerp
-// into an FMA.
+// PyTorch chain: the arithmetic is window_lerp.cuh's (wrapping int16
+// differences, separately rounded float operations), which the fused
+// window-contraction kernel (window_clr.cu) shares.
 //
 // What bounds both on the H100: bytes.  Neither does more than a few
 // float operations per byte it moves.  The gather moves each gathered
@@ -54,7 +52,14 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "window_lerp.cuh"
+
 namespace {
+
+using fscl::bf16_round;
+using fscl::side_diff;
+using fscl::table_row;
+using fscl::window_lerp;
 
 constexpr int kThreads = 256;
 constexpr int64_t kMaxBlocks = 132 * 64;  // grid-stride past this
@@ -62,17 +67,6 @@ constexpr int64_t kMaxBlocks = 132 * 64;  // grid-stride past this
 int blocks_for(int64_t total) {
   const int64_t b = (total + kThreads - 1) / kThreads;
   return (int)(b < kMaxBlocks ? b : kMaxBlocks);
-}
-
-// Row `row` of a [n_rows, row_elems] table.  An index outside
-// [0, n_rows) is a fault, as torch's own indexing asserts on the card:
-// the kernel traps and the launch fails.
-template <typename T>
-__device__ __forceinline__ const T* table_row(const T* table, int32_t row,
-                                              int64_t n_rows,
-                                              int64_t row_elems) {
-  if (row < 0 || (int64_t)row >= n_rows) __trap();
-  return table + (int64_t)row * row_elems;
 }
 
 // out[i, v] = table[idx[i], v], in copy units U (uint4, or one element);
@@ -99,29 +93,6 @@ int launch_gather(const void* table, const void* idx, void* out,
   gather_rows<U><<<blocks_for(n_idx * units), kThreads, 0, st>>>(
       (const U*)table, (const int32_t*)idx, (U*)out, n_idx, n_rows, units);
   return (int)cudaGetLastError();
-}
-
-// Signed adjacent difference h = (cur - prev) * sign in the prefix
-// dtype, as float; neg selects sign -1 (the left side).
-__device__ __forceinline__ float side_diff(int16_t cur, int16_t prev,
-                                           bool neg) {
-  const int16_t d = (int16_t)(cur - prev);  // wraps mod 2^16
-  return (float)(neg ? (int16_t)(-d) : d);  // -(-32768) wraps to -32768
-}
-
-__device__ __forceinline__ float side_diff(int32_t cur, int32_t prev,
-                                           bool neg) {
-  const uint32_t d = (uint32_t)cur - (uint32_t)prev;  // wraps mod 2^32
-  return (float)(int32_t)(neg ? 0u - d : d);
-}
-
-__device__ __forceinline__ float side_diff(float cur, float prev, bool neg) {
-  const float d = __fsub_rn(cur, prev);
-  return neg ? -d : d;  // d * -1.0f, exactly
-}
-
-__device__ __forceinline__ float bf16_round(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 // One thread per (candidate, lane); C * L < 2^31 (the wrapper checks).
@@ -156,9 +127,8 @@ __global__ void window_operand_kernel(const T* __restrict__ ps,
       const float h1 = side_diff(cur1, prev1, false);
       const float g0 = __ldg(f0 + j);
       const float g1 = __ldg(f1 + j);
-      float w0 = __fadd_rn(__fmul_rn(h0, __fsub_rn(1.0f, g0)),
-                           __fmul_rn(h1, __fsub_rn(1.0f, g1)));
-      float w1 = __fadd_rn(__fmul_rn(h0, g0), __fmul_rn(h1, g1));
+      float w0, w1;
+      window_lerp(h0, h1, g0, g1, w0, w1);
       if (mm_bf16) {
         w0 = bf16_round(w0);
         w1 = bf16_round(w1);

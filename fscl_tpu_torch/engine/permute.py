@@ -56,8 +56,8 @@ from ..utils.logging import (
 
 from .. import NotPortedError
 from ..device import parse_device
-from ..ops.gather import window_operand
 from ..ops.histclr import (
+    _clr_from_windows,
     build_hist_points,
     build_prefix_sums_oh,
     build_prefix_sums_seg,
@@ -245,7 +245,7 @@ def _sub_rep_for(ht, n_seg_pad, w_seg_p):
 def _stack_stat(table, sigma, seg_g0, bounds, fbar, t3, *, w_seg_p, n_rows,
                 n_cells, n_alpha, sub_rep, n_pts, Jf, mm_bf16=False,
                 weights=None, prefix_fn=build_prefix_sums_seg,
-                window_fn=window_operand):
+                clr_fn=_clr_from_windows):
     """Statistic maxima for stacked chromosome segments; [rows, n_pts].
 
     sigma: [n_slices*sub_rep, n_sig] sentinel-padded group sigma;
@@ -255,8 +255,8 @@ def _stack_stat(table, sigma, seg_g0, bounds, fbar, t3, *, w_seg_p, n_rows,
     group before its chromosome's first, so local site k sits at flat
     row PERM_GROUP + off + k, and the leading and trailing spill cancels
     in the bound differences, fscl_tpu/engine/permute.py:776-795), then
-    the hist statistic (window_fn builds its operand) and its max over
-    (position, alpha)."""
+    the hist statistic (clr_fn turns the windows into it) and its max
+    over (position, alpha)."""
     outs = []
     for r0 in range(0, sigma.shape[0], sub_rep):
         sig = sigma[r0:r0 + sub_rep]
@@ -264,8 +264,7 @@ def _stack_stat(table, sigma, seg_g0, bounds, fbar, t3, *, w_seg_p, n_rows,
                        weights=weights)
         clr = hist_clr_reps_ps(
             t3, bounds, fbar, ps, n_rep=sig.shape[0], n_cells=n_cells,
-            n_rows=n_rows, n_alpha=n_alpha, mm_bf16=mm_bf16,
-            window_fn=window_fn,
+            n_rows=n_rows, n_alpha=n_alpha, mm_bf16=mm_bf16, clr_fn=clr_fn,
         )  # [P, n_pts*Jf, A]
         outs.append(clr.reshape(sig.shape[0], n_pts, Jf * n_alpha).amax(2))
     return torch.cat(outs)
@@ -392,7 +391,7 @@ class _StackGroup:
             self.n_seg_pad
 
     def stat(self, table, sigma, cfg, prefix_fn=build_prefix_sums_seg,
-             window_fn=window_operand):
+             clr_fn=_clr_from_windows):
         """[sigma rows, len(pts)] statistic maxima of the active points."""
         ht = self.ht
         return _stack_stat(
@@ -400,7 +399,7 @@ class _StackGroup:
             w_seg_p=self.w_seg_p, n_rows=ht.n_rows, n_cells=ht.n_cells,
             n_alpha=ht.n_alpha, sub_rep=self.sub_rep, n_pts=len(self.pts),
             Jf=self.Jf, mm_bf16=cfg.hist_bf16, weights=ht.weights,
-            prefix_fn=prefix_fn, window_fn=window_fn,
+            prefix_fn=prefix_fn, clr_fn=clr_fn,
         )
 
 

@@ -128,6 +128,10 @@ def load():
         vp, vp, vp, vp, i, i, i, i, i64, i, i, vp,
     ]
     lib.fscl_window_operand.restype = i
+    lib.fscl_window_clr.argtypes = [
+        vp, vp, vp, vp, vp, i, i, i, i, i64, i, i, i, vp,
+    ]
+    lib.fscl_window_clr.restype = i
     for tile in (lib.fscl_ps_tile, lib.fscl_wps_tile, lib.fscl_rps_tile):
         tile.argtypes = []
         tile.restype = i

@@ -32,8 +32,10 @@ prefix of one chromosome's permuted stream (build_prefix_sums_oh), and,
 in the pruning tail, the run-decomposed prefix assembled at the bounds
 from one unpermuted site prefix (rdp_clr_reps, whose two large row
 gathers are ops/gather.py:row_gather).  Steps 2-3 are one function,
-_clr_from_windows: the window operand (ops/gather.py:window_operand, one
-kernel for the gather, difference and lerp) and the contraction.
+_clr_from_windows: with bfloat16 operands one kernel for the gather,
+difference, lerp and contraction (ops/window_clr.py:window_clr); in
+float32 the window operand (ops/gather.py:window_operand, one kernel for
+the gather, difference and lerp) and a float32 matmul.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ import torch
 
 from .. import LOG_AD_MAX, LOG_AD_MIN, NotPortedError
 from ..device import parse_device
-from .gather import bf16_round, row_gather, window_operand
+from .gather import row_gather, window_operand, window_operand_plain
 from .permute import PERM_GROUP, sigma_from_runs
 from .prefix_sums import (
     onehot_prefix_sums,
@@ -53,6 +55,7 @@ from .prefix_sums import (
     rowid_prefix_sums,
     weighted_prefix_sums,
 )
+from .window_clr import bf16_pack, window_clr, window_clr_plain
 from .windows import candidate_windows
 
 DEFAULT_N_ALPHA = 128
@@ -60,10 +63,10 @@ ROWS_MAX = 128  # exact one-hot gate: above this the tables are compressed
 COMPRESS_ROWS_MAX = 8192  # hard cap for the SVD row-compression path
 COMPRESS_TOL = 1e-3  # max-entry residual target for the rank choice
 SITES_MAX = 4_000_000  # [W, R] state cap
-# transient bytes of one candidate chunk of the statistic (the window
-# operand [c*P, 2*NC*R] f32, and under RDP the assembled [c, 2, NC+1, P*R]
-# int32 prefix rows): bounds device memory only, the values do not
-# depend on it
+# transient bytes of one candidate chunk of the statistic (the float32
+# route's window operand [c*P, 2*NC*R] f32, and under RDP the assembled
+# [c, 2, NC+1, P*R] int32 prefix rows): bounds device memory only, the
+# values do not depend on it
 CHUNK_BYTES = 1 << 28
 
 
@@ -558,21 +561,37 @@ def build_site_prefix(row_compact, *, n_rows):
     return out
 
 
-def _clr_from_windows(ps, bounds, fbar, t3m, *, n_rep, n_cells, n_rows,
-                      n_alpha, mm_bf16, window_fn=window_operand):
+def _clr_from_windows(ps, bounds, fbar, t3, *, n_rep, n_cells, n_rows,
+                      n_alpha, mm_bf16):
     """2 * contraction of the window operand with the table pack, shared
-    by hist_clr_reps_ps and rdp_clr_reps.
+    by hist_clr_reps_ps and rdp_clr_reps; [c, P, A] f32.
 
     ps: [*, P*R] prefix rows; bounds: [c, 2, NC+1] int32 rows of ps;
-    fbar: [c, 2, NC]; t3m: [2*NC*R, A] pack (bf16-rounded when mm_bf16).
-    window_fn (ops/gather.py:window_operand, a CUDA kernel on the card, or
-    its plain version) gathers the bound rows, differences and lerps them
-    into the operand k [c*P, 2*NC*R] (bfloat16-rounded when mm_bf16); the
-    product keeps float32.  Returns [c, P, A] f32.
+    fbar: [c, 2, NC]; t3: [2*NC*R, A] f32 pack.  mm_bf16 (the JAX
+    package's bfloat16 operands, float32 products and sums):
+    ops/window_clr.py:window_clr, the operand built and contracted in one
+    kernel on the card, against the pack rounded once (bf16_pack).  Else
+    ops/gather.py:window_operand (a kernel on the card) writes the f32
+    operand k [c*P, 2*NC*R] and a float32 torch.matmul contracts it.
     """
-    k = window_fn(ps, bounds, fbar, n_rep=n_rep, n_cells=n_cells,
-                  n_rows=n_rows, mm_bf16=mm_bf16)
-    return 2.0 * torch.matmul(k, t3m).reshape(bounds.shape[0], n_rep,
+    kw = dict(n_rep=n_rep, n_cells=n_cells, n_rows=n_rows)
+    if mm_bf16:
+        return window_clr(ps, bounds, fbar, bf16_pack(t3), n_alpha=n_alpha,
+                          **kw)
+    k = window_operand(ps, bounds, fbar, **kw)
+    return 2.0 * torch.matmul(k, t3).reshape(bounds.shape[0], n_rep,
+                                              n_alpha)
+
+
+def _clr_from_windows_plain(ps, bounds, fbar, t3, *, n_rep, n_cells, n_rows,
+                            n_alpha, mm_bf16):
+    """_clr_from_windows through the plain versions of both kernels."""
+    kw = dict(n_rep=n_rep, n_cells=n_cells, n_rows=n_rows)
+    if mm_bf16:
+        return window_clr_plain(ps, bounds, fbar, bf16_pack(t3),
+                                n_alpha=n_alpha, **kw)
+    k = window_operand_plain(ps, bounds, fbar, **kw)
+    return 2.0 * torch.matmul(k, t3).reshape(bounds.shape[0], n_rep,
                                               n_alpha)
 
 
@@ -585,31 +604,34 @@ def _chunk_rows(n_cells, n_rep, n_rows):
 
 
 def hist_clr_reps_ps(t3, bounds, fbar, ps, *, n_rep, n_cells, n_rows,
-                     n_alpha, mm_bf16=False, window_fn=window_operand):
+                     n_alpha, mm_bf16=False, clr_fn=_clr_from_windows):
     """CLR[p, c, a] given prebuilt prefix sums ps [W+1, P*R]
     (fscl_tpu/ops/histclr.py:1078).
 
-    Per candidate chunk, _clr_from_windows: the window operand (the
-    bounds gather ps[bounds], the signed adjacent difference in the
-    prefix dtype -- int16 wraps mod 2^16 exactly as the JAX package's
-    mod-2^16 rule relies on -- and the fbar lerp, one kernel on the card)
+    clr_fn (_clr_from_windows, or _clr_from_windows_plain) turns the
+    windows into the statistic: the bounds gather ps[bounds], the signed
+    adjacent difference in the prefix dtype -- int16 wraps mod 2^16
+    exactly as the JAX package's mod-2^16 rule relies on -- the fbar lerp
     and the contraction.  mm_bf16 rounds both operands to bfloat16 and
     keeps the float32 product and accumulation (the JAX package's bf16
-    inputs with preferred_element_type=f32).  Returns [P, C, A] f32.
+    inputs with preferred_element_type=f32); that route never writes the
+    operand, so it takes every candidate in one call.  The float32 route
+    goes a candidate chunk at a time (_chunk_rows).  Returns [P, C, A]
+    f32.
     """
     P, A = n_rep, n_alpha
     C = bounds.shape[0]
-    t3m = bf16_round(t3) if mm_bf16 else t3
-    c_sub = _chunk_rows(n_cells, P, n_rows)
+    c_sub = max(C, 1) if mm_bf16 else _chunk_rows(n_cells, P, n_rows)
     outs = [
-        _clr_from_windows(
-            ps, bounds[c0:c0 + c_sub], fbar[c0:c0 + c_sub], t3m, n_rep=P,
+        clr_fn(
+            ps, bounds[c0:c0 + c_sub], fbar[c0:c0 + c_sub], t3, n_rep=P,
             n_cells=n_cells, n_rows=n_rows, n_alpha=A, mm_bf16=mm_bf16,
-            window_fn=window_fn,
         )
         for c0 in range(0, C, c_sub)
     ]
-    out = torch.cat(outs) if outs else t3.new_zeros((0, P, A))
+    if not outs:
+        return t3.new_zeros((P, 0, A))
+    out = outs[0] if len(outs) == 1 else torch.cat(outs)
     return out.permute(1, 0, 2)
 
 
@@ -666,7 +688,6 @@ def rdp_clr_reps(t3, bounds_gen, fbar, psite, src_starts, dst_starts,
     NC, R, A, P = n_cells, n_rows, n_alpha, n_rep
     tabs = _rdp_tables(psite, src_starts, dst_starts, sizes, pg=pg,
                        n_groups=n_groups)
-    t3m = bf16_round(t3) if mm_bf16 else t3
     C = bounds_gen.shape[0]
     c_sub = _chunk_rows(NC, P, R)
     ident = torch.arange(min(C, c_sub) * 2 * (NC + 1), dtype=torch.int32,
@@ -682,7 +703,7 @@ def rdp_clr_reps(t3, bounds_gen, fbar, psite, src_starts, dst_starts,
         # (c, s, j) and (c, s, j+1), as the stacked path reads ps rows
         outs.append(_clr_from_windows(
             a.view(M, P * R), ident[:M].view(c, 2, NC + 1),
-            fbar[c0:c0 + c_sub], t3m, n_rep=P, n_cells=NC, n_rows=R,
+            fbar[c0:c0 + c_sub], t3, n_rep=P, n_cells=NC, n_rows=R,
             n_alpha=A, mm_bf16=mm_bf16,
         ))
     out = torch.cat(outs) if outs else t3.new_zeros((0, P, A))

@@ -1,0 +1,277 @@
+"""The fused window contraction (fscl_tpu_torch/ops/window_clr.py): the
+bfloat16 route of the hist statistic against the JAX package.
+
+  * window_clr_plain against fscl_tpu.ops.histclr.hist_clr_reps_ps with
+    mm_bf16=True on seeded numpy inputs (int16 prefixes wrapped past
+    +-32767, int32 and float32 prefixes; P in {1, 4}; A in {8, 32}; NC
+    odd).  The bfloat16 operands are equal bit for bit (read back through
+    a one-hot pack, whose products are exact), and a product of two
+    bfloat16 values is exact in float32, so only the order of the float32
+    sums differs: each entry is held to 2 K 2^-24 S, S = 2 sum_k |k t|
+    (two summation orders of the same K exact products each stay within
+    (K - 1) 2^-24 S of the exact sum);
+  * the plain version is the two-step chain it replaces, bitwise, in one
+    candidate chunk or several;
+  * routing on the CPU: mm_bf16=True reaches window_clr once per call and
+    never window_operand; mm_bf16=False reaches window_operand and the
+    float32 matmul, a candidate chunk at a time;
+  * on the card (marker ``gpu``): the kernel against its plain version at
+    the main path's shapes, within 2e-4 S + 1e-5 per entry, and a one-hot
+    pack that reads the kernel's operand back bitwise against
+    window_operand(mm_bf16=True).
+
+This file imports nothing of tests/: on the card machine such imports do
+not collect.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import fscl_tpu.ops.histclr as JH
+import fscl_tpu_torch.ops.histclr as TH
+from fscl_tpu_torch.ops import gather as G
+from fscl_tpu_torch.ops import window_clr as W
+
+U = 2.0 ** -24  # float32 unit roundoff
+
+
+def _window_inputs(seed, dtype, *, rows=300, c=7, NC=9, P=3, R=8):
+    """Prefix rows, bounds and fbar like the path's: side 0 walks left
+    from the split point, side 1 right, with empty windows (repeated
+    bounds) and fbar 0.5 on them.  int16 prefixes carry an offset that
+    wraps them past +-32767, as the stacked slab's one-group-early start
+    does; only their differences are meaningful."""
+    rng = np.random.default_rng(seed)
+    L = P * R
+    if dtype == np.float32:
+        steps = rng.normal(size=(rows, L)) * np.geomspace(300.0, 0.1, L)
+        ps = np.cumsum(steps, 0).astype(np.float32)
+    else:
+        ps = np.cumsum(rng.integers(0, 3, size=(rows, L)), 0)
+        if dtype == np.int16:
+            ps = ps + (32767 - rows)
+        ps = ps.astype(dtype)  # int16: wraps mod 2^16
+    sp = rng.integers(rows // 3, 2 * rows // 3, size=c)
+    left = sp[:, None] - np.cumsum(rng.integers(0, 6, size=(c, NC)), 1)
+    right = sp[:, None] + np.cumsum(rng.integers(0, 6, size=(c, NC)), 1)
+    bounds = np.stack([
+        np.concatenate([sp[:, None], np.maximum(left, 0)], 1),
+        np.concatenate([sp[:, None], np.minimum(right, rows - 1)], 1),
+    ], 1).astype(np.int32)
+    fbar = rng.random(size=(c, 2, NC)).astype(np.float32)
+    fbar[:, :, -2:] = [0.0, 1.0]
+    fbar = np.where(bounds[:, :, 1:] == bounds[:, :, :-1], np.float32(0.5),
+                    fbar)
+    return ps, bounds, fbar
+
+
+def _pack(seed, K, A):
+    """A [K, A] f32 pack of log-likelihood-difference scale."""
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(K, A)) * 3.0).astype(np.float32)
+
+
+def _bf16(x):
+    return torch.as_tensor(x).to(torch.bfloat16).to(torch.float32)
+
+
+def _abs_sum(k, t3):
+    """S = 2 sum_k |k t| per output entry, in float64: [c*P, A]."""
+    return 2.0 * (k.abs().double() @ _bf16(t3).abs().double())
+
+
+def _kw(P, NC, R, A):
+    return dict(n_rep=P, n_cells=NC, n_rows=R, n_alpha=A)
+
+
+# ---- CPU: the plain version against the JAX package ------------------------
+
+@pytest.mark.parametrize("A", [8, 32])
+@pytest.mark.parametrize("P", [1, 4])
+@pytest.mark.parametrize("dtype", [np.int16, np.int32, np.float32])
+def test_window_clr_plain_matches_jax(dtype, P, A):
+    NC, R = 9, 8
+    ps, bounds, fbar = _window_inputs(P + A, dtype, P=P, R=R, NC=NC)
+    if dtype == np.int16:  # the wrap is exercised
+        assert ps.min() < -30000 and ps.max() > 30000
+    K = 2 * NC * R
+    t3 = _pack(A, K, A)
+    kw = _kw(P, NC, R, A)
+    want = np.asarray(JH.hist_clr_reps_ps(
+        jnp.asarray(t3), jnp.asarray(bounds), jnp.asarray(fbar),
+        jnp.asarray(ps), mm_bf16=True, **kw))  # [P, C, A]
+    args = [torch.as_tensor(x) for x in (ps, bounds, fbar)]
+    before = W.window_clr_launches
+    got = W.window_clr(*args, W.bf16_pack(torch.as_tensor(t3)), **kw)
+    assert W.window_clr_launches == before  # plain version on the CPU
+    assert got.shape == (bounds.shape[0], P, A) and got.dtype == torch.float32
+    got = got.permute(1, 0, 2).numpy()
+    k = G.window_operand_plain(*args, n_rep=P, n_cells=NC, n_rows=R,
+                               mm_bf16=True)
+    s = _abs_sum(k, t3).numpy().reshape(bounds.shape[0], P, A)
+    tol = 2 * K * U * s.transpose(1, 0, 2)
+    assert np.all(np.abs(got - want) <= tol), np.abs(got - want).max()
+
+    # the bfloat16 operands are the JAX package's, bit for bit: a one-hot
+    # pack reads 2 k back exactly from both
+    eye = np.eye(K, dtype=np.float32)
+    op_j = np.asarray(JH.hist_clr_reps_ps(
+        jnp.asarray(eye), jnp.asarray(bounds), jnp.asarray(fbar),
+        jnp.asarray(ps), mm_bf16=True, **_kw(P, NC, R, K)))
+    op_t = (2.0 * k).numpy().reshape(bounds.shape[0], P, K)
+    np.testing.assert_array_equal(op_j.transpose(1, 0, 2) + 0.0, op_t + 0.0)
+
+
+@pytest.mark.parametrize("per_chunk", [None, 2])
+def test_window_clr_plain_is_the_two_step_chain(monkeypatch, per_chunk):
+    P, NC, R, A = 3, 9, 16, 40
+    ps, bounds, fbar = _window_inputs(5, np.int32, P=P, R=R, NC=NC)
+    t3 = torch.as_tensor(_pack(6, 2 * NC * R, A))
+    args = [torch.as_tensor(x) for x in (ps, bounds, fbar)]
+    if per_chunk:  # several candidate chunks and a ragged last one
+        monkeypatch.setattr(W, "OPERAND_BYTES",
+                            per_chunk * 2 * NC * R * P * 4)
+    got = W.window_clr_plain(*args, W.bf16_pack(t3), **_kw(P, NC, R, A))
+    k = G.window_operand_plain(*args, n_rep=P, n_cells=NC, n_rows=R,
+                               mm_bf16=True)
+    want = 2.0 * torch.matmul(k, G.bf16_round(t3))
+    np.testing.assert_array_equal(got.reshape(-1, A).numpy(), want.numpy())
+
+
+def test_bf16_pack_pads_rounds_and_is_built_once():
+    t3 = torch.as_tensor(_pack(7, 48, 13))
+    pack = W.bf16_pack(t3)
+    assert pack.dtype == torch.bfloat16 and pack.shape == (48, 16)
+    assert torch.equal(pack[:, :13].float(), G.bf16_round(t3))
+    assert not pack[:, 13:].any()
+    assert W.bf16_pack(t3) is pack
+    t3.mul_(2.0)  # a changed pack is rounded again
+    again = W.bf16_pack(t3)
+    assert again is not pack
+    assert torch.equal(again[:, :13].float(), G.bf16_round(t3))
+
+
+def test_window_clr_refuses_other_devices():
+    t = torch.empty((4, 8), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        W.window_clr(t, None, None, None, n_rep=1, n_cells=1, n_rows=8,
+                     n_alpha=4)
+
+
+# ---- CPU: routing ----------------------------------------------------------
+
+def _spy(monkeypatch, name, calls):
+    real = getattr(TH, name)
+
+    def spy(*a, **k):
+        calls.append(name)
+        return real(*a, **k)
+
+    monkeypatch.setattr(TH, name, spy)
+
+
+@pytest.mark.parametrize("mm_bf16", [False, True])
+def test_routes_by_mm_bf16(monkeypatch, mm_bf16):
+    """mm_bf16=True: one window_clr per call, no window_operand;
+    False: window_operand and the float32 matmul per candidate chunk."""
+    P, NC, R, A = 2, 9, 8, 8
+    ps, bounds, fbar = _window_inputs(8, np.int16, P=P, R=R, NC=NC, c=7)
+    t3 = torch.as_tensor(_pack(9, 2 * NC * R, A))
+    args = [torch.as_tensor(x) for x in (ps, bounds, fbar)]
+    calls = []
+    for name in ("window_clr", "window_operand", "window_clr_plain",
+                 "window_operand_plain"):
+        _spy(monkeypatch, name, calls)
+    monkeypatch.setattr(TH, "CHUNK_BYTES", 3 * 2 * (NC + 1) * P * R * 4)
+    assert TH._chunk_rows(NC, P, R) == 3
+    kw = dict(n_rep=P, n_cells=NC, n_rows=R, n_alpha=A, mm_bf16=mm_bf16)
+    out = TH.hist_clr_reps_ps(t3, args[1], args[2], args[0], **kw)
+    assert out.shape == (P, 7, A)
+    if mm_bf16:
+        assert calls == ["window_clr"]
+    else:
+        assert calls == ["window_operand"] * 3  # 7 candidates, 3 a chunk
+    calls.clear()
+    plain = TH.hist_clr_reps_ps(t3, args[1], args[2], args[0],
+                                clr_fn=TH._clr_from_windows_plain, **kw)
+    assert calls == (["window_clr_plain"] if mm_bf16
+                     else ["window_operand_plain"] * 3)
+    assert torch.equal(out, plain)
+
+
+# ---- on the card -----------------------------------------------------------
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: the CUDA kernels run only on the card")
+    return torch.device("cuda")
+
+
+def _card_case(dev, dtype, P, R, A, *, c=300, NC=61, seed=11, pad=0):
+    """Inputs on the card at the path's widths, pad all-zero padding
+    candidates (bounds 0, fbar 0) appended."""
+    ps, bounds, fbar = _window_inputs(seed, dtype, rows=5000, c=c, NC=NC,
+                                      P=P, R=R)
+    if pad:
+        bounds = np.concatenate([bounds, np.zeros((pad, 2, NC + 1),
+                                                  np.int32)])
+        fbar = np.concatenate([fbar, np.zeros((pad, 2, NC), np.float32)])
+    t3 = torch.as_tensor(_pack(seed, 2 * NC * R, A), device=dev)
+    args = [torch.as_tensor(x, device=dev) for x in (ps, bounds, fbar)]
+    return args, t3, _kw(P, NC, R, A)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype, P, R, A, c, pad", [
+    (np.int16, 1, 56, 128, 300, 0),  # the scan (P = 1, 128 alphas)
+    (np.int16, 32, 56, 32, 300, 0),  # a stacked 20k slice
+    (np.int32, 16, 48, 32, 300, 0),  # genome
+    (np.float32, 32, 32, 32, 300, 0),  # compressed mixed depth
+    (np.int16, 1, 56, 40, 37, 5),  # c off the 64-row tile, A = 40, padding
+    (np.float32, 3, 104, 200, 50, 3),  # R > 64, A over two column tiles
+])
+def test_window_clr_kernel_matches_plain_on_card(dtype, P, R, A, c, pad):
+    dev = _card()
+    args, t3, kw = _card_case(dev, dtype, P, R, A, c=c, pad=pad)
+    pack = W.bf16_pack(t3)
+    before = W.window_clr_launches
+    got = W.window_clr(*args, pack, **kw)
+    want = W.window_clr_plain(*args, pack, **kw)
+    torch.cuda.synchronize()
+    assert W.window_clr_launches == before + 1
+    k = G.window_operand_plain(*args, n_rep=P, n_cells=kw["n_cells"],
+                               n_rows=R, mm_bf16=True)
+    s = _abs_sum(k, t3).reshape(got.shape)
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= 2e-4 * s + 1e-5).all()), float(err.max())
+    if pad:  # all-zero padding candidates give exactly 0
+        assert not got[-pad:].any()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [np.int16, np.int32, np.float32])
+def test_window_clr_kernel_operand_is_window_operand_bitwise(dtype):
+    """A pack whose column a is one-hot at row k_a gives 2 k[m, k_a]
+    exactly: the kernel's operand, read back."""
+    dev = _card()
+    P, R, NC = 4, 56, 61
+    args, _, _ = _card_case(dev, dtype, P, R, 8, c=70, NC=NC)
+    K = 2 * NC * R
+    # first and last k of both operand halves, a lane past R16's boundary
+    # and random ones; int16 prefixes are wrapped on every lane
+    rng = np.random.default_rng(12)
+    k_a = np.unique(np.concatenate([
+        [0, R - 1, NC * R, NC * R + 55, K - 1, 17 * R + 40],
+        rng.integers(0, K, 26)]))
+    A = len(k_a)
+    eye = torch.zeros((K, A), dtype=torch.float32, device=dev)
+    eye[torch.as_tensor(k_a, device=dev), torch.arange(A, device=dev)] = 1.0
+    got = W.window_clr(*args, W.bf16_pack(eye), n_rep=P, n_cells=NC,
+                       n_rows=R, n_alpha=A)
+    k = G.window_operand(*args, n_rep=P, n_cells=NC, n_rows=R, mm_bf16=True)
+    torch.cuda.synchronize()
+    want = 2.0 * k[:, torch.as_tensor(k_a, device=dev)]
+    assert torch.equal(got.reshape(-1, A), want)
