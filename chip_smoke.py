@@ -26,40 +26,61 @@ non-zero:
                float32, 65,536 sorted indices); kernel, plain and
                torch.index_select timed.  Its RDP shape (psite [20001,
                56] int32 at one slice's unsorted indices) runs in phase 7
-  3e. okernel - the window operand (gather -> difference -> lerp) against
-               its plain version, bitwise (zeros compared without their
-               sign), mm_bf16 off and on, on the inputs the main path
-               gives it (bounds and fbar from build_hist_points on the real
-               data): the 20k scan (P=1, and its float32 tie stage) and
-               stacked slice run in phase 4, genome in 5, mixed100k in
-               5c, an RDP slice in 7; both timed
+  3e. okernel - the window operand (gather -> difference -> lerp; off the
+               path, the yardstick of 3g) against its plain version,
+               bitwise (zeros compared without their sign), mm_bf16 off
+               and on, on the inputs the main path gives the window
+               kernels (bounds and fbar from build_hist_points on the real
+               data): the 20k scan (P=1) and stacked slice run in phase 4,
+               genome in 5, mixed100k in 5c, an RDP slice in 7, and the
+               first chunk of each task's float32 tie stage (captured from
+               its scan); both timed
   3f. fkernel - the fused window contraction (window_clr: operand and
                bfloat16 tensor-core contraction in one kernel) against its
                plain version within 2e-4 S + 1e-5 per entry (S = 2 sum_k
                |k t|), at the 20k scan, 20k stacked, genome and mixed100k
-               first-chunk inputs of 3e; kernel, plain, and two
-               yardsticks timed: window_operand + float32 matmul (the
-               route it replaces) and window_operand + bfloat16 matmul
-               (cuBLAS tensor cores)
+               first-chunk inputs of 3e and their whole calls; kernel,
+               plain, and two yardsticks timed: window_operand + float32
+               matmul and window_operand + bfloat16 matmul (cuBLAS tensor
+               cores)
+  3g. f32kernel - the float32 window contraction (window_clr_f32: operand
+               and 3xTF32 tensor-core contraction in one kernel, split
+               over cells on sub-wave grids) against its plain version
+               within 1e-5 S + 1e-5 per entry (S in float64), its largest
+               error against a float64 contraction at most 4x that of
+               window_operand + float32 matmul, two launches bitwise
+               equal; at the scan tie stages' own inputs (20k: first chunk
+               and whole call; genome and mixed100k: their largest
+               chromosome's call), a stacked 20k slice at hist_bf16=False
+               and phase 7's RDP slice; kernel, plain and two yardsticks
+               timed: window_operand + float32 matmul (the route it
+               replaces) and + TF32 matmul (cuBLAS, one TF32 pass)
   4. 20k     - the bench.py task (bench/data/bench_20k.sf, 50
                permutations) through the port's entry points; the
                prefix kernel's launches are counted over this run, and
-               over its scan and its permutations the fused window
-               kernel's (bfloat16 stages) and the window operand's (the
-               scan's float32 tie stage; none in the bfloat16
-               permutations); the first chunk's statistic is recomputed
-               with the plain prefix function (equal), then with the
-               plain window route too (within 3f's tolerance, exceedance
-               counts on the run's thresholds equal off near-ties)
+               over its scan and its permutations the window kernels'
+               (the bfloat16 kernel in the scan's dense and refine stages
+               and the permutations, the float32 kernel in the scan's tie
+               stage, the window operand nowhere); the first chunk's
+               statistic is recomputed with the plain prefix function
+               (equal), then with the plain window route too (within
+               3f's tolerance, exceedance counts on the run's thresholds
+               equal off near-ties); the scan again with its tie stage
+               through the float32 kernel and through the two-step route
+               (window operand + float32 matmul): reported CLRs within
+               1e-3, positions and lalpha equal off listed tie-pool
+               near-ties
   5. genome  - ~778k sites over 22 chromosomes (bench/headline.py
                gen_genome1m), scan and 64 permutations; window launches
-               counted over each; the first chunk recomputed as in 4
+               counted over each; the first chunk recomputed and the scan
+               routes compared as in 4
   5c. mixed100k - bench/data/headline_mixed100k.sf (94,889 sites, 31
                depths, 1,589 table rows, compressed tables), scan and 64
                permutations; the weighted kernel's launches are counted
                over this run and the window kernels' over each stage; the
                first chunk's statistic is recomputed with the plain
-               prefix function, then with the plain window route too
+               prefix function, then with the plain window route too;
+               the scan routes compared as in 4
   6. check   - a small single-depth input and a small mixed-depth input
                through the card and through the plain CPU versions must
                agree
@@ -70,22 +91,23 @@ non-zero:
                chunk of the RDP run recomputed through hist_clr_reps
                (kernel 3a) and _hist_perm_batch (kernel 3b); the phase's
                launches of every kernel are counted (the row gather only
-               under RDP on, the window operand and never the fused
-               kernel on these float32 routes); then the same chunk on
-               the bfloat16 route through rdp_clr_reps and hist_clr_reps
-               (fused kernel only)
+               under RDP on, the float32 window kernel and neither the
+               bfloat16 one nor the window operand on these float32
+               routes); then the same chunk on the bfloat16 route through
+               rdp_clr_reps and hist_clr_reps (bfloat16 kernel only)
 Then one JSON line with every kernel's numbers (time, plain time, bound,
 launches on a path of this run, the one-call PyTorch equivalent's time
-where there is one; for the fused window kernel also its largest error
-over its stated tolerance), and last the JSON status line.  Kernel times are the
-median of 5 CUDA-event readings, each a mean over its launches.  Run
-from the repo root: python3 chip_smoke.py
+where there is one; for the fused window kernels also their largest error
+over their stated tolerance, and for the float32 one its split reductions
+and its float64 error ratio), and last the JSON status line.  Kernel
+times are the median of 5 CUDA-event readings, each a mean over its
+launches.  Run from the repo root: python3 chip_smoke.py
 
 ``--profile`` instead runs phases 1-2 and then torch.profiler over the
 scan and the permutations of the 20k task, of the genome (16
 permutations) and of mixed100k (16 permutations), and over phase 7's
 permutations of the 20k task with RDP forced on and off: device time by
-kernel (the prefix-sum kernels, the fused window kernel, the window
+kernel (the prefix-sum kernels, the two fused window kernels, the window
 operand, the matmuls, the row gather) and the device's busy share, with
 the tables written under OUT.
 """
@@ -112,10 +134,19 @@ MIXED_BAND = 1e-3
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 BF16_MMA_PER_S = 989e12
-# the fused window contraction against its plain version: |diff| <=
-# CLR_REL * S + CLR_ABS per entry, S = 2 sum_k |k t|
+TF32_MMA_PER_S = 495e12  # dense TF32 tensor-core operations/s
+# the fused window contractions against their plain versions: |diff| <=
+# REL * S + ABS per entry, S = 2 sum_k |k t|: bfloat16 route (CLR_*),
+# float32 route (F32_*, S in float64)
 CLR_REL = 2e-4
 CLR_ABS = 1e-5
+F32_REL = 1e-5
+F32_ABS = 1e-5
+# the float32 kernel's largest error against a float64 contraction, over
+# that of the window operand + float32 torch.matmul route: at most this
+F64_RATIO = 4.0
+# the scan's reported CLR, new float32 route vs the two-step route
+SCAN_CLR_TOL = 1e-3
 
 
 def log(msg):
@@ -500,28 +531,81 @@ def _window_case(label, ps, bounds, fbar, *, n_rep, n_cells, n_rows,
     return out
 
 
-def _abs_clr(ps, bounds, fbar, t3, *, n_rep, n_cells, n_rows, n_alpha,
-             mm_bf16=True):
-    """S = 2 sum_k |k t| per entry [c, P, A] of the bfloat16 route (its
-    operand from the window-operand kernel, its pack bf16_pack), a
-    candidate chunk at a time: the scale of that route's tolerance.  It
-    has the signature of the statistic's clr_fn."""
-    import torch
-
+def _operand_chunks(ps, bounds, fbar, *, n_rep, n_cells, n_rows, mm_bf16):
+    """The window operand [c_chunk*P, K] f32 from its kernel, a candidate
+    chunk (_chunk_rows) at a time, as the two-step route took it."""
     from fscl_tpu_torch.ops import gather as G
     from fscl_tpu_torch.ops.histclr import _chunk_rows
-    from fscl_tpu_torch.ops.window_clr import bf16_pack
 
-    t = bf16_pack(t3)[:, :n_alpha].float().abs()
     per = _chunk_rows(n_cells, n_rep, n_rows)
-    c = bounds.shape[0]
-    outs = [2.0 * torch.matmul(G.window_operand(
-                ps, bounds[c0:c0 + per], fbar[c0:c0 + per], n_rep=n_rep,
-                n_cells=n_cells, n_rows=n_rows, mm_bf16=True).abs(), t)
-            for c0 in range(0, c, per)]
+    for c0 in range(0, bounds.shape[0], per):
+        yield G.window_operand(ps, bounds[c0:c0 + per], fbar[c0:c0 + per],
+                               n_rep=n_rep, n_cells=n_cells, n_rows=n_rows,
+                               mm_bf16=mm_bf16)
+
+
+def _chunked(fn, ps, bounds, fbar, *, n_rep, n_cells, n_rows, n_alpha,
+             mm_bf16):
+    """[c, P, A]: fn(k) over the operand chunks, concatenated."""
+    import torch
+
+    outs = [fn(k) for k in _operand_chunks(
+        ps, bounds, fbar, n_rep=n_rep, n_cells=n_cells, n_rows=n_rows,
+        mm_bf16=mm_bf16)]
     if not outs:
         return torch.zeros((0, n_rep, n_alpha), device=ps.device)
-    return torch.cat(outs).reshape(c, n_rep, n_alpha)
+    return torch.cat(outs).reshape(bounds.shape[0], n_rep, n_alpha)
+
+
+def _abs_clr(ps, bounds, fbar, t3, *, n_rep, n_cells, n_rows, n_alpha,
+             mm_bf16=True):
+    """S = 2 sum_k |k t| per entry [c, P, A] of the route mm_bf16 selects
+    (its operand from the window-operand kernel; its pack bf16_pack, or
+    t3): the scale of that route's tolerance.  It has the signature of
+    the statistic's clr_fn."""
+    import torch
+
+    from fscl_tpu_torch.ops.window_clr import bf16_pack
+
+    t = (bf16_pack(t3)[:, :n_alpha].float() if mm_bf16 else t3).abs()
+    return _chunked(lambda k: 2.0 * torch.matmul(k.abs(), t), ps, bounds,
+                    fbar, n_rep=n_rep, n_cells=n_cells, n_rows=n_rows,
+                    n_alpha=n_alpha, mm_bf16=mm_bf16)
+
+
+def _two_step_clr(ps, bounds, fbar, t3, *, n_rep, n_cells, n_rows, n_alpha,
+                  mm_bf16=False):
+    """The statistic's float32 route as it stood before its fused kernel:
+    the window-operand kernel, then 2 * a float32 torch.matmul, a
+    candidate chunk at a time; the bfloat16 route as the path runs it.
+    It has the signature of the statistic's clr_fn."""
+    import torch
+
+    from fscl_tpu_torch.ops.histclr import _clr_from_windows
+
+    kw = dict(n_rep=n_rep, n_cells=n_cells, n_rows=n_rows, n_alpha=n_alpha)
+    if mm_bf16:
+        return _clr_from_windows(ps, bounds, fbar, t3, mm_bf16=True, **kw)
+    return _chunked(lambda k: 2.0 * torch.matmul(k, t3), ps, bounds, fbar,
+                    mm_bf16=False, **kw)
+
+
+def _f64_clr(ps, bounds, fbar, t3, *, n_rep, n_cells, n_rows, n_alpha):
+    """(2 k t, S = 2 sum_k |k t|), both [c, P, A] float64, from the
+    float32 operand (its kernel) and t3, a candidate chunk at a time."""
+    import torch
+
+    t = t3.double()
+    refs, sums = [], []
+    for k in _operand_chunks(ps, bounds, fbar, n_rep=n_rep, n_cells=n_cells,
+                             n_rows=n_rows, mm_bf16=False):
+        k = k.double()
+        refs.append(2.0 * (k @ t))
+        sums.append(2.0 * (k.abs() @ t.abs()))
+    shape = (bounds.shape[0], n_rep, n_alpha)
+    if not refs:
+        return (torch.zeros(shape, dtype=torch.float64, device=ps.device),) * 2
+    return torch.cat(refs).reshape(shape), torch.cat(sums).reshape(shape)
 
 
 def _window_clr_case(label, ps, bounds, fbar, *, n_rep, n_cells, n_rows,
@@ -610,6 +694,106 @@ def _window_clr_case(label, ps, bounds, fbar, *, n_rep, n_cells, n_rows,
                 bytes=nbytes, mma_ops=mma, lerp_ops=lerp)
 
 
+def _window_clr_f32_case(label, ps, bounds, fbar, *, n_rep, n_cells, n_rows,
+                         t3, n_alpha, iters=20):
+    """Phase 3g: the float32 window contraction (window_clr_f32) vs its
+    plain version within F32_REL * S + F32_ABS per entry (S in float64);
+    its largest error against a float64 contraction at most F64_RATIO x
+    that of the two-step route (window_operand + float32 torch.matmul, the
+    route it replaces); two launches bitwise equal.  Timed: kernel, plain,
+    the two-step route, and window_operand + TF32 torch.matmul (cuBLAS,
+    one TF32 pass: for speed only).  The bound is the larger of the bytes
+    (the distinct bound rows read, bounds, fbar, the float32 pack and the
+    output) over the HBM rate and the operations (3 MMAs of 2 c P K A at
+    the TF32 tensor-core rate, 3xTF32, plus 6 float operations per operand
+    entry at the float32 rate); the FFMA bound is 2 c P K A at the float32
+    rate."""
+    import torch
+
+    from fscl_tpu_torch.ops import window_clr as W
+
+    kw = dict(n_rep=n_rep, n_cells=n_cells, n_rows=n_rows, n_alpha=n_alpha)
+    pack = W.f32_pack(t3)
+    c, P, A = bounds.shape[0], n_rep, n_alpha
+    M, K = c * P, 2 * n_cells * n_rows
+    splits = W.window_clr_f32_splits(M, n_cells=n_cells, n_rows=n_rows,
+                                     n_alpha=A, device=ps.device)
+
+    def kern():
+        return W.window_clr_f32(ps, bounds, fbar, pack, **kw)
+
+    def plain():
+        return W.window_clr_f32_plain(ps, bounds, fbar, pack, **kw)
+
+    def two_step_f32():
+        return _two_step_clr(ps, bounds, fbar, t3, mm_bf16=False, **kw)
+
+    def two_step_tf32():
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            return two_step_f32()
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    got, again, want, mm = kern(), kern(), plain(), two_step_f32()
+    ref, s = _f64_clr(ps, bounds, fbar, t3, **kw)
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        fail(f"f32kernel at {label}: {tuple(got.shape)} vs plain "
+             f"{tuple(want.shape)}")
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        fail(f"f32kernel at {label}: two launches differ")
+    lim = F32_REL * s + F32_ABS
+    err = (got.double() - want.double()).abs()
+    max_err, ratio = float(err.max()), float((err / lim).max())
+    if not bool((err <= lim).all()):
+        fail(f"f32kernel != plain at {label}: max |err| {max_err:.6g}, "
+             f"{ratio:.3g} x the tolerance {F32_REL} S + {F32_ABS}")
+    e64 = float((got.double() - ref).abs().max())
+    e64_mm = float((mm.double() - ref).abs().max())
+    if e64 > F64_RATIO * e64_mm:
+        fail(f"f32kernel at {label}: max |kernel - float64| {e64:.4g} is "
+             f"over {F64_RATIO} x that of the float32 matmul route "
+             f"({e64_mm:.4g})")
+    nbytes = (torch.unique(bounds).numel() * ps.shape[1] * ps.element_size()
+              + bounds.numel() * 4 + fbar.numel() * 4 + K * A * 4
+              + got.numel() * 4)
+    mma, lerp = 2 * M * K * A, 6 * M * K
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = (3 * mma / TF32_MMA_PER_S + lerp / OPS_PER_S) * 1e3
+    b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
+                  else (t_ops, "operations"))
+    ffma_ms = mma / OPS_PER_S * 1e3
+    pack_read = -(-M // 64) * K * pack.shape[1] * 4  # every block of rows
+    del got, again, want, mm, ref, s, err, lim
+    torch.cuda.empty_cache()
+    ms = cuda_time_ms(kern, iters)
+    plain_ms = cuda_time_ms(plain, max(1, iters // 4))
+    f32_ms = cuda_time_ms(two_step_f32, iters)
+    tf32_ms = cuda_time_ms(two_step_tf32, iters)
+    torch.cuda.empty_cache()
+    shape = (f"ps {list(ps.shape)} c={c} NC={n_cells} P={P} R={n_rows} "
+             f"A={A} {str(ps.dtype).replace('torch.', '')}, "
+             f"{-(-M // 64)} blocks of 64 rows x {splits} splits")
+    log(f"[f32kernel] {label}: {shape}; max |err| {max_err:.4g} "
+        f"({ratio:.3g} x tolerance); vs float64 {e64:.4g}, f32 matmul route "
+        f"{e64_mm:.4g} (ratio {e64 / max(e64_mm, 1e-300):.3g}); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, window_operand + f32 matmul "
+        f"{f32_ms:.4f} ms, + tf32 matmul {tf32_ms:.4f} ms, bound "
+        f"{b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, {mma / 1e9:.3f} "
+        f"GFLOP x 3 MMA), FFMA bound {ffma_ms:.4f} ms, pack read "
+        f"{pack_read / 1e6:.1f} MB")
+    return dict(label=label, shape=shape, c=c, P=P, NC=n_cells, R=n_rows,
+                A=A, splits=splits, ms=ms, plain_ms=plain_ms,
+                two_step_f32_ms=f32_ms, two_step_tf32_ms=tf32_ms,
+                library_ms=None, max_abs_err=max_err,
+                max_err_over_tol=ratio, err_f64=e64, err_f64_matmul=e64_mm,
+                bound_ms=b_ms, bound_by=b_by, ffma_bound_ms=ffma_ms,
+                bytes=nbytes, pack_bytes_read=pack_read, mma_ops=mma,
+                lerp_ops=lerp)
+
+
 def _first_slice_window(ps, bounds, fbar, ht, P, whole=False):
     """The window kernels' inputs at the first launch of a statistic call:
     the first candidate chunk of the float32 route (window_operand), or
@@ -622,11 +806,10 @@ def _first_slice_window(ps, bounds, fbar, ht, P, whole=False):
                 n_rows=ht.n_rows)
 
 
-def _scan_window_inputs(data, tables, scan_cfg, dev, decimate=None):
+def _scan_window_inputs(data, tables, scan_cfg, dev):
     """The dense scan stage's window-operand inputs on the first
     chromosome: its single-replicate prefix, and bounds and fbar of its
-    fine-grid candidates on the selection tables (or on the tables of
-    another lattice decimation: the tie stage's), and those tables."""
+    fine-grid candidates on the selection tables, and those tables."""
     from types import SimpleNamespace
 
     from fscl_tpu_torch.engine.scan import (
@@ -636,7 +819,7 @@ def _scan_window_inputs(data, tables, scan_cfg, dev, decimate=None):
     from fscl_tpu_torch.ops.histclr import build_hist_points
 
     ht = make_scan_hist_tables(data, tables, scan_cfg.hist_alphas,
-                               decimate=decimate or scan_cfg.hist_decimate,
+                               decimate=scan_cfg.hist_decimate,
                                device=dev)
     cl = data.chr_limits[0]
     st = SimpleNamespace(cl=cl, pos_np=data.pos[
@@ -650,6 +833,130 @@ def _scan_window_inputs(data, tables, scan_cfg, dev, decimate=None):
     return (_first_slice_window(ps, hp.bounds, hp.fbar, ht, 1),
             _first_slice_window(ps, hp.bounds, hp.fbar, ht, 1, whole=True),
             ht)
+
+
+def _scan_tie(data, tables, scan_cfg, dev, clr_fn, keep_inputs):
+    """scan_genome with its float32 tie stage through clr_fn: (result,
+    calls, pools).  calls: per tie-stage call (one per chromosome, in
+    order) its CLR [C, A] and lalpha grid on the host, and with
+    keep_inputs the call's inputs (ps, bounds, fbar, t3 and the sizes);
+    pools: (chromosome, candidate positions, owners) per call."""
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch.engine import scan as S
+    from fscl_tpu_torch.ops.histclr import hist_clr_reps_ps
+
+    calls, pools = [], []
+    orig_max, orig_report = S._fused_max, S._report_pool_max
+
+    def fused_max(t3, bounds, fbar, ps, lalpha, *, n_cells, n_rows, n_alpha,
+                  mm_bf16=False):
+        kw = dict(n_cells=n_cells, n_rows=n_rows, n_alpha=n_alpha)
+        if mm_bf16:
+            return orig_max(t3, bounds, fbar, ps, lalpha, mm_bf16=True, **kw)
+        clr = hist_clr_reps_ps(t3, bounds, fbar, ps, n_rep=1, clr_fn=clr_fn,
+                               **kw)[0]
+        call = dict(clr=clr.cpu().numpy(), lalpha=lalpha.double().cpu().numpy())
+        if keep_inputs:
+            call["inputs"] = dict(ps=ps, bounds=bounds, fbar=fbar, t3=t3,
+                                  n_rep=1, **kw)
+        calls.append(call)
+        best, a = torch.max(clr, dim=1)
+        return torch.stack([best, lalpha[a]])
+
+    def report(st, cand, clr, la):
+        pools.append((st.c, np.array(cand), np.array(st.owner_x)))
+        return orig_report(st, cand, clr, la)
+
+    S._fused_max, S._report_pool_max = fused_max, report
+    try:
+        result = S.scan_genome(data, tables, scan_cfg, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        S._fused_max, S._report_pool_max = orig_max, orig_report
+    return result, calls[len(calls) - len(pools):], pools
+
+
+def _check_scan_routes(label, data, tables, scan_cfg, dev):
+    """The scan with its tie stage through the fused float32 kernel and
+    through the two-step route (window operand + float32 matmul): every
+    interval's reported CLR within SCAN_CLR_TOL; sweep position and lalpha
+    equal except at tie-pool near-ties, listed: an interval whose two
+    winners' CLRs, both read from the new route's tie-stage CLRs, lie
+    within the largest difference observed between the routes' tie-stage
+    CLRs.  Returns (summary, the new route's tie-stage calls with their
+    inputs)."""
+    import numpy as np
+
+    from fscl_tpu_torch.ops.histclr import _clr_from_windows
+
+    new, calls, pools = _scan_tie(data, tables, scan_cfg, dev,
+                                  _clr_from_windows, True)
+    old, calls_o, pools_o = _scan_tie(data, tables, scan_cfg, dev,
+                                      _two_step_clr, False)
+    if not pools or len(pools) != len(pools_o) or any(
+            a[0] != b[0] or not np.array_equal(a[1], b[1])
+            or not np.array_equal(a[2], b[2]) for a, b in zip(pools, pools_o)):
+        fail(f"{label}: the two routes' scans evaluated different tie pools")
+    d_clr = float(np.abs(new.clr - old.clr).max())
+    if d_clr > SCAN_CLR_TOL:
+        fail(f"{label}: scan CLR of the fused float32 kernel and of the "
+             f"two-step route differ by {d_clr:.4g} (limit {SCAN_CLR_TOL})")
+    d_tie = max(float(np.abs(a["clr"] - b["clr"]).max())
+                for a, b in zip(calls, calls_o))
+    idx = np.zeros(new.n_points, np.int64)  # interval index per chromosome
+    for c in np.unique(new.chr_id):
+        idx[new.chr_id == c] = np.arange(int((new.chr_id == c).sum()))
+    by_chr = {c: i for i, (c, _, _) in enumerate(pools)}
+    near = []
+    for i in np.nonzero((new.sweep_pos != old.sweep_pos)
+                        | (new.lalpha != old.lalpha))[0]:
+        j = by_chr[int(new.chr_id[i])]
+        _, cand, owner = pools[j]
+        clr, la = calls[j]["clr"], calls[j]["lalpha"]
+
+        def at(res):
+            k = np.nonzero((owner == idx[i]) & (cand == res.sweep_pos[i]))[0]
+            a = int(np.argmin(np.abs(la - res.lalpha[i])))
+            return float(clr[k, a].max())
+
+        gap = at(new) - at(old)
+        if not 0.0 <= gap <= d_tie:
+            fail(f"{label}: interval {i} reports (pos, lalpha) "
+                 f"({new.sweep_pos[i]}, {new.lalpha[i]:.4f}) against the "
+                 f"two-step route's ({old.sweep_pos[i]}, "
+                 f"{old.lalpha[i]:.4f}), {gap:.4g} apart in CLR: not a "
+                 f"near-tie (largest tie-stage difference {d_tie:.4g})")
+        near.append(dict(interval=int(i), chr=int(new.chr_id[i]),
+                         pos=(int(new.sweep_pos[i]), int(old.sweep_pos[i])),
+                         lalpha=(float(new.lalpha[i]), float(old.lalpha[i])),
+                         clr_gap=gap))
+    n_cand = sum(len(p[1]) for p in pools)
+    log(f"[{label}] scan routes: {new.n_points} intervals, tie stage "
+        f"{len(pools)} calls, {n_cand} candidates; reported CLR max |diff| "
+        f"{d_clr:.4g} (limit {SCAN_CLR_TOL}); tie-stage CLR max |diff| "
+        f"{d_tie:.4g}; position or lalpha differ at {len(near)} near-ties "
+        f"{near}")
+    return (dict(intervals=new.n_points, tie_calls=len(pools),
+                 tie_candidates=n_cand, max_clr_diff=d_clr,
+                 max_tie_clr_diff=d_tie, near_ties=near),
+            [c["inputs"] for c in calls])
+
+
+def _tie_first_chunk(call):
+    """A tie-stage call's first candidate chunk of the two-step route."""
+    from fscl_tpu_torch.ops.histclr import _chunk_rows
+
+    c = _chunk_rows(call["n_cells"], 1, call["n_rows"])
+    return dict(call, bounds=call["bounds"][:c].contiguous(),
+                fbar=call["fbar"][:c].contiguous())
+
+
+def _operand_args(call):
+    """A statistic call's inputs as _window_case takes them."""
+    return {k: call[k] for k in ("ps", "bounds", "fbar", "n_rep", "n_cells",
+                                 "n_rows")}
 
 
 def _plain_prefix(table, sig, seg_g0, *, w_seg_p, n_rows, weights=None):
@@ -696,9 +1003,8 @@ def _first_chunk(data, tables, result, scan_cfg, perm_cfg, dev):
         b = st.stat(hs.table, sigma[:rp], perm_cfg, prefix_fn=_plain_prefix)
         c = st.stat(hs.table, sigma[:rp], perm_cfg, prefix_fn=_plain_prefix,
                     clr_fn=_clr_from_windows_plain)
-        scale = (st.stat(hs.table, sigma[:rp], perm_cfg,
-                         prefix_fn=_plain_prefix, clr_fn=_abs_clr)
-                 if perm_cfg.hist_bf16 else None)
+        scale = st.stat(hs.table, sigma[:rp], perm_cfg,
+                        prefix_fn=_plain_prefix, clr_fn=_abs_clr)
         torch.cuda.synchronize()
         firsts.append((a, b, c, scale, st.pts))
         if win is None:
@@ -714,28 +1020,23 @@ def _first_chunk(data, tables, result, scan_cfg, perm_cfg, dev):
 
 
 def _check_plain_window(firsts, result, label, bf16):
-    """The plain window route gives the statistic the kernels give: the
-    float32 route bitwise; the bfloat16 route within CLR_REL * S +
-    CLR_ABS (S the largest 2 sum_k |k t| of the entries a null maximum
-    takes), and its exceedances on the run's thresholds equal except for
-    replicates within that tolerance of their threshold.  Counted: the
-    (replicate, point) entries whose exceedance differs, and those within
-    the tolerance, and within the largest observed difference, of their
-    threshold."""
+    """The plain window route gives the statistic the kernels give, within
+    its route's tolerance (CLR_* for the bfloat16 kernel, F32_* for the
+    float32 one) of S, the largest 2 sum_k |k t| of the entries a null
+    maximum takes, and its exceedances on the run's thresholds equal
+    except for replicates within that tolerance of their threshold.
+    Counted: the (replicate, point) entries whose exceedance differs, and
+    those within the tolerance, and within the largest observed
+    difference, of their threshold."""
     import torch
 
+    rel, ab = (CLR_REL, CLR_ABS) if bf16 else (F32_REL, F32_ABS)
     worst, n, flips, near_tol, near_obs = 0.0, 0, 0, 0, 0
     for _, b, c, scale, pts in firsts:
         d = (b - c).abs()
         dmax = float(d.max()) if d.numel() else 0.0
         worst = max(worst, dmax)
-        if not bf16:
-            if not torch.equal(b, c):
-                fail(f"{label}: first-chunk null_max differs between the "
-                     f"window kernel and the plain window operand (max "
-                     f"{dmax:.4g})")
-            continue
-        lim = CLR_REL * scale + CLR_ABS
+        lim = rel * scale + ab
         if not bool((d <= lim).all()):
             fail(f"{label}: first-chunk null_max of the fused window kernel "
                  f"and of the plain route differ by {dmax:.4g}, "
@@ -751,58 +1052,73 @@ def _check_plain_window(firsts, result, label, bf16):
         flips += int(flip.sum())
         near_tol += int((off <= lim).sum())
         near_obs += int((off <= dmax).sum())
-    if bf16:
-        log(f"[{label}] first chunk: null_max of the fused window kernel vs "
-            f"the plain route max |diff| {worst:.4g} (within {CLR_REL} S + "
-            f"{CLR_ABS}); exceedances differ on {flips} of {n} (replicate, "
-            f"point) entries; {near_tol} lie within the tolerance of their "
-            f"threshold, {near_obs} within the largest observed difference")
-    else:
-        log(f"[{label}] first chunk: null_max equal with the window kernel "
-            "and with the plain window operand")
+    log(f"[{label}] first chunk: null_max of the fused window kernel "
+        f"({'bfloat16' if bf16 else 'float32'}) vs the plain route max "
+        f"|diff| {worst:.4g} (within {rel} S + {ab}); exceedances differ on "
+        f"{flips} of {n} (replicate, point) entries; {near_tol} lie within "
+        f"the tolerance of their threshold, {near_obs} within the largest "
+        f"observed difference")
     return dict(max_abs_diff=worst, entries=n, flips=flips,
                 near_tol=near_tol, near_observed=near_obs)
 
 
 def _run_main_path(data, tables, scan_cfg, perm_cfg, dev, tsv, label):
     """Scan, permutations and output; (result, scan s, permutation s,
-    launches).  The launches of both window kernels are counted over the
-    scan and over the permutations: the fused kernel must run in both
-    (the scan's bfloat16 dense and refine stages, the bfloat16
-    permutations), the window operand in the scan (its float32 tie
-    stage) and in the permutations only at hist_bf16=False."""
+    launches).  The launches of the window kernels are counted over the
+    scan and over the permutations: the bfloat16 kernel must run in the
+    scan (its dense and refine stages) and in the permutations at
+    hist_bf16=True, the float32 kernel in the scan (its tie stage) and in
+    the permutations at hist_bf16=False, and the window operand nowhere."""
     import torch
 
     from fscl_tpu_torch.engine import scan_genome, scan_permute
     from fscl_tpu_torch.io import scan_output, write_null_distribution
-    from fscl_tpu_torch.ops import gather as G
-    from fscl_tpu_torch.ops import window_clr as W
 
     torch.cuda.synchronize()
-    G.window_launches = W.window_clr_launches = 0
+    _zero_window_counts()
     t0 = time.monotonic()
     result = scan_genome(data, tables, scan_cfg, device=dev)
     torch.cuda.synchronize()
     t_scan = time.monotonic() - t0
-    w_scan, c_scan = G.window_launches, W.window_clr_launches
-    G.window_launches = W.window_clr_launches = 0
+    w_scan = _window_counts()
+    _zero_window_counts()
     t0 = time.monotonic()
     scan_permute(data, tables, result, scan_cfg, perm_cfg, device=dev)
     torch.cuda.synchronize()
     t_perm = time.monotonic() - t0
-    w_perm, c_perm = G.window_launches, W.window_clr_launches
-    launches = dict(window_operand=(w_scan, w_perm),
-                    window_clr=(c_scan, c_perm))
-    perm_ok = ((c_perm > 0 and w_perm == 0) if perm_cfg.hist_bf16
-               else (c_perm == 0 and w_perm > 0))
-    if c_scan <= 0 or w_scan <= 0 or not perm_ok:
+    w_perm = _window_counts()
+    launches = {k: (w_scan[k], w_perm[k]) for k in w_scan}
+    bf = perm_cfg.hist_bf16
+    ok = (w_scan["window_clr"] > 0 and w_scan["window_clr_f32"] > 0
+          and (w_perm["window_clr"] > 0) == bf
+          and (w_perm["window_clr_f32"] > 0) != bf
+          and w_scan["window_operand"] == w_perm["window_operand"] == 0)
+    if not ok:
         fail(f"{label}: window kernel launches (scan, permutations) "
-             f"{launches}, hist_bf16={perm_cfg.hist_bf16}")
-    log(f"[{label}] window kernel launches (scan, permutations): fused "
-        f"{(c_scan, c_perm)}, window operand {(w_scan, w_perm)}")
+             f"{launches}, hist_bf16={bf}")
+    log(f"[{label}] window kernel launches (scan, permutations): {launches}")
     scan_output(tsv, data, result, n_permute=perm_cfg.n_permute)
     write_null_distribution(tsv, data, result)
     return result, t_scan, t_perm, launches
+
+
+def _zero_window_counts():
+    from fscl_tpu_torch.ops import gather as G
+    from fscl_tpu_torch.ops import window_clr as W
+
+    G.window_launches = W.window_clr_launches = 0
+    W.window_clr_f32_launches = W.window_clr_f32_reduce_launches = 0
+
+
+def _window_counts():
+    """Launches of the window kernels since _zero_window_counts."""
+    from fscl_tpu_torch.ops import gather as G
+    from fscl_tpu_torch.ops import window_clr as W
+
+    return dict(window_clr=W.window_clr_launches,
+                window_clr_f32=W.window_clr_f32_launches,
+                window_clr_f32_reduce=W.window_clr_f32_reduce_launches,
+                window_operand=G.window_launches)
 
 
 def _check_result(result, label):
@@ -877,14 +1193,18 @@ def phase_20k(dev):
             "equal with the kernel and with the plain prefix sums")
     plain_window = _check_plain_window(firsts, result, "20k",
                                        perm_cfg.hist_bf16)
-    # phases 3e and 3f at the 20k path's shapes: the scan (its dense
-    # stage, and for 3e its float32 tie stage too) and a stacked slice
+    # the scan's reported CLRs through the float32 kernel and through the
+    # two-step route; the tie stage's own inputs (one call: one chromosome)
+    routes, ties = _check_scan_routes("20k", data, tables, scan_cfg, dev)
+    tie = ties[0]
+    # phases 3e, 3f and 3g at the 20k path's shapes: the scan (its dense
+    # stage; its float32 tie stage), a stacked slice (its bfloat16
+    # permutations; at hist_bf16=False the float32 kernel's)
     win_scan, call_scan, ht_scan = _scan_window_inputs(data, tables,
                                                        scan_cfg, dev)
-    win_tie, _, _ = _scan_window_inputs(data, tables, scan_cfg, dev,
-                                        decimate=scan_cfg.tie_decimate)
     okern = (_window_case("20k scan", **win_scan)
-             + _window_case("20k scan tie stage", **win_tie,
+             + _window_case("20k scan tie stage",
+                            **_operand_args(_tie_first_chunk(tie)),
                             bf16_modes=(False,))
              + _window_case("20k stacked slice", **win[0]))
     ts, tp = (dict(t3=h.t3, n_alpha=h.n_alpha) for h in (ht_scan, hs.ht))
@@ -894,13 +1214,21 @@ def phase_20k(dev):
                               iters=5),
              _window_clr_case("20k stacked slice (whole call)", **win[1],
                               **tp, iters=5)]
+    f32kern = [
+        _window_clr_f32_case("20k tie stage, first chunk",
+                             **_tie_first_chunk(tie)),
+        _window_clr_f32_case("20k tie stage (whole call)", **tie, iters=10),
+        _window_clr_f32_case("20k stacked slice, hist_bf16=False (whole "
+                             "call)", **win[1], **tp, iters=5),
+    ]
     return dict(sites=data.n_snps, points=result.n_points, scan_s=t_scan,
                 perm_s=t_perm, point_rounds=pr,
                 point_rounds_per_s=pr / t_perm,
                 max_clr=float(result.clr.max()), launches=launches,
                 window_launches=wl, sub_rep=hs.stacks[0].sub_rep,
                 w_seg_p=hs.stacks[0].w_seg_p, n_rows=hs.ht.n_rows,
-                plain_window=plain_window, okernel=okern, fkernel=fkern)
+                plain_window=plain_window, scan_routes=routes,
+                okernel=okern, fkernel=fkern, f32kernel=f32kern)
 
 
 def genome_data():
@@ -950,11 +1278,20 @@ def phase_genome(dev, n_permute=64):
                                    perm_cfg, dev)
     plain_window = _check_plain_window(firsts, result, "genome",
                                        perm_cfg.hist_bf16)
-    okern = _window_case("genome stacked slice", **win[0])
+    routes, ties = _check_scan_routes("genome", data, tables, ScanConfig(),
+                                      dev)
+    tie = max(ties, key=lambda t: t["bounds"].shape[0])  # largest call
+    del ties
+    okern = (_window_case("genome stacked slice", **win[0])
+             + _window_case("genome tie stage",
+                            **_operand_args(_tie_first_chunk(tie)),
+                            bf16_modes=(False,)))
     tp = dict(t3=hs.ht.t3, n_alpha=hs.ht.n_alpha)
     fkern = [_window_clr_case("genome stacked slice", **win[0], **tp),
              _window_clr_case("genome stacked slice (whole call)", **win[1],
                               **tp, iters=2)]
+    f32kern = [_window_clr_f32_case("genome tie stage, largest chromosome "
+                                    "(whole call)", **tie, iters=5)]
     log(f"[genome] stacks (w_seg_p, chromosomes, sub_rep): {stacks}")
     pr = int(result.permute_n.sum())
     log(f"[genome] {data.n_snps} sites over {len(data.chr_limits)} "
@@ -971,7 +1308,8 @@ def phase_genome(dev, n_permute=64):
                 point_rounds_per_s=pr / t_perm, stacks=stacks,
                 n_rows=hs.ht.n_rows, launches=launches,
                 window_launches=wl, plain_window=plain_window,
-                okernel=okern, fkernel=fkern, rdp_mode=TP.RDP_FORCE,
+                scan_routes=routes, okernel=okern, fkernel=fkern,
+                f32kernel=f32kern, rdp_mode=TP.RDP_FORCE,
                 **rdp_auto)
 
 
@@ -1027,11 +1365,21 @@ def phase_mixed100k(dev, n_permute=64):
             f"(max |stat| {float(b.abs().max()):.4g})")
     plain_window = _check_plain_window(firsts, result, "mixed100k",
                                        perm_cfg.hist_bf16)
-    okern = _window_case("mixed100k stacked slice", **win[0])
+    routes, ties = _check_scan_routes("mixed100k", data, tables, scan_cfg,
+                                      dev)
+    tie = max(ties, key=lambda t: t["bounds"].shape[0])  # largest call
+    del ties
+    okern = (_window_case("mixed100k stacked slice", **win[0])
+             + _window_case("mixed100k tie stage",
+                            **_operand_args(_tie_first_chunk(tie)),
+                            bf16_modes=(False,)))
     tp = dict(t3=ht.t3, n_alpha=ht.n_alpha)
     fkern = [_window_clr_case("mixed100k stacked slice", **win[0], **tp),
              _window_clr_case("mixed100k stacked slice (whole call)",
                               **win[1], **tp, iters=5)]
+    f32kern = [_window_clr_f32_case("mixed100k tie stage, largest "
+                                    "chromosome (whole call)", **tie,
+                                    iters=10)]
     pr = int(result.permute_n.sum())
     log(f"[mixed100k] {data.n_snps} sites over {len(data.chr_limits)} "
         f"chromosomes, {len(data.sample_depths)} depths, "
@@ -1050,7 +1398,8 @@ def phase_mixed100k(dev, n_permute=64):
                 n_cells_scan=scan_nc, n_cells_perm=ht.n_cells,
                 max_clr=float(result.clr.max()), first_chunk_diff=d_first,
                 launches=launches, window_launches=wl,
-                plain_window=plain_window, okernel=okern, fkernel=fkern)
+                plain_window=plain_window, scan_routes=routes, okernel=okern,
+                fkernel=fkern, f32kernel=f32kern)
 
 
 def _single_depth_check_data():
@@ -1173,7 +1522,6 @@ def phase_rdp(dev):
     from fscl_tpu_torch.ops import gather as G
     from fscl_tpu_torch.ops import histclr as H
     from fscl_tpu_torch.ops import prefix_sums as ps
-    from fscl_tpu_torch.ops import window_clr as W
     from fscl_tpu_torch.ops.permute import (
         PERM_GROUP, block_permutation_runs, expand_group_sigma,
         sigma_from_runs,
@@ -1194,7 +1542,8 @@ def phase_rdp(dev):
     for force in ("on", "off"):
         r = copy.deepcopy(result)
         TP.RDP_FORCE = force
-        G.gather_launches = G.window_launches = W.window_clr_launches = 0
+        G.gather_launches = 0
+        _zero_window_counts()
         try:
             t0 = time.monotonic()
             TP.scan_permute(data, tables, r, scan_cfg,
@@ -1204,16 +1553,14 @@ def phase_rdp(dev):
         finally:
             TP.RDP_FORCE = saved
         runs[force], stats[force] = r, dict(TP.last_stats)
-        glaunch[force] = dict(gather=G.gather_launches,
-                              window=G.window_launches,
-                              window_clr=W.window_clr_launches)
+        glaunch[force] = dict(gather=G.gather_launches, **_window_counts())
     on, off = runs["on"], runs["off"]
-    if glaunch["on"]["gather"] <= 0 or glaunch["off"]["gather"] \
-            or min(glaunch["on"]["window"], glaunch["off"]["window"]) <= 0 \
-            or glaunch["on"]["window_clr"] or glaunch["off"]["window_clr"]:
+    if glaunch["on"]["gather"] <= 0 or glaunch["off"]["gather"] or any(
+            g["window_clr_f32"] <= 0 or g["window_clr"] or g["window_operand"]
+            for g in glaunch.values()):
         fail(f"rdp: row gather / window kernel launches {glaunch} (the "
-             "gather must run under RDP on only, the window operand in "
-             "both, the fused kernel on neither float32 route)")
+             "gather must run under RDP on only, the float32 kernel in "
+             "both, the bfloat16 kernel and the window operand in neither)")
     if stats["on"]["rdp_dispatches"] <= 0 or stats["on"]["stack_dispatches"]:
         fail(f"rdp: RDP forced on dispatched {stats['on']}")
     if stats["off"]["rdp_dispatches"] or stats["off"]["stack_dispatches"] <= 0:
@@ -1292,8 +1639,12 @@ def phase_rdp(dev):
     launches = dict(onehot=ps.launches, weighted=ps.weighted_launches,
                     rowid=ps.rowid_launches, perm=ps.perm_launches,
                     gather_rdp_on=glaunch["on"]["gather"],
-                    window_rdp_on=glaunch["on"]["window"],
-                    window_rdp_off=glaunch["off"]["window"])
+                    window_f32_rdp_on=glaunch["on"]["window_clr_f32"],
+                    window_f32_rdp_off=glaunch["off"]["window_clr_f32"],
+                    window_f32_reduce_rdp_on=glaunch["on"][
+                        "window_clr_f32_reduce"],
+                    window_f32_reduce_rdp_off=glaunch["off"][
+                        "window_clr_f32_reduce"])
     log(f"[rdp] (ii) first RDP chunk ({RDP_CHUNK} replicates, "
         f"{len(pts)} points, {bounds.shape[0]} candidates): hist_clr_reps "
         f"CLR max |diff| {d_h:.3g}, _hist_perm_batch statistic max |diff| "
@@ -1305,16 +1656,16 @@ def phase_rdp(dev):
 
     # (iii) the same chunk on the bfloat16 route: rdp_clr_reps (its
     # identity bounds) and hist_clr_reps reach the fused kernel only
-    G.window_launches = W.window_clr_launches = 0
+    _zero_window_counts()
     clr_rdp16 = H.rdp_clr_reps(ht.t3, bounds, fbar, tail.psite, src, dst, sz,
                                n_rep=RDP_CHUNK, pg=PERM_GROUP,
                                n_groups=hs.n_groups, mm_bf16=True, **kw)
     clr_h16 = H.hist_clr_reps(ht.t3, bounds, fbar, row_rep, mm_bf16=True,
                               **kw)
     torch.cuda.synchronize()
-    bf16_launches = dict(window_clr=W.window_clr_launches,
-                         window_operand=G.window_launches)
-    if bf16_launches["window_clr"] <= 0 or bf16_launches["window_operand"]:
+    bf16_launches = _window_counts()
+    if bf16_launches["window_clr"] <= 0 or bf16_launches["window_operand"] \
+            or bf16_launches["window_clr_f32"]:
         fail(f"rdp: bfloat16 routes launched {bf16_launches}")
     if not torch.allclose(clr_h16, clr_rdp16, rtol=1e-5, atol=1e-3):
         fail("rdp: bfloat16 hist_clr_reps differs from the RDP route by "
@@ -1340,10 +1691,13 @@ def phase_rdp(dev):
     a = G.row_gather(tabs[0], d_idx) + G.row_gather(tail.psite, s_idx)
     ident = torch.arange(M, dtype=torch.int32, device=dev).view(-1, 2,
                                                                 NC + 1)
-    okern = _window_case("20k RDP slice (identity bounds)",
-                         a.view(M, P * R), ident,
-                         fbar[:bc.shape[0]].contiguous(), n_rep=P,
-                         n_cells=NC, n_rows=R)
+    rdp_slice = dict(ps=a.view(M, P * R), bounds=ident,
+                     fbar=fbar[:bc.shape[0]].contiguous(), n_rep=P,
+                     n_cells=NC, n_rows=R)
+    okern = _window_case("20k RDP slice (identity bounds)", **rdp_slice)
+    f32kern = [_window_clr_f32_case("20k RDP slice (identity bounds)",
+                                    **rdp_slice, t3=ht.t3,
+                                    n_alpha=ht.n_alpha)]
     return dict(walls=walls, stats=stats, near_ties=near, kept=len(keep),
                 d_null=d_null, d_hist_clr_reps=d_h, d_hist_perm_batch=d_b,
                 d_bf16=d_16, bf16_launches=bf16_launches,
@@ -1351,7 +1705,7 @@ def phase_rdp(dev):
                 rowid_shape=(RDP_CHUNK, data.n_snps, ht.n_rows),
                 perm_shape=(cl.n_snps, w_pad, RDP_CHUNK, ht.n_rows),
                 psite_shape=tuple(tail.psite.shape), gkernel=gkern,
-                okernel=okern)
+                okernel=okern, f32kernel=f32kern)
 
 
 def phase_profile(dev):
@@ -1421,6 +1775,9 @@ def phase_profile(dev):
                       if "window_operand_kernel" in k) / 1e6
             fused = sum(t for t, _, k in kern
                         if "window_clr_kernel" in k) / 1e6
+            f32 = sum(t for t, _, k in kern
+                      if "window_clr_f32_kernel" in k
+                      or "reduce_splits" in k) / 1e6
             gemm = sum(t for t, _, k in kern if "gemm" in k.lower()) / 1e6
             table = ka.table(sort_by="self_device_time_total", row_limit=40)
             (OUT / f"profile_{label}_{stage}.txt").write_text(table)
@@ -1428,7 +1785,9 @@ def phase_profile(dev):
                 f"device kernels {busy:.3f}s = {100 * busy / wall:.1f}% "
                 f"busy; prefix-sum kernels {ours * 1e3:.3f} ms (weighted "
                 f"{wours * 1e3:.3f} ms); fused window kernel "
-                f"{fused * 1e3:.3f} ms ({100 * fused / busy:.1f}%); window "
+                f"{fused * 1e3:.3f} ms ({100 * fused / busy:.1f}%); float32 "
+                f"window kernel (and its split reduction) {f32 * 1e3:.3f} ms "
+                f"({100 * f32 / busy:.1f}%); window "
                 f"operand {win * 1e3:.3f} ms ({100 * win / busy:.1f}%); "
                 f"matmul (gemm) {gemm * 1e3:.3f} ms "
                 f"({100 * gemm / busy:.1f}%); row gather {gath * 1e3:.3f} "
@@ -1510,16 +1869,20 @@ def main():
     okern = (r20["okernel"] + rg["okernel"] + rm["okernel"]
              + rr["okernel"])
     fkern = r20["fkernel"] + rg["fkernel"] + rm["fkernel"]
+    f32kern = (r20["f32kernel"] + rg["f32kernel"] + rm["f32kernel"]
+               + rr["f32kernel"])
     detail = dict(device=name, nvidia_smi=smi, kernel=kern, wkernel=wkern,
                   rkernel=rkern, pkernel=pkern, gkernel=gkern,
-                  okernel=okern, fkernel=fkern, bench_20k=r20, genome=rg,
-                  mixed100k=rm, check=chk, rdp=rr)
+                  okernel=okern, fkernel=fkern, f32kernel=f32kern,
+                  bench_20k=r20, genome=rg, mixed100k=rm, check=chk, rdp=rr)
     (OUT / "smoke.json").write_text(json.dumps(detail, indent=1) + "\n")
 
-    def entry(name, source, replaces, launches, runs, main=0, note=None):
-        """The kernel's line: the main path's shape (runs[main]) for the
-        times and bound, the largest error over every shape checked."""
-        m = runs[main]
+    def entry(name, source, replaces, launches, runs, main=None, note=None,
+              **extra):
+        """The kernel's line: the main path's shape (the run labelled
+        main, else the first) for the times and bound, the largest error
+        over every shape checked."""
+        m = runs[[k["label"] for k in runs].index(main) if main else 0]
         out = {
             "name": name, "route": "cuda",
             "source": f"fscl_tpu_torch/csrc/{source}",
@@ -1533,6 +1896,7 @@ def main():
             out["library_note"] = note
         if "max_err_over_tol" in m:  # the error against its stated bound
             out["max_err_over_tol"] = max(k["max_err_over_tol"] for k in runs)
+        out.update(extra)
         return out
 
     pallas_ps = "fscl_tpu/ops/pallas_ps.py:148 "
@@ -1555,25 +1919,38 @@ def main():
         entry("row_gather", "row_gather.cu",
               "bench/micro_pallas_gather.py:40 pallas_gather",
               rr["launches"]["gather_rdp_on"], gkern),
-        # main shape: the 20k scan's float32 tie stage, the route that
-        # still writes the operand
+        # off the path (0 launches, checked in every run): the yardstick
+        # of window_clr_f32, timed at the 20k tie stage's first chunk
         entry("window_operand", "row_gather.cu",
               "fscl_tpu/ops/histclr.py:1116-1126 (XLA-fused, no Pallas "
               "kernel)", sum(r20["window_launches"]["window_operand"]),
-              okern, main=[k["label"] for k in okern].index(
-                  "20k scan tie stage, mm_bf16=False"),
+              okern, main="20k scan tie stage, mm_bf16=False",
               note="no single PyTorch call computes the gather -> "
-                   "difference -> lerp chain"),
+                   "difference -> lerp chain; off the main path, the "
+                   "yardstick of window_clr_f32"),
         # main shape: the 20k permutations' launch, one stacked slice's
         # whole call (the bfloat16 statistic takes every candidate at once)
         entry("window_clr", "window_clr.cu",
               "fscl_tpu/ops/histclr.py:1116-1131 (mm_bf16=True; XLA-fused, "
               "no Pallas kernel)", sum(r20["window_launches"]["window_clr"]),
-              fkern, main=[k["label"] for k in fkern].index(
-                  "20k stacked slice (whole call)"),
+              fkern, main="20k stacked slice (whole call)",
               note="no single PyTorch call computes the windows-to-CLR "
                    "function; its two-step yardsticks are in smoke.json "
                    "(two_step_f32_ms, two_step_bf16_ms)"),
+        # main shape: the 20k scan's tie stage, its one call
+        entry("window_clr_f32", "window_clr_f32.cu",
+              "fscl_tpu/ops/histclr.py:1116-1131 (mm_bf16=False; "
+              "XLA-fused, no Pallas kernel)",
+              sum(r20["window_launches"]["window_clr_f32"]), f32kern,
+              main="20k tie stage (whole call)",
+              note="no single PyTorch call computes the windows-to-CLR "
+                   "function; its two-step yardsticks are in smoke.json "
+                   "(two_step_f32_ms, two_step_tf32_ms)",
+              reduce_launches=sum(
+                  r20["window_launches"]["window_clr_f32_reduce"]),
+              max_err_f64_ratio=max(
+                  k["err_f64"] / max(k["err_f64_matmul"], 1e-300)
+                  for k in f32kern)),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -58,37 +58,23 @@
 #include <stdint.h>
 #include <string.h>
 
+#include "tile_copy.cuh"
 #include "window_lerp.cuh"
 
 namespace {
 
+using fscl::cp_async16;
+using fscl::cp_async_commit;
+using fscl::cp_async_wait_all;
+using fscl::load8;
 using fscl::side_diff;
+using fscl::smem_addr;
 using fscl::table_row;
 using fscl::window_lerp;
 
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kBM = 64;        // flat rows m per block
 constexpr int kPad = 8;        // bf16 row padding of both tiles (16 bytes)
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// 16 bytes global -> shared, asynchronously; bytes = 0 fills zeros.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src,
-                                           int bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
@@ -117,16 +103,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4],
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// 8 consecutive prefix values (16 or 32 bytes, 16-byte aligned)
-template <typename T>
-__device__ __forceinline__ void load8(const T* p, T (&v)[8]) {
-  constexpr int kVec = (int)sizeof(T) / 2;  // uint4 loads: 1 or 2
-  uint4 u[kVec];
-#pragma unroll
-  for (int i = 0; i < kVec; ++i) u[i] = __ldg(reinterpret_cast<const uint4*>(p) + i);
-  memcpy(v, u, sizeof(u));
 }
 
 // One unit: 8 lanes of one flat row m, owned by one thread for the whole

@@ -132,6 +132,12 @@ def load():
         vp, vp, vp, vp, vp, i, i, i, i, i64, i, i, i, vp,
     ]
     lib.fscl_window_clr.restype = i
+    lib.fscl_window_clr_f32.argtypes = [
+        vp, vp, vp, vp, vp, vp, i, i, i, i, i64, i, i, i, i, vp,
+    ]
+    lib.fscl_window_clr_f32.restype = i
+    lib.fscl_window_clr_f32_splits.argtypes = [i64, i, i, i, i]
+    lib.fscl_window_clr_f32_splits.restype = i
     for tile in (lib.fscl_ps_tile, lib.fscl_wps_tile, lib.fscl_rps_tile):
         tile.argtypes = []
         tile.restype = i

@@ -22,9 +22,9 @@ w1 = sum_side h * fbar, and laid out as the contraction's operand
 
 rounded to bfloat16 and back when mm_bf16.  ps: [W+1, P*R] int16, int32
 or float32; bounds: [c, 2, NC+1] int32 rows of ps; fbar: [c, 2, NC] f32.
-The statistic's float32 routes write it and contract it with a float32
-matmul; its bfloat16 routes build the same values inside one fused
-kernel instead (ops/window_clr.py).
+No path of the statistic writes it any more: both of its routes build
+the same values inside one fused kernel (ops/window_clr.py), and this
+kernel with a float32 matmul is their yardstick on the card.
 
 Each wrapper runs the plain PyTorch version for CPU tensors and its CUDA
 kernel (csrc/row_gather.cu) for CUDA tensors; it never falls back from one

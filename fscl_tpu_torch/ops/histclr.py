@@ -32,10 +32,9 @@ prefix of one chromosome's permuted stream (build_prefix_sums_oh), and,
 in the pruning tail, the run-decomposed prefix assembled at the bounds
 from one unpermuted site prefix (rdp_clr_reps, whose two large row
 gathers are ops/gather.py:row_gather).  Steps 2-3 are one function,
-_clr_from_windows: with bfloat16 operands one kernel for the gather,
-difference, lerp and contraction (ops/window_clr.py:window_clr); in
-float32 the window operand (ops/gather.py:window_operand, one kernel for
-the gather, difference and lerp) and a float32 matmul.
+_clr_from_windows: one kernel for the gather, difference, lerp and
+contraction, with bfloat16 operands (ops/window_clr.py:window_clr) or
+float32-accurate products (window_clr_f32).
 """
 
 from __future__ import annotations
@@ -47,7 +46,7 @@ import torch
 
 from .. import LOG_AD_MAX, LOG_AD_MIN, NotPortedError
 from ..device import parse_device
-from .gather import row_gather, window_operand, window_operand_plain
+from .gather import row_gather
 from .permute import PERM_GROUP, sigma_from_runs
 from .prefix_sums import (
     onehot_prefix_sums,
@@ -55,7 +54,10 @@ from .prefix_sums import (
     rowid_prefix_sums,
     weighted_prefix_sums,
 )
-from .window_clr import bf16_pack, window_clr, window_clr_plain
+from .window_clr import (
+    bf16_pack, f32_pack, window_clr, window_clr_f32, window_clr_f32_plain,
+    window_clr_plain,
+)
 from .windows import candidate_windows
 
 DEFAULT_N_ALPHA = 128
@@ -63,8 +65,7 @@ ROWS_MAX = 128  # exact one-hot gate: above this the tables are compressed
 COMPRESS_ROWS_MAX = 8192  # hard cap for the SVD row-compression path
 COMPRESS_TOL = 1e-3  # max-entry residual target for the rank choice
 SITES_MAX = 4_000_000  # [W, R] state cap
-# transient bytes of one candidate chunk of the statistic (the float32
-# route's window operand [c*P, 2*NC*R] f32, and under RDP the assembled
+# transient bytes of one rdp_clr_reps candidate chunk (the assembled
 # [c, 2, NC+1, P*R] int32 prefix rows): bounds device memory only, the
 # values do not depend on it
 CHUNK_BYTES = 1 << 28
@@ -567,38 +568,30 @@ def _clr_from_windows(ps, bounds, fbar, t3, *, n_rep, n_cells, n_rows,
     by hist_clr_reps_ps and rdp_clr_reps; [c, P, A] f32.
 
     ps: [*, P*R] prefix rows; bounds: [c, 2, NC+1] int32 rows of ps;
-    fbar: [c, 2, NC]; t3: [2*NC*R, A] f32 pack.  mm_bf16 (the JAX
-    package's bfloat16 operands, float32 products and sums):
-    ops/window_clr.py:window_clr, the operand built and contracted in one
-    kernel on the card, against the pack rounded once (bf16_pack).  Else
-    ops/gather.py:window_operand (a kernel on the card) writes the f32
-    operand k [c*P, 2*NC*R] and a float32 torch.matmul contracts it.
+    fbar: [c, 2, NC]; t3: [2*NC*R, A] f32 pack.  The operand is built and
+    contracted in one kernel on the card (ops/window_clr.py): mm_bf16 (the
+    JAX package's bfloat16 operands, float32 products and sums)
+    window_clr against the pack rounded once (bf16_pack); else
+    window_clr_f32, float32-accurate products against f32_pack.
     """
-    kw = dict(n_rep=n_rep, n_cells=n_cells, n_rows=n_rows)
+    kw = dict(n_rep=n_rep, n_cells=n_cells, n_rows=n_rows, n_alpha=n_alpha)
     if mm_bf16:
-        return window_clr(ps, bounds, fbar, bf16_pack(t3), n_alpha=n_alpha,
-                          **kw)
-    k = window_operand(ps, bounds, fbar, **kw)
-    return 2.0 * torch.matmul(k, t3).reshape(bounds.shape[0], n_rep,
-                                              n_alpha)
+        return window_clr(ps, bounds, fbar, bf16_pack(t3), **kw)
+    return window_clr_f32(ps, bounds, fbar, f32_pack(t3), **kw)
 
 
 def _clr_from_windows_plain(ps, bounds, fbar, t3, *, n_rep, n_cells, n_rows,
                             n_alpha, mm_bf16):
     """_clr_from_windows through the plain versions of both kernels."""
-    kw = dict(n_rep=n_rep, n_cells=n_cells, n_rows=n_rows)
+    kw = dict(n_rep=n_rep, n_cells=n_cells, n_rows=n_rows, n_alpha=n_alpha)
     if mm_bf16:
-        return window_clr_plain(ps, bounds, fbar, bf16_pack(t3),
-                                n_alpha=n_alpha, **kw)
-    k = window_operand_plain(ps, bounds, fbar, **kw)
-    return 2.0 * torch.matmul(k, t3).reshape(bounds.shape[0], n_rep,
-                                              n_alpha)
+        return window_clr_plain(ps, bounds, fbar, bf16_pack(t3), **kw)
+    return window_clr_f32_plain(ps, bounds, fbar, f32_pack(t3), **kw)
 
 
 def _chunk_rows(n_cells, n_rep, n_rows):
-    """Candidates per chunk: the operand k [c*P, 2*NC*R] and, under RDP,
-    the assembled [c, 2, NC+1, P*R] prefix rows stay within CHUNK_BYTES
-    at 4 bytes an entry."""
+    """Candidates per rdp_clr_reps chunk: the assembled [c, 2, NC+1, P*R]
+    prefix rows stay within CHUNK_BYTES at 4 bytes an entry."""
     return max(1, CHUNK_BYTES // max(2 * (n_cells + 1) * n_rep * n_rows * 4,
                                      1))
 
@@ -614,25 +607,13 @@ def hist_clr_reps_ps(t3, bounds, fbar, ps, *, n_rep, n_cells, n_rows,
     exactly as the JAX package's mod-2^16 rule relies on -- the fbar lerp
     and the contraction.  mm_bf16 rounds both operands to bfloat16 and
     keeps the float32 product and accumulation (the JAX package's bf16
-    inputs with preferred_element_type=f32); that route never writes the
-    operand, so it takes every candidate in one call.  The float32 route
-    goes a candidate chunk at a time (_chunk_rows).  Returns [P, C, A]
-    f32.
+    inputs with preferred_element_type=f32).  Neither route writes the
+    operand, so every candidate goes in one call.  Returns [P, C, A] f32.
     """
-    P, A = n_rep, n_alpha
-    C = bounds.shape[0]
-    c_sub = max(C, 1) if mm_bf16 else _chunk_rows(n_cells, P, n_rows)
-    outs = [
-        clr_fn(
-            ps, bounds[c0:c0 + c_sub], fbar[c0:c0 + c_sub], t3, n_rep=P,
-            n_cells=n_cells, n_rows=n_rows, n_alpha=A, mm_bf16=mm_bf16,
-        )
-        for c0 in range(0, C, c_sub)
-    ]
-    if not outs:
-        return t3.new_zeros((P, 0, A))
-    out = outs[0] if len(outs) == 1 else torch.cat(outs)
-    return out.permute(1, 0, 2)
+    return clr_fn(
+        ps, bounds, fbar, t3, n_rep=n_rep, n_cells=n_cells, n_rows=n_rows,
+        n_alpha=n_alpha, mm_bf16=mm_bf16,
+    ).permute(1, 0, 2)
 
 
 def hist_clr_reps(t3, bounds, fbar, row_rep, *, n_cells, n_rows, n_alpha,

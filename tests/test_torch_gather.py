@@ -11,11 +11,12 @@ package.
     against a numpy version in the CUDA kernel's operation order:
     bitwise, zeros compared without their sign (a two-term side sum may
     start from +0);
-  * hist_clr_reps_ps and rdp_clr_reps, port against fscl_tpu with the
-    candidates split over several chunks: the tolerances of
-    tests/test_torch_histclr.py and tests/test_torch_rdp.py (float32:
-    1e-5 relative plus 1e-3 CLR units; bfloat16 operands: 1e-2 relative;
-    compressed f32 prefixes: 5e-3, tests/test_torch_mixed_depth.py);
+  * hist_clr_reps_ps (every candidate in one call) and rdp_clr_reps (the
+    candidates split over several chunks), port against fscl_tpu: the
+    tolerances of tests/test_torch_histclr.py and tests/test_torch_rdp.py
+    (float32: 1e-5 relative plus 1e-3 CLR units; bfloat16 operands: 1e-2
+    relative; compressed f32 prefixes: 5e-3,
+    tests/test_torch_mixed_depth.py);
   * on the card (marker ``gpu``): both CUDA kernels bitwise against their
     plain versions.
 """
@@ -262,8 +263,9 @@ def _kw(ht):
 
 
 def _two_per_chunk(monkeypatch, ht, P):
-    """Shrink CHUNK_BYTES so the port's statistic takes 2 candidates a
-    chunk: several chunks and a ragged last one."""
+    """Shrink CHUNK_BYTES so rdp_clr_reps takes 2 candidates a chunk:
+    several chunks and a ragged last one (hist_clr_reps_ps takes every
+    candidate in one call whatever it is)."""
     monkeypatch.setattr(TH, "CHUNK_BYTES",
                         2 * 2 * (ht.n_cells + 1) * P * ht.n_rows * 4)
     assert TH._chunk_rows(ht.n_cells, P, ht.n_rows) == 2

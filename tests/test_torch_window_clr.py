@@ -12,9 +12,8 @@ bfloat16 route of the hist statistic against the JAX package.
     (K - 1) 2^-24 S of the exact sum);
   * the plain version is the two-step chain it replaces, bitwise, in one
     candidate chunk or several;
-  * routing on the CPU: mm_bf16=True reaches window_clr once per call and
-    never window_operand; mm_bf16=False reaches window_operand and the
-    float32 matmul, a candidate chunk at a time;
+  * routing on the CPU: one call per hist_clr_reps_ps call, window_clr
+    at mm_bf16=True and window_clr_f32 at False, never window_operand;
   * on the card (marker ``gpu``): the kernel against its plain version at
     the main path's shapes, within 2e-4 S + 1e-5 per entry, and a one-hot
     pack that reads the kernel's operand back bitwise against
@@ -175,30 +174,30 @@ def _spy(monkeypatch, name, calls):
 
 @pytest.mark.parametrize("mm_bf16", [False, True])
 def test_routes_by_mm_bf16(monkeypatch, mm_bf16):
-    """mm_bf16=True: one window_clr per call, no window_operand;
-    False: window_operand and the float32 matmul per candidate chunk."""
+    """One fused call per hist_clr_reps_ps call, whatever the candidate
+    count: mm_bf16=True reaches window_clr, False window_clr_f32; neither
+    writes the operand through window_operand."""
     P, NC, R, A = 2, 9, 8, 8
     ps, bounds, fbar = _window_inputs(8, np.int16, P=P, R=R, NC=NC, c=7)
     t3 = torch.as_tensor(_pack(9, 2 * NC * R, A))
     args = [torch.as_tensor(x) for x in (ps, bounds, fbar)]
     calls = []
-    for name in ("window_clr", "window_operand", "window_clr_plain",
-                 "window_operand_plain"):
+    for name in ("window_clr", "window_clr_f32", "window_clr_plain",
+                 "window_clr_f32_plain"):
         _spy(monkeypatch, name, calls)
+    monkeypatch.setattr(G, "window_operand",
+                        lambda *a, **k: calls.append("window_operand"))
     monkeypatch.setattr(TH, "CHUNK_BYTES", 3 * 2 * (NC + 1) * P * R * 4)
-    assert TH._chunk_rows(NC, P, R) == 3
+    assert TH._chunk_rows(NC, P, R) == 3  # rdp_clr_reps' chunk, not this
     kw = dict(n_rep=P, n_cells=NC, n_rows=R, n_alpha=A, mm_bf16=mm_bf16)
     out = TH.hist_clr_reps_ps(t3, args[1], args[2], args[0], **kw)
     assert out.shape == (P, 7, A)
-    if mm_bf16:
-        assert calls == ["window_clr"]
-    else:
-        assert calls == ["window_operand"] * 3  # 7 candidates, 3 a chunk
+    assert calls == (["window_clr"] if mm_bf16 else ["window_clr_f32"])
     calls.clear()
     plain = TH.hist_clr_reps_ps(t3, args[1], args[2], args[0],
                                 clr_fn=TH._clr_from_windows_plain, **kw)
     assert calls == (["window_clr_plain"] if mm_bf16
-                     else ["window_operand_plain"] * 3)
+                     else ["window_clr_f32_plain"])
     assert torch.equal(out, plain)
 
 
