@@ -6,13 +6,21 @@ non-zero:
   1. device  - a CUDA card of capability (9, 0); its name and power limit
   2. build   - nvcc builds the kernels from csrc/, one process per source
                (ptxas report printed)
-  3. kernel  - the segmented one-hot prefix-sum kernel against its plain
-               PyTorch version, bitwise, at the main path's shapes; both
-               timed
+  3. kernel  - the segmented one-hot prefix-sum kernel (one chained
+               scan) against its plain PyTorch version, bitwise, at the
+               main path's shapes and at five that stress the chained
+               scan (w off the tile, one tile, 24 segments, odd L, L =
+               8192 in int16 and int32); two launches, and a launch after
+               the 20-launch timing loop, bitwise equal to the first;
+               kernel, plain and the cumsum-only yardstick (torch.cumsum
+               over the materialised int32 one-hot) timed at the main
+               path's shapes
   3c. wkernel - the weighted (compressed-mode) prefix-sum kernel against
-               its plain version at the mixed100k shape and one more:
-               within 2 float32 ulps of each segment's max |prefix|, two
-               launches bitwise equal; both timed
+               its plain version at the mixed100k shape, the widest one
+               and four stress shapes: within 2 float32 ulps of each
+               segment's max |prefix|, repeat launches bitwise equal as
+               in 3; kernel, plain and the cumsum-only yardstick (over
+               the float64 weight stream) timed at the first two
   3a. rkernel - the row-id prefix-sum kernel (mode (a), hist_clr_reps)
                against its plain version, bitwise, at the 20k path's shape
                and one genome1m chromosome; both timed
@@ -253,7 +261,30 @@ def _prefix_inputs(rng, S, w, P, R):
     return table, sig, seg_g0.astype(np.int32)
 
 
-def phase_kernel(dev, shapes):
+def _repeat_checks(tag, label, kern, first):
+    """Fail unless a second launch, and a launch after a timing loop of
+    20, give first's bits; the loop's time (cuda_time_ms, 20 launches)."""
+    import torch
+
+    again = kern()
+    torch.cuda.synchronize()
+    if not torch.equal(first, again):
+        fail(f"{tag} kernel at {label}: two launches differ")
+    del again
+    ms = cuda_time_ms(kern, 20)
+    after = kern()
+    torch.cuda.synchronize()
+    if not torch.equal(first, after):
+        fail(f"{tag} kernel at {label}: the launch after the timing loop "
+             "differs from the first")
+    return ms
+
+
+def phase_kernel(dev, shapes, stress):
+    """Phase 3: the one-hot kernel vs plain, bitwise, at the main path's
+    shapes (timed, with the cumsum-only yardstick) and at shapes that
+    stress the chained scan (checked only); everywhere two launches and a
+    launch after a 20-launch loop bitwise equal to the first."""
     import numpy as np
     import torch
 
@@ -261,12 +292,19 @@ def phase_kernel(dev, shapes):
 
     rng = np.random.default_rng(0)
     out = []
-    for label, S, w, P, R in shapes:
+    for label, S, w, P, R in shapes + stress:
+        timed = (label, S, w, P, R) in shapes
         table, sig, g0 = (torch.as_tensor(x, device=dev)
                           for x in _prefix_inputs(rng, S, w, P, R))
         kw = dict(w_seg_p=w, n_rows=R)
-        got = ps.onehot_prefix_sums(table, sig, g0, **kw)
-        want = ps.onehot_prefix_sums_plain(table, sig, g0, **kw)
+
+        def kern():
+            return ps.onehot_prefix_sums(table, sig, g0, **kw)
+
+        def plain():
+            return ps.onehot_prefix_sums_plain(table, sig, g0, **kw)
+
+        got, want = kern(), plain()
         torch.cuda.synchronize()
         if got.dtype != want.dtype or not torch.equal(got, want):
             bad = (got.to(torch.int64) - want.to(torch.int64)).abs()
@@ -274,19 +312,33 @@ def phase_kernel(dev, shapes):
                  f"entries differ, max {int(bad.max())}")
         err = float((got.to(torch.int64) - want.to(torch.int64)).abs().max())
         b_ms, b_by = bound((table, sig, g0), (got,), 2 * got.numel())
-        del got, want
-        ms = cuda_time_ms(lambda: ps.onehot_prefix_sums(table, sig, g0, **kw),
-                          20)
-        plain_ms = cuda_time_ms(
-            lambda: ps.onehot_prefix_sums_plain(table, sig, g0, **kw), 5)
-        mb = S * w * P * R * (2 if w <= 32767 else 4) / 1e6
-        log(f"[kernel] {label}: S={S} w={w} P={P} R={R} bitwise equal; "
-            f"kernel {ms:.4f} ms ({mb / ms:.1f} GB/s written), plain "
-            f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        out.append(dict(label=label, S=S, w=w, P=P, R=R, ms=ms,
-                        plain_ms=plain_ms, max_abs_err=err, out_mb=mb,
-                        bound_ms=b_ms, bound_by=b_by))
+        del want
         torch.cuda.empty_cache()
+        mb = got.numel() * got.element_size() / 1e6
+        rec = dict(label=label, S=S, w=w, P=P, R=R, max_abs_err=err,
+                   out_mb=mb, bound_ms=b_ms, bound_by=b_by)
+        ms = _repeat_checks("one-hot", label, kern, got)
+        del got
+        if not timed:
+            log(f"[kernel] {label} (stress): S={S} w={w} P={P} R={R} "
+                "bitwise equal; repeat launches equal")
+            out.append(rec)
+            continue
+        plain_ms = cuda_time_ms(plain, 5)
+        # the scan alone, over the materialised [S, w, P*R] int32 one-hot
+        oh = (ps.segment_row_ids(table, sig, g0, w_seg_p=w)[..., None]
+              == torch.arange(R, device=dev, dtype=torch.int16))
+        oh = oh.to(torch.int32).reshape(S, w, P * R)
+        cum_ms = cuda_time_ms(
+            lambda: torch.cumsum(oh, 1, dtype=torch.int32), 20)
+        del oh
+        torch.cuda.empty_cache()
+        log(f"[kernel] {label}: S={S} w={w} P={P} R={R} bitwise equal, "
+            f"repeat launches equal; kernel {ms:.4f} ms ({mb / ms:.1f} GB/s "
+            f"written, {100 * b_ms / ms:.1f}% of bound), plain "
+            f"{plain_ms:.4f} ms, cumsum only {cum_ms:.4f} ms, bound "
+            f"{b_ms:.4f} ms ({b_by})")
+        out.append(dict(rec, ms=ms, plain_ms=plain_ms, cumsum_only_ms=cum_ms))
     return out
 
 
@@ -304,8 +356,12 @@ def _weighted_inputs(rng, S, w, P, R, n_ids):
     return table, wt.astype(np.float32), sig, seg_g0
 
 
-def phase_wkernel(dev, shapes):
-    """Phase 3c: weighted kernel vs plain, determinism, times."""
+def phase_wkernel(dev, shapes, stress):
+    """Phase 3c: weighted kernel vs plain within 2 float32 ulps of each
+    segment's max |prefix|, at the main path's shapes (timed, with the
+    cumsum-only yardstick) and at shapes that stress the chained scan
+    (checked only); two launches and a launch after a 20-launch loop
+    bitwise equal to the first."""
     import numpy as np
     import torch
 
@@ -314,7 +370,8 @@ def phase_wkernel(dev, shapes):
     rng = np.random.default_rng(1)
     eps = float(torch.finfo(torch.float32).eps)
     out = []
-    for label, S, w, P, R, n_ids in shapes:
+    for label, S, w, P, R, n_ids in shapes + stress:
+        timed = (label, S, w, P, R, n_ids) in shapes
         table, wt, sig, g0 = (torch.as_tensor(x, device=dev) for x in
                               _weighted_inputs(rng, S, w, P, R, n_ids))
 
@@ -325,10 +382,8 @@ def phase_wkernel(dev, shapes):
             return ps.weighted_prefix_sums_plain(table, wt, sig, g0,
                                                  w_seg_p=w)
 
-        got, again, want = kern(), kern(), plain()
+        got, want = kern(), plain()
         torch.cuda.synchronize()
-        if not torch.equal(got, again):
-            fail(f"weighted kernel at {label}: two launches differ")
         scale = want.reshape(S, w, -1).abs().amax(1, keepdim=True)
         err = (got - want).abs().reshape(S, w, -1)
         max_abs = float(err.max())
@@ -338,21 +393,35 @@ def phase_wkernel(dev, shapes):
                  f"{max_abs:.4g} = {rel / eps:.3f} ulps of the segment's "
                  "max |prefix| (limit 2)")
         b_ms, b_by = bound((table, wt, sig, g0), (got,), got.numel())
-        del got, again, want, err
-        torch.cuda.empty_cache()
-        ms = cuda_time_ms(kern, 20)
-        plain_ms = cuda_time_ms(plain, 3)
+        del want, err, scale
         torch.cuda.empty_cache()
         mb = S * w * P * R * 4 / 1e6
+        rec = dict(label=label, S=S, w=w, P=P, R=R, n_ids=n_ids,
+                   max_abs_err=max_abs, max_rel_err=rel, out_mb=mb,
+                   bound_ms=b_ms, bound_by=b_by)
+        ms = _repeat_checks("weighted", label, kern, got)
+        del got
+        if not timed:
+            log(f"[wkernel] {label} (stress): S={S} w={w} P={P} R={R} "
+                f"ids={n_ids}; {rel / eps:.3f} ulps of the segment's max "
+                "|prefix|; repeat launches equal")
+            out.append(rec)
+            continue
+        plain_ms = cuda_time_ms(plain, 3)
+        # the scan alone, over the materialised [S, w, P*R] float64 stream
+        ids = ps.segment_row_ids(table, sig, g0, w_seg_p=w).to(torch.int64)
+        x = wt.to(torch.float64)[ids].reshape(S, w, P * R)
+        del ids
+        cum_ms = cuda_time_ms(lambda: torch.cumsum(x, 1), 20)
+        del x
+        torch.cuda.empty_cache()
         log(f"[wkernel] {label}: S={S} w={w} P={P} R={R} ids={n_ids}; "
             f"max |err| {max_abs:.6g}, max err / segment max |prefix| "
-            f"{rel:.4g} ({rel / eps:.3f} ulps); kernel {ms:.4f} ms "
-            f"({mb / ms:.1f} GB/s written), plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by})")
-        out.append(dict(label=label, S=S, w=w, P=P, R=R, n_ids=n_ids, ms=ms,
-                        plain_ms=plain_ms, max_abs_err=max_abs,
-                        max_rel_err=rel, out_mb=mb, bound_ms=b_ms,
-                        bound_by=b_by))
+            f"{rel:.4g} ({rel / eps:.3f} ulps), repeat launches equal; "
+            f"kernel {ms:.4f} ms ({mb / ms:.1f} GB/s written, "
+            f"{100 * b_ms / ms:.1f}% of bound), plain {plain_ms:.4f} ms, "
+            f"cumsum only {cum_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        out.append(dict(rec, ms=ms, plain_ms=plain_ms, cumsum_only_ms=cum_ms))
     return out
 
 
@@ -1768,8 +1837,10 @@ def phase_profile(dev):
                     if e.device_type == DeviceType.CUDA
                     and not e.key.startswith("Command Buffer")]
             busy = sum(t for t, _, _ in kern) / 1e6
-            ours = sum(t for t, _, k in kern if "tile_" in k) / 1e6
-            wours = sum(t for t, _, k in kern if "wtile_" in k) / 1e6
+            ours = sum(t for t, _, k in kern
+                       if "chained_scan" in k or "rtile_" in k) / 1e6
+            wours = sum(t for t, _, k in kern
+                        if "weighted_chained_scan" in k) / 1e6
             gath = sum(t for t, _, k in kern if "gather_rows" in k) / 1e6
             win = sum(t for t, _, k in kern
                       if "window_operand_kernel" in k) / 1e6
@@ -1825,7 +1896,18 @@ def main():
     shapes = [("20k main path", 1, 20480, sub_20k, 56),
               ("20k P=16", 1, 20480, 16, 56),
               ("genome", 24, 36864, sub_gen, 48)]
-    kern = phase_kernel(dev, shapes)
+    # shapes that stress the chained scans: w off the tile (a partial last
+    # tile), one tile, 24 segments of many tiles, L off the lane block and
+    # odd (lane-by-lane stores), and the largest L
+    from fscl_tpu_torch import kernels
+
+    tile = kernels.load().fscl_ps_tile()
+    stress = [("w off the tile", 3, 5 * tile + 96, 8, 45),
+              ("one tile", 2, tile, 32, 56),
+              ("S=24 many tiles, odd L", 24, 12 * tile + 224, 5, 37),
+              ("L=8192 P=64", 2, 8 * tile + 32, 64, 128),
+              ("L=8192 P=64 int32", 1, 33024, 64, 128)]
+    kern = phase_kernel(dev, shapes, stress)
     gkern = phase_gkernel(dev)
     # mixed100k: 4 chromosomes of ~23.7k sites (ladder rung 4, w_seg_p
     # 24576), 1,589 table rows compressed to 32 f32 channels
@@ -1833,7 +1915,12 @@ def main():
                            24576)
     wshapes = [("mixed100k main path", 4, 24576, sub_mix, 32, 1590),
                ("widest R=104, 8193 rows", 1, 36864, 16, 104, 8193)]
-    wkern = phase_wkernel(dev, wshapes)
+    tile = kernels.load().fscl_wps_tile()
+    wstress = [("w off the tile, odd R", 3, 5 * tile + 96, 8, 33, 700),
+               ("one tile", 2, tile, 32, 32, 1590),
+               ("S=24 many tiles, odd L", 24, 12 * tile + 224, 5, 37, 300),
+               ("L=6656 P=64", 1, 8 * tile + 32, 64, 104, 8193)]
+    wkern = phase_wkernel(dev, wshapes, wstress)
     # 3a/3b: first the shapes phase 7 gives the kernels (the 20k task:
     # 20,000 sites, one chromosome padded to 20,480, R=56, a 32-replicate
     # chunk), then the 20k padded width and one genome1m-sized chromosome
@@ -1906,10 +1993,10 @@ def main():
     log(json.dumps({"kernels": [
         entry("onehot_prefix_sums", "prefix_sums.cu",
               pallas_ps + "(mode (b), segmented one-hot)", r20["launches"],
-              kern, note=fused),
+              kern, note=fused, cumsum_only_ms=kern[0]["cumsum_only_ms"]),
         entry("weighted_prefix_sums", "weighted_prefix_sums.cu",
               pallas_ps + "(mode (c), f32 weight channels)", rm["launches"],
-              wkern, note=fused),
+              wkern, note=fused, cumsum_only_ms=wkern[0]["cumsum_only_ms"]),
         entry("rowid_prefix_sums", "rowid_prefix_sums.cu",
               pallas_ps + "(mode (a), row ids vs lane % R)",
               rr["launches"]["rowid"], rkern, note=fused),

@@ -141,6 +141,9 @@ def load():
     for tile in (lib.fscl_ps_tile, lib.fscl_wps_tile, lib.fscl_rps_tile):
         tile.argtypes = []
         tile.restype = i
+    for size in (lib.fscl_ps_scratch_bytes, lib.fscl_wps_scratch_bytes):
+        size.argtypes = [i, i, i, i]
+        size.restype = i64
     lib.fscl_cuda_error_string.argtypes = [i]
     lib.fscl_cuda_error_string.restype = ctypes.c_char_p
     _lib = lib

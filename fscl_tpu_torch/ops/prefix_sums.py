@@ -145,10 +145,9 @@ def onehot_prefix_sums(table, sig, seg_g0, *, w_seg_p, n_rows,
     from .. import kernels
 
     lib = kernels.load()
-    tile = lib.fscl_ps_tile()
-    n_tiles = -(-w_seg_p // tile)
     out = torch.empty((S * w_seg_p, L), dtype=odt, device=dev)
-    scratch = torch.empty(S * n_tiles * L, dtype=torch.int32, device=dev)
+    scratch = torch.empty(lib.fscl_ps_scratch_bytes(S, w_seg_p, P, n_rows),
+                          dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         rc = lib.fscl_onehot_prefix_sums(
             table.data_ptr(), sig.data_ptr(), seg_g0.data_ptr(),
@@ -202,11 +201,9 @@ def weighted_prefix_sums(table, weights, sig, seg_g0, *, w_seg_p):
     from .. import kernels
 
     lib = kernels.load()
-    tile = lib.fscl_wps_tile()
-    n_tiles = -(-w_seg_p // tile)
-    L = P * R
-    out = torch.empty((S * w_seg_p, L), dtype=torch.float32, device=dev)
-    scratch = torch.empty(S * n_tiles * L, dtype=torch.float64, device=dev)
+    out = torch.empty((S * w_seg_p, P * R), dtype=torch.float32, device=dev)
+    scratch = torch.empty(lib.fscl_wps_scratch_bytes(S, w_seg_p, P, R),
+                          dtype=torch.uint8, device=dev)
     with torch.cuda.device(dev):
         rc = lib.fscl_weighted_prefix_sums(
             table.data_ptr(), weights.data_ptr(), sig.data_ptr(),

@@ -15,8 +15,9 @@ the port's plain version.  Stated tolerances:
     (Pallas) and 3.4 ulps (XLA);
   * on the card: the CUDA kernels against their plain versions, one-hot
     bitwise, weights within 2 float32 ulps of each segment's max |prefix|
-    (both sum in float64; the order differs), and two launches bitwise
-    equal to each other.
+    (both sum in float64; the order differs), and repeated launches
+    bitwise equal to the first, at the main path's shapes and at shapes
+    that stress the kernels' chained scan.
 """
 
 import numpy as np
@@ -120,12 +121,24 @@ def test_cpu_wrapper_runs_plain_version():
     assert tps.launches == before  # no kernel launch for CPU tensors
 
 
+# Shapes that stress the chained scan of the CUDA kernels (one-hot:
+# 512-site tiles, 64 lanes a block; weighted: 1024-site tiles, 32 lanes a
+# block): w off the tile (a partial last tile), one tile, 24 segments of
+# many tiles, L = P*R off the lane block and odd (lane-by-lane stores),
+# the largest L.  n_launch launches in a row must all give the first
+# one's bits.
 @pytest.mark.gpu
-@pytest.mark.parametrize("S, w, P, R, dtype", [
-    (1, 20480, 16, 56, torch.int16),
-    (4, 36864, 16, 56, torch.int32),
+@pytest.mark.parametrize("S, w, P, R, dtype, n_launch", [
+    (1, 20480, 16, 56, torch.int16, 1),
+    (4, 36864, 16, 56, torch.int32, 1),
+    (3, 2656, 8, 45, torch.int16, 1),  # w off the tile
+    (2, 256, 32, 56, torch.int16, 1),  # one tile
+    (24, 6368, 5, 37, torch.int16, 1),  # 24 segments, odd L = 185
+    (2, 4128, 64, 128, torch.int16, 1),  # L = 8192, P = 64
+    (1, 33024, 64, 128, torch.int32, 1),  # L = 8192, int32
+    (1, 20480, 32, 56, torch.int16, 20),  # repeated launches
 ])
-def test_kernel_matches_plain_on_card(S, w, P, R, dtype):
+def test_kernel_matches_plain_on_card(S, w, P, R, dtype, n_launch):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the CUDA kernel runs only on the card")
     table, sig, seg_g0 = _inputs(5, S, w, P, R, n_groups=S * w // PG)
@@ -134,9 +147,12 @@ def test_kernel_matches_plain_on_card(S, w, P, R, dtype):
     got = tps.onehot_prefix_sums(*args, w_seg_p=w, n_rows=R)
     want = tps.onehot_prefix_sums_plain(*args, w_seg_p=w, n_rows=R)
     torch.cuda.synchronize()
-    assert tps.launches == before + 1
     assert got.dtype == want.dtype == dtype
     assert torch.equal(got, want)
+    for _ in range(n_launch - 1):
+        again = tps.onehot_prefix_sums(*args, w_seg_p=w, n_rows=R)
+        assert torch.equal(got, again)
+    assert tps.launches == before + n_launch
 
 
 # ---- compressed mode (c): sums of weight channels -------------------------
@@ -230,11 +246,16 @@ def test_weighted_sentinel_reads_zero_row():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("S, w, P, R, n_ids", [
-    (4, 24576, 32, 32, 1590),  # mixed-depth headline permutation shape
-    (1, 36864, 16, 104, 8193),  # widest channel count, largest table
+@pytest.mark.parametrize("S, w, P, R, n_ids, n_launch", [
+    (4, 24576, 32, 32, 1590, 2),  # mixed-depth headline permutation shape
+    (1, 36864, 16, 104, 8193, 2),  # widest channel count, largest table
+    (3, 2656, 8, 33, 700, 2),  # w off the tile, odd R
+    (2, 256, 32, 32, 1590, 2),  # one tile
+    (24, 6368, 5, 37, 300, 2),  # 24 segments, odd L = 185
+    (1, 4128, 64, 104, 8193, 2),  # P = 64, L = 6656
+    (4, 24576, 32, 32, 1590, 20),  # repeated launches
 ])
-def test_weighted_kernel_matches_plain_on_card(S, w, P, R, n_ids):
+def test_weighted_kernel_matches_plain_on_card(S, w, P, R, n_ids, n_launch):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the CUDA kernel runs only on the card")
     table, wt, sig, seg_g0 = _weighted_inputs(
@@ -243,12 +264,14 @@ def test_weighted_kernel_matches_plain_on_card(S, w, P, R, n_ids):
             for x in (table, wt, sig, seg_g0)]
     before = tps.weighted_launches
     got = tps.weighted_prefix_sums(*args, w_seg_p=w)
-    again = tps.weighted_prefix_sums(*args, w_seg_p=w)
+    for _ in range(n_launch - 1):
+        again = tps.weighted_prefix_sums(*args, w_seg_p=w)
+        # no atomics, no timing-dependent order: same bits every run
+        assert torch.equal(got, again)
     want = tps.weighted_prefix_sums_plain(*args, w_seg_p=w)
     torch.cuda.synchronize()
-    assert tps.weighted_launches == before + 2
+    assert tps.weighted_launches == before + n_launch
     assert got.dtype == want.dtype == torch.float32
-    assert torch.equal(got, again)  # no atomics: same bits every run
     scale = want.reshape(S, w, -1).abs().amax(1, keepdim=True)
     ulp = torch.finfo(torch.float32).eps * scale
     err = (got - want).abs().reshape(S, w, -1)

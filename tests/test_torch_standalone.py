@@ -1,10 +1,10 @@
 """The port stands alone and runs on the card unless asked for the CPU.
 
-  * no module of fscl_tpu_torch, and not chip_smoke.py, imports jax or
-    anything of fscl_tpu: checked in the source (every import statement,
-    at any depth) and in sys.modules of a fresh interpreter after every
-    module is imported and the CLI has run with --device cpu, and after
-    ``import chip_smoke``;
+  * no module of fscl_tpu_torch, and not chip_smoke.py or a script of
+    tools/, imports jax or anything of fscl_tpu: checked in the source
+    (every import statement, at any depth) and in sys.modules of a fresh
+    interpreter after every module is imported and the CLI has run with
+    --device cpu, and after ``import chip_smoke``;
   * the port's copy of the sweep-model code builds tables bitwise equal to
     fscl_tpu.models on a seeded input;
   * every public entry point called without a device, on a machine with no
@@ -35,7 +35,8 @@ def _foreign(name):
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(REPO)) for p in [*PORT.rglob("*.py"),
-                                       REPO / "chip_smoke.py"]))
+                                       REPO / "chip_smoke.py",
+                                       *(REPO / "tools").glob("*.py")]))
 def test_source_imports_nothing_of_jax(path):
     tree = ast.parse((REPO / path).read_text())
     bad = []
