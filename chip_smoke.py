@@ -89,9 +89,34 @@ non-zero:
                first chunk's statistic is recomputed with the plain
                prefix function, then with the plain window route too;
                the scan routes compared as in 4
-  6. check   - a small single-depth input and a small mixed-depth input
-               through the card and through the plain CPU versions must
-               agree
+  4b. 20k no-hist - the 20k task through the lattice path (use_hist=False,
+               grid 2048, 50 permutations): the lattice kernel's launches
+               counted over its scan and over its permutations (each > 0,
+               the hist kernels' 0), two runs equal, the first
+               permutation chunk recomputed (equal to the run's saved
+               nulls) and recomputed with the plain version (maxima within
+               1e-3, exceedances on the run's thresholds equal off 1e-4
+               near-ties)
+  3h. lkernel - the lattice kernel (clr_lattice, csrc/lattice_clr.cu)
+               against its plain version within 1e-5 S + 1e-4 per entry
+               (S = 2 sum |y - null|), dummy candidates 0, repeat launches
+               bitwise, at the inputs phase 4b's first run gave it: the
+               scan's dense coarse, fine and ultra calls and the first
+               permutation chunk's coarse and fine calls; kernel and plain
+               timed; and the same at phase 4c's tie-stage calls
+  4c. 20k grid 1024 - the 20k task's scan at grid 1024, whose tie table
+               is coarser than exact_step_max: lattice kernel launches in
+               its tie stage (> 0); its coarse, fine and ultra calls
+               through phase 3h; the scan again with the plain lattice
+               version: reported CLRs within 1e-5 S + 1e-3 (S at the
+               reported position and lalpha), positions and lalpha equal
+               off listed near-ties (the plain version scores both
+               winners within that tolerance)
+  6. check   - a small single-depth input, a small mixed-depth input, the
+               single-depth input through --no-hist and a dense-cluster
+               input past the hist gate (lattice path, scan and
+               permutations), through the card and through the plain CPU
+               versions, must agree
   7. rdp     - four routes to the permutation statistic on one stream of
                the 20k task (hist_bf16=False): scan_permute with the RDP
                tail forced on and off (thresholds equal, counts equal off
@@ -112,7 +137,8 @@ times are the median of 5 CUDA-event readings, each a mean over its
 launches.  Run from the repo root: python3 chip_smoke.py
 
 ``--profile`` instead runs phases 1-2 and then torch.profiler over the
-scan and the permutations of the 20k task, of the genome (16
+scan and the permutations of the 20k task (hist and --no-hist), of the
+genome (16
 permutations) and of mixed100k (16 permutations), and over phase 7's
 permutations of the 20k task with RDP forced on and off: device time by
 kernel (the prefix-sum kernels, the two fused window kernels, the window
@@ -1204,12 +1230,12 @@ def _check_result(result, label):
         fail(f"{label}: no permutation rounds counted")
 
 
-def _load_model(data, compat):
+def _load_model(data, compat, grid_points=2048):
     from fscl_tpu_torch.models import background_fsp, build_tables
 
     fsp = background_fsp(data.obs_freq, data.depth_p, data.folded,
                          data.sample_depths, compat_mirror_unfolded=compat)
-    tables = build_tables(fsp, data.sample_depths, grid_points=2048)
+    tables = build_tables(fsp, data.sample_depths, grid_points=grid_points)
     data.attach_model(tables)
     return tables
 
@@ -1298,6 +1324,421 @@ def phase_20k(dev):
                 w_seg_p=hs.stacks[0].w_seg_p, n_rows=hs.ht.n_rows,
                 plain_window=plain_window, scan_routes=routes,
                 okernel=okern, fkernel=fkern, f32kernel=f32kern)
+
+
+# ---- the lattice path: kernel 3h, phases 4b and 4c -------------------------
+
+# the lattice kernel against its plain version: |diff| <= LAT_REL * S +
+# LAT_ABS per entry, S = 2 sum |y - null| (clr_lattice_plain, abs_sum)
+LAT_REL = 1e-5
+LAT_ABS = 1e-4
+# the lattice statistic recomputed with the plain version: maxima within
+# this, exceedance counts on the run's thresholds equal off near-ties
+LAT_STAT_TOL = 1e-3
+
+
+def _lattice_capture(run):
+    """(run(), [(args, kwargs)] of every clr_lattice call it made)."""
+    from fscl_tpu_torch.ops import lattice as TL
+
+    calls, orig = [], TL.clr_lattice
+
+    def rec(*a, **k):
+        calls.append((a, k))
+        return orig(*a, **k)
+
+    TL.clr_lattice = rec
+    try:
+        return run(), calls
+    finally:
+        TL.clr_lattice = orig
+
+
+def _lattice_case(label, args, kw):
+    """Phase 3h: clr_lattice against its plain version within LAT_REL * S
+    + LAT_ABS per entry, dummy candidates exactly 0, two launches and a
+    launch after the timing loop bitwise equal to the first; kernel and
+    plain timed.  The bound: every input read once and the output written
+    once over the HBM rate (the whole pack counted, an upper count of the
+    rows the pairs read), or 12 + 7A operations a (candidate, site) pair
+    over the float32 rate, the larger.  Beside it, in smoke.json only,
+    pairs x 8A: a modeled upper estimate of the bytes the pack-row reads
+    move through L2, not a measured rate."""
+    import torch
+
+    from fscl_tpu_torch.ops import lattice as TL
+
+    pack, row, pos, null, cand, lo, hi, m_base, m_rel = args
+    G = kw["grid_points"]
+
+    def kern():
+        return TL.clr_lattice(*args, **kw)
+
+    def plain():
+        return TL.clr_lattice_plain(*args, **kw)
+
+    got, want = kern(), plain()
+    lim = LAT_REL * TL.clr_lattice_plain(*args, **kw, abs_sum=True) + LAT_ABS
+    torch.cuda.synchronize()
+    if got.shape != want.shape:
+        fail(f"lkernel at {label}: {tuple(got.shape)} vs plain "
+             f"{tuple(want.shape)}")
+    err = (got - want).abs()
+    max_err, ratio = float(err.max()), float((err / lim).max())
+    if not bool((err <= lim).all()):
+        fail(f"lkernel != plain at {label}: max |err| {max_err:.6g}, "
+             f"{ratio:.3g} x the tolerance {LAT_REL} S + {LAT_ABS}, "
+             f"{int((err > lim).sum())} entries over it")
+    dummy = lo > hi
+    if bool(got[:, dummy].any()):
+        fail(f"lkernel at {label}: a dummy candidate is not 0")
+    first = got.clone()
+    del got, want, err, lim
+    Rr, P, A = first.shape
+    live = lo <= hi
+    pairs = Rr * int((hi[live] - lo[live] + 1).sum())
+    ops = pairs * (12 + 7 * A)
+    b_ms, b_by = bound(args, [first], ops)
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, first))
+    l2_model = pairs * 8 * A
+    torch.cuda.empty_cache()
+    ms = _repeat_checks("lkernel", label, kern, first)
+    plain_ms = cuda_time_ms(plain, 1, readings=3)
+    torch.cuda.empty_cache()
+    shape = (f"Rr={Rr} P={P} ({int(dummy.sum())} dummy) A={A} G={G}, "
+             f"{pairs} (candidate, site) pairs")
+    log(f"[lkernel] {label}: {shape}; max |err| {max_err:.4g} ({ratio:.3g}"
+        f" x tolerance), repeat launches bitwise; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f}"
+        f" MB, {ops / 1e9:.3f} Gop); modeled upper estimate of the "
+        f"pack-row bytes through L2 (pairs x 8A, not measured) "
+        f"{l2_model / 1e9:.3f} GB")
+    return dict(label=label, shape=shape, ms=ms, plain_ms=plain_ms,
+                library_ms=None, max_abs_err=max_err,
+                max_err_over_tol=ratio, bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, ops=ops, pairs=pairs,
+                l2_bytes_model_upper=l2_model)
+
+
+def _lattice_first_chunk(data, tables, result, scan_cfg, perm_cfg, dev):
+    """[R, K] statistic maxima of the first permutation chunk, computed as
+    the lattice driver computes them (every point active)."""
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch.engine import permute as TP
+    from fscl_tpu_torch.engine.scan import get_lattice_tables
+    from fscl_tpu_torch.ops.permute import (
+        block_permutation_groups, expand_group_sigma,
+    )
+
+    lt = get_lattice_tables(tables, dev)
+    R = min(perm_cfg.chunk_replicates, perm_cfg.n_permute)
+    sig = expand_group_sigma(block_permutation_groups(
+        perm_cfg.seed, data.genome_pos(), perm_cfg.scan_width_mb * 1e6, R,
+        start=0, device=dev).to(torch.int64), data.n_snps)
+    row_gen = torch.as_tensor(np.asarray(data.row, np.int32), device=dev)
+    null_gen = torch.as_tensor(np.asarray(data.null_logl, np.float32),
+                               device=dev)
+    Jf = TP.stat_positions(perm_cfg)
+    out = torch.zeros((R, result.n_points), device=dev)
+    for c, cl in enumerate(data.chr_limits):
+        pts = np.where(result.chr_id == c)[0]
+        if len(pts) == 0:
+            continue
+        ctx = TP._ChrPermContext(data, cl, scan_cfg, pts, Jf, dev)
+        idx = sig[:, ctx.start:ctx.start + ctx.n]
+        row, null = row_gen[idx], null_gen[idx]
+        for g0 in range(0, len(pts), TP.POINT_BUCKET):
+            grp = pts[g0:g0 + TP.POINT_BUCKET]
+            out[:, grp] = TP._stat_max(lt, row, null, ctx.pos,
+                                       *ctx.build_batch(result, grp),
+                                       n_pts=len(grp), Jf=Jf)
+    return out
+
+
+def _other_kernel_counts():
+    """Launches of the hist path's kernels since they were last zeroed."""
+    from fscl_tpu_torch.ops import prefix_sums as ps
+
+    return dict(_window_counts(), prefix=ps.launches)
+
+
+def _zero_other_kernel_counts():
+    from fscl_tpu_torch.ops import prefix_sums as ps
+
+    _zero_window_counts()
+    ps.launches = 0
+
+
+def phase_20k_nohist(dev):
+    """Phase 4b: the 20k task through --no-hist (the lattice path) at grid
+    2048, scan and 50 permutations; the lattice kernel's launches counted
+    over each (> 0; the hist kernels' 0); the first permutation chunk
+    recomputed with the plain version; kernel 3h at the scan's dense
+    coarse, fine and ultra calls and the permutations' first chunk
+    (bucket 0, coarse and fine), captured from a first run."""
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch.engine import scan_genome, scan_permute
+    from fscl_tpu_torch.engine.permute import PermuteConfig
+    from fscl_tpu_torch.engine.scan import ScanConfig
+    from fscl_tpu_torch.io import scan_output, write_null_distribution
+    from fscl_tpu_torch.ops import lattice as TL
+
+    data, tables, _ = _task_20k()
+    scan_cfg = ScanConfig(small_grid_sp=1000, large_grid_sp=100000,
+                          use_hist=False)
+    perm_cfg = PermuteConfig(n_permute=50, chunk_replicates=32, seed=1,
+                             use_hist=False)
+    # cold pass, capturing the kernel's inputs
+    t0 = time.monotonic()
+    res0, scan_calls = _lattice_capture(
+        lambda: scan_genome(data, tables, scan_cfg, device=dev))
+    _, perm_calls = _lattice_capture(
+        lambda: scan_permute(data, tables, res0, scan_cfg,
+                             copy.deepcopy(perm_cfg), device=dev))
+    torch.cuda.synchronize()
+    t_cold = time.monotonic() - t0
+    # the main path, counted
+    torch.cuda.synchronize()
+    _zero_other_kernel_counts()
+    TL.lattice_clr_launches = 0
+    t0 = time.monotonic()
+    result = scan_genome(data, tables, scan_cfg, device=dev)
+    torch.cuda.synchronize()
+    t_scan = time.monotonic() - t0
+    n_scan = TL.lattice_clr_launches
+    TL.lattice_clr_launches = 0
+    t0 = time.monotonic()
+    scan_permute(data, tables, result, scan_cfg, perm_cfg, device=dev)
+    torch.cuda.synchronize()
+    t_perm = time.monotonic() - t0
+    n_perm = TL.lattice_clr_launches
+    other = _other_kernel_counts()
+    if n_scan <= 0 or n_perm <= 0:
+        fail(f"20k no-hist: lattice kernel launches scan {n_scan}, "
+             f"permutations {n_perm}")
+    if any(other.values()):
+        fail(f"20k no-hist: hist kernels launched on the lattice path: "
+             f"{other}")
+    _check_result(result, "20k no-hist")
+    tsv = OUT / "bench_20k_nohist.tsv"
+    scan_output(tsv, data, result, n_permute=perm_cfg.n_permute)
+    write_null_distribution(tsv, data, result)
+    pr = int(result.permute_n.sum())
+    log(f"[20k no-hist] {data.n_snps} sites, {result.n_points} points; "
+        f"cold run {t_cold:.3f}s; scan {t_scan:.3f}s, permute "
+        f"{t_perm:.3f}s, {pr} point-rounds, {pr / t_perm:.1f} "
+        f"point-rounds/s, max CLR {result.clr.max():.2f}; lattice kernel "
+        f"launches scan {n_scan}, permutations {n_perm}")
+    if not (np.array_equal(result.clr, res0.clr)
+            and np.array_equal(result.stat_threshold, res0.stat_threshold)
+            and np.array_equal(result.permute_n, res0.permute_n)):
+        fail("20k no-hist: two runs differ")
+
+    # first chunk: the kernel's maxima vs the plain version's
+    kern_max = _lattice_first_chunk(data, tables, result, scan_cfg,
+                                    perm_cfg, dev)
+    orig = TL.clr_lattice
+    TL.clr_lattice = TL.clr_lattice_plain
+    try:
+        plain_max = _lattice_first_chunk(data, tables, result, scan_cfg,
+                                         perm_cfg, dev)
+    finally:
+        TL.clr_lattice = orig
+    torch.cuda.synchronize()
+    R = kern_max.shape[0]
+    saved = np.array([r[:R] for r in result.null_clr])
+    if not np.array_equal(kern_max.cpu().numpy().T, saved):
+        fail("20k no-hist: the first chunk's recomputed maxima differ from "
+             "the run's saved null values")
+    d = float((kern_max - plain_max).abs().max())
+    thr = torch.as_tensor(result.stat_threshold, device=dev,
+                          dtype=torch.float32)
+    near = (((kern_max - thr).abs() < 1e-4)
+            | ((plain_max - thr).abs() < 1e-4)).any(0)
+    same = bool(((kern_max >= thr) == (plain_max >= thr))[:, ~near].all())
+    if d > LAT_STAT_TOL or not same:
+        fail(f"20k no-hist: first chunk kernel vs plain max |d| {d:.3g} "
+             f"(limit {LAT_STAT_TOL}), exceedances equal: {same}")
+    log(f"[20k no-hist] first chunk: maxima [{R}, {result.n_points}] equal "
+        f"to the run's saved nulls; plain version within {d:.3g}; "
+        f"exceedances equal on {int((~near).sum())} points "
+        f"({int(near.sum())} near-tie points excluded)")
+
+    G = tables.grid_points
+    chunk = [c for c in perm_calls if c[0][1].shape[0] > 1][:2]
+    cases = [(f"20k no-hist scan, dense {stage}", scan_calls[i])
+             for i, stage in enumerate(("coarse", "fine", "ultra"))]
+    cases += [(f"20k no-hist permutation chunk, {stage}", c)
+              for stage, c in zip(("coarse", "fine"), chunk)]
+    lkern = [_lattice_case(label, a, dict(k, grid_points=G))
+             for label, (a, k) in cases]
+    del scan_calls, perm_calls
+    return dict(sites=data.n_snps, points=result.n_points, cold_s=t_cold,
+                scan_s=t_scan, perm_s=t_perm, point_rounds=pr,
+                point_rounds_per_s=pr / t_perm,
+                max_clr=float(result.clr.max()),
+                launches=dict(scan=n_scan, permute=n_perm),
+                first_chunk_plain_max_diff=d, lkernel=lkern)
+
+
+def _plain_lattice(run):
+    """run() with every clr_lattice call taking the plain version."""
+    from fscl_tpu_torch.ops import lattice as TL
+
+    orig = TL.clr_lattice
+    TL.clr_lattice = TL.clr_lattice_plain
+    try:
+        return run()
+    finally:
+        TL.clr_lattice = orig
+
+
+def _lattice_at(data, tables, res, eval_range, idx, pos, la, dev):
+    """(CLR, S) of the plain version at scan points idx placed at (pos,
+    lalpha): one offset-0 pack row a site, m_base the lalpha's lattice
+    offset."""
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch import LOG_AD_MIN
+    from fscl_tpu_torch.ops import lattice as TL
+    from fscl_tpu_torch.ops.windows import candidate_windows
+
+    G = tables.grid_points
+    pack = torch.as_tensor(TL.build_lattice_pack(tables.table,
+                                                 np.zeros(1, np.int32)),
+                           device=dev)
+    zero = torch.zeros(1, dtype=torch.int32, device=dev)
+    clr, S = np.zeros(len(idx)), np.zeros(len(idx))
+    for c, cl in enumerate(data.chr_limits):
+        k = np.nonzero(res.chr_id[idx] == c)[0]
+        if len(k) == 0:
+            continue
+        sl = slice(cl.start_index, cl.start_index + cl.n_snps)
+        pos_c = np.asarray(data.pos[sl], dtype=np.int32)
+        cand = np.asarray(pos[k], dtype=np.int32)
+        _, lo, hi = candidate_windows(pos_c, cand, eval_range)
+        m = np.round((np.asarray(la[k]) - LOG_AD_MIN) / TL.lattice_step(G))
+        t = [torch.as_tensor(np.asarray(x, np.int32), device=dev)
+             for x in (pos_c, cand, lo, hi)]
+        args = (pack,
+                torch.as_tensor(np.asarray(data.row[sl], np.int32),
+                                device=dev)[None],
+                t[0],
+                torch.as_tensor(np.asarray(data.null_logl[sl], np.float32),
+                                device=dev)[None],
+                t[1], t[2], t[3],
+                torch.as_tensor(m.astype(np.int32), device=dev)[None], zero)
+        clr[k] = TL.clr_lattice_plain(*args, grid_points=G)[0, :, 0].cpu()
+        S[k] = TL.clr_lattice_plain(*args, grid_points=G,
+                                    abs_sum=True)[0, :, 0].cpu()
+    return clr, S
+
+
+def phase_20k_grid1024(dev):
+    """Phase 4c: the 20k task's scan at grid 1024, whose tie table's step
+    exceeds exact_step_max: the tie stage runs the lattice kernel (its
+    launches > 0), the dense and refine stages the hist kernels.  Its
+    tie-stage calls, captured from the cold run, go through phase 3h; the
+    scan runs again with the plain lattice version and its reported CLRs,
+    positions and lalpha are held to the kernel run's."""
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch.engine import scan_genome
+    from fscl_tpu_torch.engine.scan import ScanConfig, make_scan_hist_tables
+    from fscl_tpu_torch.io import load_snp_input, scan_output
+    from fscl_tpu_torch.ops import lattice as TL
+
+    data = load_snp_input(REPO / "bench" / "data" / "bench_20k.sf")
+    tables = _load_model(data, compat=True, grid_points=1024)
+    scan_cfg = ScanConfig(small_grid_sp=1000, large_grid_sp=100000)
+    ht = make_scan_hist_tables(data, tables, scan_cfg.hist_alphas,
+                               decimate=scan_cfg.tie_decimate, device=dev)
+    if ht is None or ht.step <= scan_cfg.exact_step_max:
+        fail("20k grid 1024: the tie table does not exceed exact_step_max")
+    res0, tie_calls = _lattice_capture(  # cold
+        lambda: scan_genome(data, tables, scan_cfg, device=dev))
+    torch.cuda.synchronize()
+    _zero_other_kernel_counts()
+    TL.lattice_clr_launches = 0
+    t0 = time.monotonic()
+    result = scan_genome(data, tables, scan_cfg, device=dev)
+    torch.cuda.synchronize()
+    t_scan = time.monotonic() - t0
+    n_lat = TL.lattice_clr_launches
+    other = _other_kernel_counts()
+    if n_lat <= 0 or other["window_clr"] <= 0:
+        fail(f"20k grid 1024: lattice kernel launches {n_lat}, hist kernel "
+             f"launches {other}")
+    if result.n_points == 0 or not np.isfinite(result.clr).all():
+        fail("20k grid 1024: no or non-finite scan points")
+    if not (np.array_equal(result.clr, res0.clr)
+            and np.array_equal(result.sweep_pos, res0.sweep_pos)):
+        fail("20k grid 1024: two runs differ")
+    scan_output(OUT / "bench_20k_grid1024.tsv", data, result)
+    log(f"[20k grid 1024] tie step {ht.step:.4f} > {scan_cfg.exact_step_max}"
+        f"; scan {t_scan:.3f}s, {result.n_points} points, max CLR "
+        f"{result.clr.max():.2f}; lattice kernel launches {n_lat} (tie "
+        f"stage), bf16 window kernel {other['window_clr']}")
+
+    # the scan again, its tie stage on the plain lattice version (the
+    # hist stages before it are bitwise repeatable, so the tie pool is
+    # the same)
+    plain = _plain_lattice(
+        lambda: scan_genome(data, tables, scan_cfg, device=dev))
+    if not (np.array_equal(plain.chr_id, result.chr_id)
+            and np.array_equal(plain.interval_start, result.interval_start)):
+        fail("20k grid 1024: the plain run's intervals differ")
+    er = scan_cfg.eval_range
+    every = np.arange(result.n_points)
+    _, S_k = _lattice_at(data, tables, result, er, every, result.sweep_pos,
+                         result.lalpha, dev)
+    _, S_p = _lattice_at(data, tables, result, er, every, plain.sweep_pos,
+                         plain.lalpha, dev)
+    tol = LAT_REL * np.maximum(S_k, S_p) + 1e-3
+    d = np.abs(result.clr - plain.clr)
+    if not (d <= tol).all():
+        fail(f"20k grid 1024: tie-stage CLR kernel vs plain max |d| "
+             f"{d.max():.6g}, {int((d > tol).sum())} points over 1e-5 S + "
+             "1e-3")
+    # a differing winner must be a near-tie: the plain version scores
+    # the kernel run's (position, lalpha) within the tolerance of its own
+    differ = np.nonzero((result.sweep_pos != plain.sweep_pos)
+                        | (result.lalpha != plain.lalpha))[0]
+    if len(differ):
+        c_k, _ = _lattice_at(data, tables, result, er, differ,
+                             result.sweep_pos[differ], result.lalpha[differ],
+                             dev)
+        c_p, _ = _lattice_at(data, tables, result, er, differ,
+                             plain.sweep_pos[differ], plain.lalpha[differ],
+                             dev)
+        gap = np.abs(c_k - c_p)
+        if not (gap <= tol[differ]).all():
+            fail(f"20k grid 1024: kernel and plain winners differ at "
+                 f"points {list(differ[gap > tol[differ]])} by more than "
+                 "the tolerance")
+    log(f"[20k grid 1024] plain tie stage: reported CLR within {d.max():.4g}"
+        f" ({(d / tol).max():.3g} x 1e-5 S + 1e-3); positions and lalpha "
+        f"equal off near-tie points {list(differ)}")
+
+    G = tables.grid_points
+    if len(tie_calls) != 3 * len(data.chr_limits):
+        fail(f"20k grid 1024: {len(tie_calls)} tie-stage lattice calls, "
+             "not 3 a chromosome (coarse, fine, ultra)")
+    lkern = [_lattice_case(f"20k grid 1024 tie stage, {stage}", a,
+                           dict(k, grid_points=G))
+             for stage, (a, k) in zip(("coarse", "fine", "ultra"),
+                                      tie_calls)]
+    del tie_calls
+    return dict(scan_s=t_scan, points=result.n_points, tie_step=ht.step,
+                launches=n_lat, window_launches=other,
+                plain_max_clr_diff=float(d.max()),
+                near_ties=[int(i) for i in differ], lkernel=lkern)
 
 
 def genome_data():
@@ -1490,6 +1931,24 @@ def _single_depth_check_data():
                           np.zeros(len(pos), bool))
 
 
+def _dense_cluster_check_data():
+    """2,000 sites over a 500 Mb chromosome at depth 24 with a 24-site
+    cluster inside one minimum-quantum block: past the hist gate (the
+    block table cannot hold it), so scan and permutations take the
+    lattice path (tests/test_torch_lattice.py's dense-cluster input)."""
+    import numpy as np
+
+    from fscl_tpu_torch.data import build_snp_data
+
+    rng = np.random.default_rng(5)
+    pos = np.sort(rng.choice(500_000_000, 2000, replace=False)).astype(
+        np.int64)
+    pos = np.sort(np.concatenate([pos, 250_000_000 + np.arange(24) * 2]))
+    freq = rng.integers(1, 24, size=len(pos))
+    return build_snp_data(["1"] * len(pos), pos, freq,
+                          np.full(len(pos), 24), np.zeros(len(pos), bool))
+
+
 def _mixed_check_data():
     """Two 3 Mb chromosomes of depth-40 samples with missing calls: each
     site keeps 20-40 of them (hypergeometric subsample), 30% folded, so
@@ -1526,34 +1985,56 @@ def phase_check(dev):
     from fscl_tpu_torch.engine import scan_genome, scan_permute
     from fscl_tpu_torch.engine.permute import PermuteConfig
     from fscl_tpu_torch.engine.scan import ScanConfig, make_scan_hist_tables
+    from fscl_tpu_torch.ops import lattice as TL
 
-    scan_cfg = ScanConfig(eval_range=1500, small_grid_sp=10000,
-                          large_grid_sp=200000, exact_step_max=1.0,
-                          selection_bf16=False)
-    perm_cfg = PermuteConfig(n_permute=48, seed=3, hist_bf16=False,
-                             scan_width_mb=0.1)
     out = {}
-    # (data, CLR/threshold tolerance, near-tie band): single-depth with
-    # the one-hot bounds; mixed-depth f32 weight sums add the rounding of
-    # sqrt(W)-sized prefixes, hence the wider bounds (tests/
-    # test_torch_mixed_depth.py states the same ones against fscl_tpu)
-    for label, data, tol, band in (
-            ("single-depth", _single_depth_check_data(), 1e-3, 1e-4),
-            ("mixed-depth", _mixed_check_data(), MIXED_TOL, MIXED_BAND)):
+    # (label, data, CLR/threshold tolerance, near-tie band, grid, scan and
+    # permutation settings, whether it takes the lattice path): single-
+    # depth with the one-hot bounds; mixed-depth f32 weight sums add the
+    # rounding of sqrt(W)-sized prefixes, hence the wider bounds (tests/
+    # test_torch_mixed_depth.py states the same ones against fscl_tpu);
+    # the single-depth input again through --no-hist, and a dense-cluster
+    # input past the hist gate (tests/test_torch_lattice.py's settings),
+    # both on the lattice path
+    small = (dict(eval_range=1500, small_grid_sp=10000,
+                  large_grid_sp=200000, exact_step_max=1.0,
+                  selection_bf16=False),
+             dict(n_permute=48, seed=3, hist_bf16=False, scan_width_mb=0.1))
+    cluster = (dict(eval_range=500, small_grid_sp=50_000_000,
+                    large_grid_sp=250_000_000),
+               dict(n_permute=16, chunk_replicates=16, seed=2))
+    for label, data, tol, band, grid, (skw, pkw), lattice in (
+            ("single-depth", _single_depth_check_data(), 1e-3, 1e-4, 1024,
+             small, False),
+            ("mixed-depth", _mixed_check_data(), MIXED_TOL, MIXED_BAND,
+             1024, small, False),
+            ("single-depth --no-hist", _single_depth_check_data(), 1e-3,
+             1e-4, 1024, (dict(small[0], use_hist=False),
+                          dict(small[1], use_hist=False)), True),
+            ("dense cluster past the hist gate", _dense_cluster_check_data(),
+             1e-3, 1e-4, 256, cluster, True)):
+        scan_cfg = ScanConfig(**skw)
+        perm_cfg = PermuteConfig(**pkw)
         fsp = background_fsp(data.obs_freq, data.depth_p, data.folded,
                              data.sample_depths)
-        tables = build_tables(fsp, data.sample_depths, grid_points=1024)
+        tables = build_tables(fsp, data.sample_depths, grid_points=grid)
         data.attach_model(tables)
-        compressed = make_scan_hist_tables(
-            data, tables, scan_cfg.hist_alphas, device="cpu"
-        ).weights is not None
+        ht = make_scan_hist_tables(data, tables, scan_cfg.hist_alphas,
+                                   device="cpu")
+        if (ht is None) != label.startswith("dense cluster"):
+            fail(f"check: {label} data hist gate closed={ht is None}")
+        compressed = ht is not None and ht.weights is not None
         if compressed != (label == "mixed-depth"):
             fail(f"check: {label} data compressed={compressed}")
         res = {}
+        TL.lattice_clr_launches = 0
         for d in (dev, "cpu"):
             r = scan_genome(data, tables, scan_cfg, device=d)
             scan_permute(data, tables, r, scan_cfg, perm_cfg, device=d)
             res[str(d)] = r
+        if (TL.lattice_clr_launches > 0) != lattice:
+            fail(f"check {label}: {TL.lattice_clr_launches} lattice kernel "
+                 "launches")
         g, c = res[str(dev)], res["cpu"]
         d_clr = float(np.abs(g.clr - c.clr).max())
         d_thr = float(np.abs(g.stat_threshold - c.stat_threshold).max())
@@ -1789,6 +2270,8 @@ def phase_profile(dev):
     from fscl_tpu_torch.io import load_snp_input
 
     d20, t20, s20 = _task_20k()
+    s20_nohist = ScanConfig(small_grid_sp=1000, large_grid_sp=100000,
+                            use_hist=False)
     rdp_cfg = PermuteConfig(n_permute=64, chunk_replicates=RDP_CHUNK,
                             seed=1, hist_bf16=False)
     dg = genome_data()
@@ -1800,6 +2283,10 @@ def phase_profile(dev):
     runs = [
         ("20k", d20, t20, s20,
          PermuteConfig(n_permute=50, chunk_replicates=32, seed=1),
+         TP.RDP_FORCE, ("scan", "permute")),
+        ("20k_nohist", d20, t20, s20_nohist,
+         PermuteConfig(n_permute=50, chunk_replicates=32, seed=1,
+                       use_hist=False),
          TP.RDP_FORCE, ("scan", "permute")),
         ("genome", dg, tg, ScanConfig(), PermuteConfig(n_permute=16),
          TP.RDP_FORCE, ("scan", "permute")),
@@ -1850,6 +2337,8 @@ def phase_profile(dev):
                       if "window_clr_f32_kernel" in k
                       or "reduce_splits" in k) / 1e6
             gemm = sum(t for t, _, k in kern if "gemm" in k.lower()) / 1e6
+            lat = sum(t for t, _, k in kern
+                      if "lattice_clr_kernel" in k) / 1e6
             table = ka.table(sort_by="self_device_time_total", row_limit=40)
             (OUT / f"profile_{label}_{stage}.txt").write_text(table)
             log(f"[profile] {label} {stage}: wall {wall:.3f}s (profiled), "
@@ -1862,7 +2351,8 @@ def phase_profile(dev):
                 f"operand {win * 1e3:.3f} ms ({100 * win / busy:.1f}%); "
                 f"matmul (gemm) {gemm * 1e3:.3f} ms "
                 f"({100 * gemm / busy:.1f}%); row gather {gath * 1e3:.3f} "
-                f"ms ({100 * gath / busy:.1f}%)")
+                f"ms ({100 * gath / busy:.1f}%); lattice kernel "
+                f"{lat * 1e3:.3f} ms ({100 * lat / max(busy, 1e-12):.1f}%)")
             for t, n, key in sorted(kern, reverse=True)[:10]:
                 log(f"[profile]   {t / 1e3:10.2f} ms  {n:7d}x  {key[:90]}")
 
@@ -1936,6 +2426,8 @@ def main():
     if (r20["w_seg_p"], r20["sub_rep"], r20["n_rows"]) != (20480, sub_20k, 56):
         fail(f"20k main path ran at w={r20['w_seg_p']} P={r20['sub_rep']} "
              f"R={r20['n_rows']}, not the shape phase 3 checked")
+    rl = phase_20k_nohist(dev)
+    r1024 = phase_20k_grid1024(dev)
     rg = phase_genome(dev)
     if rg["stacks"] != [(36864, 22, sub_gen)] or rg["n_rows"] != 48:
         fail(f"genome main path ran at {rg['stacks']} R={rg['n_rows']}, "
@@ -1961,7 +2453,10 @@ def main():
     detail = dict(device=name, nvidia_smi=smi, kernel=kern, wkernel=wkern,
                   rkernel=rkern, pkernel=pkern, gkernel=gkern,
                   okernel=okern, fkernel=fkern, f32kernel=f32kern,
-                  bench_20k=r20, genome=rg, mixed100k=rm, check=chk, rdp=rr)
+                  lkernel=rl["lkernel"] + r1024["lkernel"], bench_20k=r20,
+                  bench_20k_nohist=rl,
+                  bench_20k_grid1024=r1024, genome=rg, mixed100k=rm,
+                  check=chk, rdp=rr)
     (OUT / "smoke.json").write_text(json.dumps(detail, indent=1) + "\n")
 
     def entry(name, source, replaces, launches, runs, main=None, note=None,
@@ -2038,6 +2533,16 @@ def main():
               max_err_f64_ratio=max(
                   k["err_f64"] / max(k["err_f64_matmul"], 1e-300)
                   for k in f32kern)),
+        # main shape: the 20k --no-hist scan's dense coarse call; launches
+        # over that run's scan and permutations
+        entry("clr_lattice", "lattice_clr.cu",
+              "fscl_tpu/ops/lattice.py:94-155 clr_lattice (XLA-fused, no "
+              "Pallas kernel)",
+              rl["launches"]["scan"] + rl["launches"]["permute"],
+              rl["lkernel"] + r1024["lkernel"],
+              note="no single PyTorch call computes the per-site lattice "
+                   "CLR",
+              grid1024_tie_launches=r1024["launches"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,16 @@
 """Command-line driver with the flags of fscl_tpu/cli.py, on PyTorch.
 
 Pipeline (fscl.c:272-341): options -> SNP input -> background SFS ->
-sweep-model tables -> null model -> hist scan -> hist permutations ->
-output.  ``--device`` (default ``cuda``) picks where the scan and the
-permutations run; ``cpu`` runs the plain PyTorch versions of the kernels.
+sweep-model tables -> null model -> scan -> permutations -> output.
+``--device`` (default ``cuda``) picks where the scan and the permutations
+run; ``cpu`` runs the plain PyTorch versions of the kernels.
 
 Mixed-depth data (more than ROWS_MAX distinct table rows, up to
-COMPRESS_ROWS_MAX) runs on the SVD-compressed hist tables.  Flags and
-inputs that need a path this port lacks raise NotPortedError and never
-fall back: -m (ms input), --no-hist, --checkpoint, -b, --output-bs,
-datasets the hist geometry does not cover, and tie stages coarser than
-exact_step_max.
+COMPRESS_ROWS_MAX) runs on the SVD-compressed hist tables.  --no-hist,
+and datasets past the hist gate, run the per-site lattice path; its
+packs are built only when a run takes it.  Flags that need a path this
+port lacks raise NotPortedError and never fall back: -m (ms input),
+--checkpoint, -b, --output-bs.
 """
 
 from __future__ import annotations
@@ -88,14 +88,15 @@ def build_parser():
     a("--eval-range", type=int, default=81920,
       help="+- SNPs in each candidate evaluation window")
     a("--bp-resl", type=int, default=128, help="position refinement resolution (bp)")
-    a("--chunk", type=int, default=32, help="candidate chunk size (lattice path)")
+    a("--chunk", type=int, default=32, help="accepted for compatibility: the lattice "
+      "kernel takes a stage's candidates in one launch")
     a("--chunk-replicates", type=int, default=16,
       help="permutation replicates evaluated per device round")
     a("--seed", type=int, default=0xFD821A6,
       help="RNG seed (reference default is this hard-coded value, fscl.c:134)")
     a("--no-refine", action="store_true", help="skip bp_resl position refinement")
     a("--no-hist", action="store_true",
-      help="per-site lattice kernel everywhere (not yet ported)")
+      help="per-site lattice kernel everywhere")
     a("--checkpoint", help="permutation checkpoint file (not yet ported)")
     a("--compat-mirror-unfolded", action="store_true",
       help="replicate the reference's mirrored accumulation of unfolded sites "
@@ -142,7 +143,7 @@ def validate_args(args):
         for s in stop:
             logmsg(MSG_ERROR, "Error: %s", s)
         raise SystemExit(255)
-    for flag, on in (("-m/--msfile", args.msfile), ("--no-hist", args.no_hist),
+    for flag, on in (("-m/--msfile", args.msfile),
                      ("--checkpoint", args.checkpoint),
                      ("-b/--background-spectrum", args.background_spectrum),
                      ("--output-bs", args.output_bs)):
@@ -182,6 +183,7 @@ def run_pipeline(data, args, device):
         large_grid_sp=args.coarse_grid_spacing,
         chunk=args.chunk,
         refine=not args.no_refine,
+        use_hist=not args.no_hist,
     )
     result = scan_genome(data, tables, scan_cfg, device=device)
     if args.n_permute > 0:
@@ -192,6 +194,7 @@ def run_pipeline(data, args, device):
             chunk_replicates=args.chunk_replicates,
             seed=args.seed,
             alpha_factor=args.alpha_factor,
+            use_hist=not args.no_hist,
         )
 
         def dump():

@@ -1,9 +1,9 @@
-"""Carry hist state across from the JAX package as numpy.
+"""Carry hist and lattice state across from the JAX package as numpy.
 
 With these, a test feeds both packages identical table packs and run
-geometry: the JAX HistTables / HistPoints fields, read back as numpy
-arrays (``np.asarray``), become the port's dataclasses on ``device``
-(``cuda`` unless the caller asks for ``cpu``).
+geometry: the JAX HistTables / HistPoints / LatticeTables fields, read
+back as numpy arrays (``np.asarray``), become the port's objects on
+``device`` (``cuda`` unless the caller asks for ``cpu``).
 """
 
 from __future__ import annotations
@@ -13,6 +13,7 @@ import torch
 
 from .device import parse_device
 from .ops.histclr import HistPoints, HistTables
+from .ops.lattice import LatticeTables
 
 
 def hist_tables_from_numpy(*, t3, row_map, rows_used, lalpha, offsets,
@@ -51,3 +52,12 @@ def hist_points_from_numpy(bounds, fbar, *, n_cand=None, n_real=None,
         n_cand=C if n_cand is None else int(n_cand),
         n_real=C if n_real is None else int(n_real),
     )
+
+
+def lattice_tables_from_numpy(*, grid_points, pack_coarse, pack_fine,
+                              pack_ultra, m_coarse, m_fine, m_ultra,
+                              device="cuda"):
+    """The port's LatticeTables from the JAX LatticeTables fields: its
+    three [n_rows*G, 2A] packs and their offsets."""
+    return LatticeTables(grid_points, (pack_coarse, pack_fine, pack_ultra),
+                         (m_coarse, m_fine, m_ultra), device=device)

@@ -1,6 +1,6 @@
-"""Block-permutation significance engine with adaptive pruning, hist path
-(port of fscl_tpu/engine/permute.py:_scan_permute_hist), in exact one-hot
-and in compressed mixed-depth mode.
+"""Block-permutation significance engine with adaptive pruning (port of
+fscl_tpu/engine/permute.py): the hist path (_scan_permute_hist), in exact
+one-hot and in compressed mixed-depth mode, and the lattice path.
 
 Reference: scan_permute (scan-chromosome.c:336-652).  A
 point counts an exceedance when a permuted replicate's statistic is >=
@@ -34,6 +34,14 @@ the pruning RNG is consumed in the same order.  ``last_stats`` counts the
 last run's dispatches.  Not ported: speculative dispatch, the
 group-granular statistic, the warm pool, the sigma element cap,
 checkpointing and the device mesh.
+
+Lattice path (fscl_tpu/engine/permute.py:460-644), under --no-hist
+(use_hist=False) and for datasets past the hist gate: the statistic is
+the per-interval max over the same Jf-point position grid of the coarse
+and fine lattice alpha stages (ops/lattice.py, no ultra stage), per
+chromosome and POINT_BUCKET points, every replicate of a chunk of
+chunk_replicates in one kernel launch per stage.  Its sigma is the same
+group stream as the hist path's, expanded to sites.
 """
 
 from __future__ import annotations
@@ -68,13 +76,20 @@ from ..ops.histclr import (
     make_row_index_group_table,
     rdp_clr_reps,
 )
+from ..ops.lattice import two_stage_lattice_max
 from ..ops.permute import (
     PERM_GROUP,
     block_permutation_groups,
     block_permutation_runs,
+    expand_group_sigma,
     runs_from_sigma,
 )
-from .scan import get_hist_device_arrays, make_scan_hist_tables
+from ..ops.windows import candidate_windows
+from .scan import (
+    get_hist_device_arrays,
+    get_lattice_tables,
+    make_scan_hist_tables,
+)
 
 CLR_NULL_DIST_SAVE = 10000  # scan-chromosome.c:227
 PRUNE_THRESHOLD = 20  # scan-chromosome.c:490
@@ -90,9 +105,11 @@ PS_BUDGET_BYTES = 2_400_000_000
 # fscl_tpu/engine/permute.py:93-102); "on"/"off" force it
 RDP_FORCE = os.environ.get("FSCL_RDP", "auto")
 RDP_BOUNDS_FACTOR = 24
+POINT_BUCKET = 64  # scan points per lattice statistic call
 
 # dispatch counts of the last scan_permute call: chunks through the RDP
-# path and stacked statistic dispatches of the chunk loop
+# path, stacked statistic dispatches of the chunk loop, and lattice
+# statistic calls (thresholds and chunks)
 last_stats: dict = {}
 
 
@@ -108,7 +125,7 @@ class PermuteConfig:
     null_dist_save: int = CLR_NULL_DIST_SAVE
     alpha_factor: float = 1.0  # accepted and unused, like the reference
     checkpoint_path: str | None = None  # not ported
-    use_hist: bool = True  # False needs the lattice path (not ported)
+    use_hist: bool = True  # False: the lattice statistic
     hist_bf16: bool = True  # bf16 statistic contraction
     hist_positions: int = N_PERM_POS
     stat_densify: int | None = None
@@ -570,30 +587,31 @@ def scan_permute(data, tables, result, scan_cfg, cfg: PermuteConfig,
     the RDP path.  The defaults are this package's
     block_permutation_groups and block_permutation_runs, one stream; an
     injected sigma_source without runs_source gets the runs of its own
-    sigma (runs_from_sigma), so both paths see one stream.
+    sigma (runs_from_sigma), so both paths see one stream.  The lattice
+    path (use_hist=False, or a dataset past the hist gate) expands the
+    same group sigma to sites.
     """
     device = parse_device(device)
     if cfg.n_permute <= 0:
         return result
     if RDP_FORCE not in ("auto", "on", "off"):
         raise ValueError(f"FSCL_RDP={RDP_FORCE!r}: use auto, on or off")
-    if not cfg.use_hist:
-        raise NotPortedError(
-            "the lattice permutation path (--no-hist) is not yet ported"
-        )
     if cfg.checkpoint_path:
         raise NotPortedError("permutation checkpointing is not yet ported")
-    rows_used = np.unique(np.asarray(data.row))
-    max_n = max((cl.n_snps for cl in data.chr_limits), default=0)
-    geom_ok = all(
-        hist_geometry_ok(data.pos[cl.start_index : cl.start_index + cl.n_snps])
-        for cl in data.chr_limits if cl.n_snps > 0
-    )
-    if not (hist_supported(len(rows_used), max_n) and geom_ok):
-        raise NotPortedError(
-            f"this dataset ({len(rows_used)} distinct rows, {max_n} sites) "
-            "needs the lattice permutation path, which is not yet ported"
+    use_hist = cfg.use_hist
+    if use_hist:
+        rows_used = np.unique(np.asarray(data.row))
+        max_n = max((cl.n_snps for cl in data.chr_limits), default=0)
+        geom_ok = all(
+            hist_geometry_ok(
+                data.pos[cl.start_index : cl.start_index + cl.n_snps])
+            for cl in data.chr_limits if cl.n_snps > 0
         )
+        use_hist = hist_supported(len(rows_used), max_n) and geom_ok
+        if not use_hist:
+            logmsg(MSG_STATUS, "histogram permutation path unsupported here "
+                   "(%d distinct rows, %d sites); using the lattice path",
+                   len(rows_used), max_n)
     gpos = data.genome_pos()
     width_bp = cfg.scan_width_mb * 1e6
     if sigma_source is None:
@@ -612,9 +630,14 @@ def scan_permute(data, tables, result, scan_cfg, cfg: PermuteConfig,
             return runs_from_sigma(sigma_source(n, start))
 
     last_stats.clear()
-    last_stats.update(rdp_dispatches=0, stack_dispatches=0)
-    _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
-                       sigma_source, runs_source)
+    last_stats.update(rdp_dispatches=0, stack_dispatches=0,
+                      lattice_dispatches=0)
+    if use_hist:
+        _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn,
+                           device, sigma_source, runs_source)
+    else:
+        _scan_permute_lattice(data, tables, result, scan_cfg, cfg, dump_fn,
+                              device, sigma_source)
     bad = ~np.isfinite(result.clr)
     if bad.any():
         logmsg(MSG_WARN, "%d scan points with non-finite CLR", int(bad.sum()))
@@ -721,3 +744,125 @@ def _stack_chunk(hs, cfg, result, active, R, start, sigma_source):
         blocks.append((st.pts, st.stat(hs.table, sigma[:rp], cfg)[:R]))
         last_stats["stack_dispatches"] += 1
     return blocks
+
+
+class _ChrPermContext:
+    """One chromosome's positions on the device and its point ids, for the
+    lattice statistic (fscl_tpu/engine/permute.py:306-354)."""
+
+    def __init__(self, data, cl, scan_cfg, pts, Jf, device):
+        self.start = cl.start_index
+        self.n = cl.n_snps
+        self.pos_np = np.asarray(data.pos[self.start:self.start + self.n])
+        self.pos = torch.as_tensor(self.pos_np.astype(np.int32),
+                                   device=device)
+        self.point_ids = pts
+        self.Jf = Jf
+        self.eval_range = scan_cfg.eval_range
+        self.device = device
+
+    def build_batch(self, result, pts_subset):
+        """(cand, lo, hi) [len(pts_subset) * Jf] int32 on the device: the
+        statistic's position grid (fscl_tpu's perm_positions)."""
+        cand = _fine_cand(result, pts_subset, self.Jf)
+        _, lo, hi = candidate_windows(self.pos_np, cand, self.eval_range)
+        return tuple(torch.as_tensor(x.astype(np.int32), device=self.device)
+                     for x in (cand, lo, hi))
+
+
+def _stat_max(lt, row, null, pos, cand, lo, hi, *, n_pts, Jf):
+    """The lattice permutation statistic: per (replicate, interval), the
+    max CLR over the fixed Jf-point position grid of the coarse and fine
+    lattice alpha stages (no ultra stage, as
+    fscl_tpu/engine/permute.py:188-206).  row/null [Rr, n]; [Rr, n_pts]."""
+    clr, _ = two_stage_lattice_max(lt, row, pos, null, cand, lo, hi,
+                                   ultra=False)
+    last_stats["lattice_dispatches"] += 1
+    return clr.reshape(row.shape[0], n_pts, Jf).amax(2)
+
+
+def _scan_permute_lattice(data, tables, result, scan_cfg, cfg, dump_fn,
+                          device, sigma_source):
+    """The lattice branch of fscl_tpu/engine/permute.py:scan_permute
+    (:460-644): thresholds per POINT_BUCKET points of each chromosome,
+    then chunks of chunk_replicates replicates, pruned between chunks."""
+    rng = np.random.default_rng(cfg.seed)
+    t0 = time.monotonic()
+    lt = get_lattice_tables(tables, device)
+    Jf = stat_positions(cfg)
+    row_gen = torch.as_tensor(np.asarray(data.row, dtype=np.int32),
+                              device=device)
+    null_gen = torch.as_tensor(np.asarray(data.null_logl, dtype=np.float32),
+                               device=device)
+    W = row_gen.shape[0]
+    K = result.n_points
+    for i in range(K):
+        if result.null_clr[i] is None:
+            result.null_clr[i] = []
+    chr_ctx = []
+    threshold = np.zeros(K)
+    for c, cl in enumerate(data.chr_limits):
+        pts = np.where(result.chr_id == c)[0]
+        if len(pts) == 0:
+            continue
+        ctx = _ChrPermContext(data, cl, scan_cfg, pts, Jf, device)
+        chr_ctx.append(ctx)
+        sl = slice(ctx.start, ctx.start + ctx.n)
+        row, null = row_gen[None, sl], null_gen[None, sl]
+        for g0 in range(0, len(pts), POINT_BUCKET):
+            grp = pts[g0:g0 + POINT_BUCKET]
+            obs = _stat_max(lt, row, null, ctx.pos,
+                            *ctx.build_batch(result, grp), n_pts=len(grp),
+                            Jf=Jf)
+            threshold[grp] = obs[0].cpu().numpy()
+    _record_thresholds(result, np.arange(K), threshold)
+    logmsg(MSG_DEBUG1, "lattice permutation setup: %.1fs",
+           time.monotonic() - t0)
+
+    active = ~result.permute_finished.copy()
+    rounds_done = 0
+    with _InterruptState(dump_fn) as intr:
+        while active.any() and rounds_done < cfg.n_permute:
+            tr = time.monotonic()
+            R = min(cfg.chunk_replicates, cfg.n_permute - rounds_done)
+            sig8 = sigma_source(R, rounds_done)
+            if not isinstance(sig8, torch.Tensor):
+                sig8 = torch.from_numpy(np.array(sig8, dtype=np.int32))
+            sigma = expand_group_sigma(
+                sig8.to(device=device, dtype=torch.int64), W)
+            for ctx in chr_ctx:
+                act_all = ctx.point_ids[active[ctx.point_ids]]
+                if len(act_all) == 0:
+                    continue
+                idx = sigma[:, ctx.start:ctx.start + ctx.n]
+                row, null = row_gen[idx], null_gen[idx]  # [R, n]
+                groups = []
+                for g0 in range(0, len(act_all), POINT_BUCKET):
+                    act = act_all[g0:g0 + POINT_BUCKET]
+                    groups.append((act, _stat_max(
+                        lt, row, null, ctx.pos,
+                        *ctx.build_batch(result, act), n_pts=len(act),
+                        Jf=Jf)))
+                host = torch.cat([o for _, o in groups], 1).cpu().numpy()
+                off = 0
+                for act, _ in groups:
+                    _apply_round_updates(
+                        result, active, threshold, rng, cfg, act,
+                        host[:, off:off + len(act)], rounds_done, R,
+                    )
+                    off += len(act)
+            rounds_done += R
+            cr_logmsg(
+                MSG_STATUS,
+                "Scanning snp block permutations... %7d (%d scan pts "
+                "remaining)", rounds_done, int(active.sum()),
+            )
+            logmsg(MSG_DEBUG1, "lattice round chunk of %d: %.2fs", R,
+                   time.monotonic() - tr)
+            intr.maybe_dump()
+    logmsg(
+        MSG_STATUS,
+        "Scanning snp block permutations... finished (%d rounds).",
+        rounds_done,
+    )
+    return result

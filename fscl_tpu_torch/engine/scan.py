@@ -1,19 +1,22 @@
-"""Genome scan engine, hist path (port of fscl_tpu/engine/scan.py).
+"""Genome scan engine (port of fscl_tpu/engine/scan.py).
 
 Reference: scan_chromosome (scan-chromosome.c:228-329).
 The C bisects each coarse interval greedily to bp_resl; here every
 fine-grid position of every interval is evaluated in one batch (dense
-stage, plus SNP-anchored probes), the per-interval top branches are
-zoomed to sub-bp_resl pitch (multi-branch refine), and every probed
-position within hist_tie_margin of the winner is re-ranked on the
-decimate-2 lattice, whose winner is reported (tie resolution).  All
-stages evaluate the hist statistic (ops/histclr.py) on prefix sums built
-once per chromosome (once per chromosome and table on compressed
-mixed-depth tables, whose channels differ by table).
+stage), the per-interval top branches are zoomed to sub-bp_resl pitch
+(multi-branch refine), and the per-interval winners are reported.
 
-Not ported: the lattice kernel, used by fscl_tpu for --no-hist, for
-datasets the hist engine does not cover, and for tie pools whose finest
-hist table is coarser than exact_step_max.  Those raise NotPortedError.
+Two evaluators.  The hist path (ops/histclr.py, on prefix sums built
+once per chromosome, or once per chromosome and table on compressed
+mixed-depth tables) adds SNP-anchored probes to the dense stage and
+re-ranks every probed position within hist_tie_margin of the winner on
+the decimate-2 lattice (tie resolution); when even that table is
+coarser than exact_step_max, the tie pool is re-evaluated with the
+per-site lattice kernel instead.  The lattice path (ops/lattice.py,
+_ChromosomeBlock) runs every stage with the per-site kernel and its
+three-stage alpha search: under --no-hist (use_hist=False) and for
+datasets the hist engine does not cover (make_scan_hist_tables returns
+None).
 """
 
 from __future__ import annotations
@@ -24,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from .. import LOG_AD_MAX, LOG_AD_MIN, NotPortedError
+from .. import LOG_AD_MAX, LOG_AD_MIN
 from ..device import canonical, parse_device
 from ..ops.histclr import (
     build_hist_points,
@@ -34,6 +37,7 @@ from ..ops.histclr import (
     hist_supported,
     make_hist_device_arrays,
 )
+from ..ops.lattice import LatticeTables, two_stage_lattice_max
 from ..ops.windows import candidate_windows
 from ..utils.logging import MSG_DEBUG1, MSG_STATUS, cr_logmsg, logmsg
 
@@ -46,18 +50,20 @@ class ScanConfig:
     bp_resl: int = 128  # position refinement resolution (fscl.c:174)
     small_grid_sp: int = 1000  # fine grid pitch in bp (fscl.c:158)
     large_grid_sp: int = 100000  # coarse interval width in bp (fscl.c:159)
-    chunk: int = 32  # lattice-kernel candidate chunk (lattice not ported)
+    chunk: int = 32  # kept for config compatibility (the lattice kernel
+    # takes every candidate of a stage in one launch)
     hist_c_sub: int = 256  # kept for config compatibility
     refine: bool = True  # bp_resl refinement pass
     branch_k: int = 6  # dense-stage branches zoomed per interval
     branch_margin: float = 3.0
     dispatch_cap: int = 4096 * 24576  # kept for config compatibility
-    use_hist: bool = True  # False needs the lattice path (not ported)
+    use_hist: bool = True  # False: the per-site lattice path everywhere
     hist_alphas: int = 128
     hist_tie_margin: float = 2.0  # probes this close to the winner re-rank
     hist_tie_cap: int = 8  # tie-resolution candidates per interval
     tie_decimate: int = 2  # lattice decimation of the tie stage
-    exact_step_max: float = 0.035  # coarser tie tables need the lattice
+    exact_step_max: float = 0.035  # coarser tie tables: exact lattice
+    # re-evaluation of the tie pool
     refine_halfwidth: int = 4
     refine_subresl: bool = True
     dense_stride: int = 1
@@ -133,13 +139,15 @@ def _port_cache(data, device):
 
 def make_scan_hist_tables(data, tables, n_alpha=128, decimate=1,
                           device="cuda"):
-    """Genome-wide HistTables (memoized per (n_alpha, decimation)).
+    """Genome-wide HistTables (memoized per (n_alpha, decimation)), or
+    None where the hist engine does not cover the dataset (more than
+    COMPRESS_ROWS_MAX distinct rows, a chromosome over SITES_MAX sites,
+    or sites too dense for the block table): callers then take the
+    lattice path (fscl_tpu/engine/scan.py:710-761).
 
     Decimation is capped so the decimated lattice step stays under ~0.1
-    log_ad units (fscl_tpu/engine/scan.py:710).  Above ROWS_MAX distinct
-    rows the tables are SVD-compressed, their channels centred by the
-    dataset's site mix.  Datasets the hist engine does not cover raise
-    NotPortedError."""
+    log_ad units.  Above ROWS_MAX distinct rows the tables are
+    SVD-compressed, their channels centred by the dataset's site mix."""
     device = parse_device(device)
     base_step = (LOG_AD_MAX - LOG_AD_MIN) / max(tables.grid_points - 1, 1)
     decimate = max(1, min(int(decimate), int(0.1 / base_step)))
@@ -159,16 +167,10 @@ def make_scan_hist_tables(data, tables, n_alpha=128, decimate=1,
         data.pos[cl.start_index : cl.start_index + cl.n_snps]
         for cl in data.chr_limits if cl.n_snps > 0
     ])
-    if not hist_supported(len(rows_used), max_n):
-        raise NotPortedError(
-            f"{len(rows_used)} distinct table rows / {max_n} sites per "
-            "chromosome need the lattice path, which is not yet ported"
-        )
-    if qb is None or not extents:
-        raise NotPortedError(
-            "the hist block-search geometry does not cover this dataset; "
-            "the lattice path it needs is not yet ported"
-        )
+    if not (hist_supported(len(rows_used), max_n) and extents
+            and qb is not None):
+        cache[key] = None
+        return None
     cache["qbits"] = qb
     null_row = np.zeros(tables.table.shape[0])
     null_row[row] = np.asarray(data.null_logl)
@@ -191,6 +193,66 @@ def get_hist_device_arrays(data, ht, pos_np, start_index):
     if key not in cache:
         cache[key] = make_hist_device_arrays(ht, pos_np, qbits=qb)
     return cache[key]
+
+
+def get_lattice_tables(tables, device="cuda"):
+    """Memoized LatticeTables of a model on one device: the three packs
+    are built on the host and uploaded once per (tables, device), at the
+    first scan or permutation run that needs them."""
+    device = parse_device(device)
+    memo = getattr(tables, "_torch_lattice", None)
+    if memo is None:
+        memo = tables._torch_lattice = {}
+    if str(device) not in memo:
+        memo[str(device)] = LatticeTables.from_table(
+            tables.table, tables.grid_points, device=device)
+    return memo[str(device)]
+
+
+class _ChromosomeBlock:
+    """One chromosome's sites on the device for the lattice kernel
+    (fscl_tpu/engine/scan.py:227-367 without the dispatch-cap splitting:
+    every candidate of a stage goes in one launch)."""
+
+    def __init__(self, data, cl, lt):
+        sl = slice(cl.start_index, cl.start_index + cl.n_snps)
+        self.lt = lt
+        self.pos_np = np.asarray(data.pos[sl])
+        cache = _port_cache(data, lt.device)
+        key = ("blk", cl.start_index, cl.n_snps)
+        if key not in cache:
+            dev = lt.device
+            cache[key] = (
+                torch.as_tensor(self.pos_np.astype(np.int32), device=dev),
+                torch.as_tensor(np.asarray(data.row[sl], dtype=np.int32),
+                                device=dev)[None],
+                torch.as_tensor(np.asarray(data.null_logl[sl],
+                                           dtype=np.float32),
+                                device=dev)[None],
+            )
+        self.pos, self.row, self.null = cache[key]
+
+    def eval_device(self, cand_flat, cfg):
+        """[2, P] device (max CLR, lalpha) of the three-stage lattice
+        alpha search at each candidate position."""
+        _, lo, hi = candidate_windows(self.pos_np, cand_flat, cfg.eval_range)
+        cand, lo, hi = (torch.as_tensor(np.asarray(x).astype(np.int32),
+                                        device=self.lt.device)
+                        for x in (cand_flat, lo, hi))
+        clr, la = two_stage_lattice_max(self.lt, self.row, self.pos,
+                                        self.null, cand, lo, hi)
+        return torch.stack([clr[0], la[0]])
+
+
+def _drain(pend, flats):
+    """One readback of per-chromosome [2, n] device results; [(clr, la)]."""
+    host = torch.cat(pend, 1).cpu().numpy() if pend else None
+    outs, off = [], 0
+    for f in flats:
+        n = len(f)
+        outs.append((host[0, off:off + n], host[1, off:off + n]))
+        off += n
+    return outs
 
 
 def _dataset_mod16(data, ht):
@@ -312,14 +374,8 @@ class _FusedHistEval:
 
     def eval_states(self, states, flats):
         """Evaluate every chromosome's flat; one readback; [(clr, la)]."""
-        pend = [self._dispatch(st, f) for st, f in zip(states, flats)]
-        host = torch.cat(pend, 1).cpu().numpy() if pend else None
-        outs, off = [], 0
-        for f in flats:
-            n = len(f)
-            outs.append((host[0, off:off + n], host[1, off:off + n]))
-            off += n
-        return outs
+        return _drain([self._dispatch(st, f) for st, f in zip(states, flats)],
+                      flats)
 
 
 def _snp_probe_positions(data, tables, st, cfg, row_gain=None):
@@ -383,11 +439,12 @@ def _tie_candidates(st, cfg):
 class _ChrScanState:
     """Per-chromosome mutable state for the pipelined scan."""
 
-    def __init__(self, c, cl, data, cfg, stride=1):
+    def __init__(self, c, cl, data, cfg, blk=None, stride=1):
         self.c = c
         self.cl = cl
         self.data = data
         self.stride = stride
+        self.blk = blk  # lattice evaluator (the lattice path)
         sl = slice(cl.start_index, cl.start_index + cl.n_snps)
         self.pos_np = np.asarray(data.pos[sl])
         self.cand, self.valid, self.istart, self.iend = (
@@ -404,22 +461,15 @@ class _ChrScanState:
         self.cand_x = self.owner_x = None
 
 
-def scan_genome(data, tables, cfg: ScanConfig, device="cuda") -> ScanResult:
-    """Scan all chromosomes; returns one scan point per coarse interval.
-
-    All chromosomes advance through each stage (dense grid, refine
-    rounds, tie resolution) together, with one host readback per stage.
-    """
-    t0 = time.monotonic()
-    device = parse_device(device)
-    if not cfg.use_hist:
-        raise NotPortedError(
-            "the per-site lattice scan (--no-hist) is not yet ported"
-        )
-    hist_ht = make_scan_hist_tables(
-        data, tables, cfg.hist_alphas, decimate=cfg.hist_decimate,
-        device=device,
-    )
+def _tie_stage(data, tables, cfg, states, hist_ht, device):
+    """Tie pool: every probed position within hist_tie_margin of the
+    selection winner, re-ranked on the (nearly) undecimated hist lattice,
+    or, when even that table's step exceeds exact_step_max, re-evaluated
+    with the per-site lattice kernel; its winner is reported.  Without a
+    finer tie table (the selection table is already at tie_decimate) the
+    refine winners stand."""
+    for st in states:
+        st.cand_x, st.owner_x = _tie_candidates(st, cfg)
     ht1 = (
         make_scan_hist_tables(
             data, tables, cfg.hist_alphas, decimate=cfg.tie_decimate,
@@ -430,18 +480,54 @@ def scan_genome(data, tables, cfg: ScanConfig, device="cuda") -> ScanResult:
     if ht1 is hist_ht:
         ht1 = None
     ht_report = ht1 if ht1 is not None else hist_ht
+    flats = [st.cand_x for st in states]
     if float(ht_report.step) > cfg.exact_step_max:
-        raise NotPortedError(
-            f"tie-stage lattice step {ht_report.step:.4g} exceeds "
-            f"exact_step_max={cfg.exact_step_max}: the exact lattice "
-            "re-evaluation is not yet ported (use more --grid-points)"
+        for st in states:
+            if st.blk is None:
+                st.blk = _ChromosomeBlock(data, st.cl,
+                                          get_lattice_tables(tables, device))
+        outs = _drain([st.blk.eval_device(f, cfg)
+                       for st, f in zip(states, flats)], flats)
+    elif ht1 is not None:
+        outs = _FusedHistEval(ht1, data, cfg).eval_states(states, flats)
+    else:
+        return
+    for st, (clr, la) in zip(states, outs):
+        _report_pool_max(st, st.cand_x, clr, la)
+
+
+def scan_genome(data, tables, cfg: ScanConfig, device="cuda") -> ScanResult:
+    """Scan all chromosomes; returns one scan point per coarse interval.
+
+    All chromosomes advance through each stage (dense grid, refine
+    rounds, tie resolution) together, with one host readback per stage.
+    The lattice tables are built (get_lattice_tables) only when the run
+    takes the lattice path or its exact tie stage.
+    """
+    t0 = time.monotonic()
+    device = parse_device(device)
+    hist_ht = (
+        make_scan_hist_tables(
+            data, tables, cfg.hist_alphas, decimate=cfg.hist_decimate,
+            device=device,
         )
-    fused = _FusedHistEval(hist_ht, data, cfg, mm_bf16=cfg.selection_bf16)
-    stride = max(int(cfg.dense_stride), 1) if cfg.refine else 1
+        if cfg.use_hist else None
+    )
+
+    fused = (
+        _FusedHistEval(hist_ht, data, cfg, mm_bf16=cfg.selection_bf16)
+        if hist_ht is not None else None
+    )
+    stride = (
+        max(int(cfg.dense_stride), 1)
+        if (cfg.refine and hist_ht is not None) else 1
+    )
 
     states = []
     for c, cl in enumerate(data.chr_limits):
-        st = _ChrScanState(c, cl, data, cfg, stride=stride)
+        blk = (_ChromosomeBlock(data, cl, get_lattice_tables(tables, device))
+               if hist_ht is None else None)
+        st = _ChrScanState(c, cl, data, cfg, blk=blk, stride=stride)
         cr_logmsg(
             MSG_STATUS,
             "Scanning chromosome %s - %d intervals x %d candidates",
@@ -450,9 +536,15 @@ def scan_genome(data, tables, cfg: ScanConfig, device="cuda") -> ScanResult:
         states.append(st)
 
     def eval_stage(get_cand):
-        return fused.eval_states(states, [get_cand(st) for st in states])
+        """get_cand(st) for every chromosome, one readback: the hist
+        statistic, or the lattice search on the lattice path."""
+        flats = [get_cand(st) for st in states]
+        if fused is not None:
+            return fused.eval_states(states, flats)
+        return _drain([st.blk.eval_device(f, cfg)
+                       for st, f in zip(states, flats)], flats)
 
-    if cfg.snp_probes:
+    if hist_ht is not None and cfg.snp_probes:
         row_all = np.asarray(data.row)
         null_row = np.zeros(tables.table.shape[0])
         null_row[row_all] = np.asarray(data.null_logl)
@@ -564,20 +656,11 @@ def scan_genome(data, tables, cfg: ScanConfig, device="cuda") -> ScanResult:
     logmsg(MSG_DEBUG1, "scan refine stage: %.2fs", time.monotonic() - t0)
     t0 = time.monotonic()
 
-    # tie pool: every probed position within hist_tie_margin of the
-    # selection winner, re-ranked on the (nearly) undecimated lattice;
-    # its winner is reported
-    for st in states:
-        st.cand_x, st.owner_x = _tie_candidates(st, cfg)
-    if ht1 is not None:
-        fused1 = _FusedHistEval(ht1, data, cfg)
-        outs1 = fused1.eval_states(states, [st.cand_x for st in states])
-        for st, (c1, l1) in zip(states, outs1):
-            _report_pool_max(st, st.cand_x, c1, l1)
-        logmsg(
-            MSG_DEBUG1, "scan tie-resolution stage: %.2fs (%d candidates)",
-            time.monotonic() - t0, sum(len(st.cand_x) for st in states),
-        )
+    if hist_ht is not None:
+        _tie_stage(data, tables, cfg, states, hist_ht, device)
+        logmsg(MSG_DEBUG1, "scan tie stage: %.2fs (%d candidates)",
+               time.monotonic() - t0,
+               sum(len(st.cand_x) for st in states))
 
     out = {k: [] for k in (
         "chr_id", "sweep_pos", "clr", "lalpha", "nearest", "window_start",

@@ -44,7 +44,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import LOG_AD_MAX, LOG_AD_MIN, NotPortedError
+from .. import LOG_AD_MAX, LOG_AD_MIN
 from ..device import parse_device
 from .gather import row_gather
 from .permute import PERM_GROUP, sigma_from_runs
@@ -124,9 +124,9 @@ def build_hist_tables(table_np, grid_points, null_row, rows_used, extent_bp,
     """
     device = parse_device(device)
     if len(rows_used) > COMPRESS_ROWS_MAX:
-        raise NotPortedError(
-            f"{len(rows_used)} distinct table rows (> {COMPRESS_ROWS_MAX}) "
-            "need the lattice path, which is not yet ported"
+        raise ValueError(
+            f"{len(rows_used)} distinct table rows (> {COMPRESS_ROWS_MAX}): "
+            "past the hist gate, the engines take the lattice path"
         )
     if compress is None:
         compress = len(rows_used) > ROWS_MAX
@@ -461,9 +461,9 @@ def make_hist_device_arrays(ht: HistTables, pos_np, qbits=None):
 
     qbits, idx_tab = _choose_block_table(pos, qbits=qbits)
     if qbits is None:
-        raise NotPortedError(
-            "site density too high for the block index table; the lattice "
-            "path this dataset needs is not yet ported"
+        raise ValueError(
+            "site density too high for the block index table: past the "
+            "hist gate, the engines take the lattice path"
         )
     nb_pad = max(-(-len(idx_tab) // 4096) * 4096, 4096)
     idx_tab = np.pad(idx_tab, (0, nb_pad - len(idx_tab)), constant_values=n)

@@ -7,10 +7,18 @@ Stated tolerances:
     256 both caps are 1 and no tie stage runs): CLR within 1e-3
     absolute, lalpha equal, sweep_pos equal wherever the JAX tie-stage
     winner beats its runner-up by more than 1e-3;
+  * the two scans this port once refused, the lattice path
+    (use_hist=False) and a hist scan at grid 1024 whose tie step (0.047)
+    exceeds exact_step_max (the exact lattice tie stage): CLR within
+    1e-5 |CLR| + 1e-3 (inside tests/test_torch_lattice.py's 1e-5 S +
+    1e-3, S >= |CLR|), sweep_pos and lalpha equal off listed near-ties
+    (intervals whose two CLRs lie within that tolerance);
   * the CLI (subprocess, --device cpu) never imports jax, and its TSV has
     the rows of fscl_tpu's CLI with every CLR within 0.5, the parity band
-    of PARITY.md.  Permutation p-values differ by design (each package
-    draws its own permutations) and are not compared.
+    of PARITY.md; with --no-hist (the lattice path in both packages) every
+    printed CLR (two decimals) within 0.01 and positions equal off
+    near-ties.  Permutation p-values differ by design (each package draws
+    its own permutations) and are not compared.
 """
 
 import os
@@ -90,13 +98,25 @@ def _interval_index(chr_id):
     return out
 
 
-def test_scan_refuses_unported_paths(dataset):
+def test_scan_refuses_unported_paths(dataset, monkeypatch):
+    """The two scans the port refused before the lattice path (the name
+    is kept): --no-hist, and grid 1024 (tie step 0.047 > exact_step_max
+    0.035, the exact lattice tie stage).  Both now run and match the JAX
+    package."""
     data, tables = dataset
-    with pytest.raises(NotPortedError):
-        scan_genome(data, tables, ScanConfig(**SCAN, use_hist=False),
-                    device="cpu")
-    with pytest.raises(NotPortedError):  # grid 1024: tie step 0.047 > 0.035
-        scan_genome(data, tables, ScanConfig(eval_range=1500), device="cpu")
+    monkeypatch.setattr(jax, "device_count", lambda: 1)
+    for kw in (dict(SCAN, use_hist=False), dict(eval_range=1500)):
+        want = JS.scan_genome(data, tables, JS.ScanConfig(**kw))
+        got = scan_genome(data, tables, ScanConfig(**kw), device="cpu")
+        assert got.n_points == want.n_points > 0
+        np.testing.assert_array_equal(got.interval_start,
+                                      want.interval_start)
+        tol = 1e-5 * np.abs(want.clr) + 1e-3
+        assert (np.abs(got.clr - want.clr) <= tol).all(), kw
+        differ = ((got.sweep_pos != want.sweep_pos)
+                  | (got.lalpha != want.lalpha))
+        print(kw, "near-tie intervals:", list(np.nonzero(differ)[0]))
+        assert differ.mean() <= 0.1, kw
 
 
 @pytest.fixture(scope="module")
@@ -166,7 +186,32 @@ def test_cli_device_cuda_without_card_raises(snp_file, tmp_path):
               "--device", "cuda", "-v", "0"])
 
 
-@pytest.mark.parametrize("flag", [["--no-hist"], ["--checkpoint", "c.npz"],
+def test_cli_no_hist_matches_jax(snp_file, tmp_path, monkeypatch):
+    """--no-hist: the lattice scan and permutations in both CLIs."""
+    from fscl_tpu.cli import main as jax_main
+    from fscl_tpu_torch.cli import main
+
+    args = ["-f", str(snp_file), *CLI_ARGS, "--no-hist"]
+    assert main([*args, "-o", str(tmp_path / "port.tsv"),
+                 "--device", "cpu"]) == 0
+    monkeypatch.setattr(jax, "device_count", lambda: 1)
+    assert jax_main([*args, "-o", str(tmp_path / "jax.tsv")]) == 0
+    rows_p = _read_tsv(tmp_path / "port.tsv")
+    rows_j = _read_tsv(tmp_path / "jax.tsv")
+    assert len(rows_p) == len(rows_j) > 0
+    assert [r[0] for r in rows_p] == [r[0] for r in rows_j]
+    clr_p = np.array([float(r[2]) for r in rows_p])
+    clr_j = np.array([float(r[2]) for r in rows_j])
+    np.testing.assert_allclose(clr_p, clr_j, rtol=0, atol=0.01)
+    moved = [i for i, (a, b) in enumerate(zip(rows_p, rows_j))
+             if a[1] != b[1]]
+    print("near-tie positions:", moved)
+    assert len(moved) <= 0.1 * len(rows_p)
+    n_p = np.array([int(r[5]) for r in rows_p])
+    assert (n_p > 0).all() and (n_p <= 24).all()
+
+
+@pytest.mark.parametrize("flag", [["--checkpoint", "c.npz"],
                                   ["-b", "bs.txt"], ["--output-bs", "o.bs"]])
 def test_cli_unported_flags_raise(snp_file, tmp_path, flag):
     from fscl_tpu_torch.cli import main

@@ -129,9 +129,14 @@ def _entry_points():
     from fscl_tpu_torch.convert import (
         hist_points_from_numpy,
         hist_tables_from_numpy,
+        lattice_tables_from_numpy,
     )
     from fscl_tpu_torch.engine import scan_genome, scan_permute
-    from fscl_tpu_torch.engine.scan import make_scan_hist_tables
+    from fscl_tpu_torch.engine.scan import (
+        get_lattice_tables,
+        make_scan_hist_tables,
+    )
+    from fscl_tpu_torch.ops.lattice import LatticeTables
     from fscl_tpu_torch.ops.histclr import build_hist_tables, build_pos_prefix
     from fscl_tpu_torch.ops.permute import (
         block_permutation_groups,
@@ -155,6 +160,12 @@ def _entry_points():
             t3=z, row_map=[0], rows_used=[0], lalpha=[0.0], offsets=[0],
             n_cells=1, n_rows=8, n_alpha=1, step=0.1, grid_points=16),
         "hist_points_from_numpy": lambda: hist_points_from_numpy(z, z),
+        "get_lattice_tables": lambda: get_lattice_tables(None),
+        "LatticeTables.from_table": lambda: LatticeTables.from_table(
+            np.zeros((2, 16), np.float32), 16),
+        "lattice_tables_from_numpy": lambda: lattice_tables_from_numpy(
+            grid_points=16, pack_coarse=z, pack_fine=z, pack_ultra=z,
+            m_coarse=[0], m_fine=[0], m_ultra=[0]),
     }
 
 
@@ -162,7 +173,8 @@ def _entry_points():
     "scan_genome", "scan_permute", "make_scan_hist_tables",
     "build_hist_tables", "build_pos_prefix", "block_permutation_groups",
     "block_permutation_runs", "hist_tables_from_numpy",
-    "hist_points_from_numpy",
+    "hist_points_from_numpy", "get_lattice_tables",
+    "LatticeTables.from_table", "lattice_tables_from_numpy",
 ])
 def test_entry_point_defaults_to_the_card(name):
     if torch.cuda.is_available():
