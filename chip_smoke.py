@@ -100,10 +100,18 @@ non-zero:
   3h. lkernel - the lattice kernel (clr_lattice, csrc/lattice_clr.cu)
                against its plain version within 1e-5 S + 1e-4 per entry
                (S = 2 sum |y - null|), dummy candidates 0, repeat launches
-               bitwise, at the inputs phase 4b's first run gave it: the
-               scan's dense coarse, fine and ultra calls and the first
-               permutation chunk's coarse and fine calls; kernel and plain
-               timed; and the same at phase 4c's tie-stage calls
+               bitwise, an entry's bits independent of the other
+               candidates and replicates of its launch (every 7th
+               candidate and the last replicate launched alone; at the
+               permutation chunk, a replicate holding the observed
+               attributes, the observed call and single candidates), at
+               the inputs phase 4b's first run gave it: the scan's dense
+               coarse, fine and ultra calls and the first permutation
+               chunk's coarse and fine calls; kernel and plain timed, SM
+               clocks a pair; and the same at phase 4c's tie-stage calls
+               and phase 4d's dense calls and first permutation chunk's
+               coarse and fine calls (there the plain version on 64
+               candidates)
   4c. 20k grid 1024 - the 20k task's scan at grid 1024, whose tie table
                is coarser than exact_step_max: lattice kernel launches in
                its tie stage (> 0); its coarse, fine and ultra calls
@@ -112,6 +120,16 @@ non-zero:
                reported position and lalpha), positions and lalpha equal
                off listed near-ties (the plain version scores both
                winners within that tolerance)
+  4d. big chromosome - 4,193,904 sites of one chromosome simulated in
+               memory (120 Mb at 45 sites a kb, depth 50), past the hist
+               gate, CLI defaults (windows of 163,841 sites, candidates 1
+               kb apart), scan and one chunk of 16 permutations: the gate
+               returns None, lattice launches > 0 and hist launches 0 in
+               each, reported CLRs within 1e-5 S + 1e-3 of the plain
+               version at the reported position and lalpha, the
+               permutation chunk recomputed (equal to the run's saved
+               nulls) and recomputed with the plain version at 64 points
+               as in 4b
   6. check   - a small single-depth input, a small mixed-depth input, the
                single-depth input through --no-hist and a dense-cluster
                input past the hist gate (lattice path, scan and
@@ -138,8 +156,8 @@ launches.  Run from the repo root: python3 chip_smoke.py
 
 ``--profile`` instead runs phases 1-2 and then torch.profiler over the
 scan and the permutations of the 20k task (hist and --no-hist), of the
-genome (16
-permutations) and of mixed100k (16 permutations), and over phase 7's
+genome (16 permutations), of mixed100k (16 permutations) and of phase
+4d's chromosome (16 permutations), and over phase 7's
 permutations of the 20k task with RDP forced on and off: device time by
 kernel (the prefix-sum kernels, the two fused window kernels, the window
 operand, the matmuls, the row gather) and the device's busy share, with
@@ -161,12 +179,17 @@ OUT = REPO / "chiprun_out" / "smoke"
 # near-tie band excluded from the count comparison
 MIXED_TOL = 5e-3
 MIXED_BAND = 1e-3
-# peak rates of one H100 SXM at 700 W (NVIDIA's H100 datasheet): HBM
-# bytes/s, operations/s outside the tensor cores (the float32 figure;
-# the kernels' compares and adds), and dense bfloat16 tensor-core
-# operations/s
+# peak rates of one H100 SXM at 700 W: HBM bytes/s (NVIDIA's H100
+# datasheet); lane operations/s outside the tensor cores, one add,
+# compare, select or fused multiply-add a lane a clock: 128 FP32 lanes x
+# 132 SMs x 1.98 GHz boost (the Hopper architecture white paper; the
+# datasheet's 67 TFLOP/s float32 counts an FMA as two operations, the
+# kernels' compares, adds and selects are one each); the float32 FMA
+# rate in flops (the datasheet); dense bfloat16 tensor-core operations/s
 HBM_BYTES_PER_S = 3.35e12
-OPS_PER_S = 67e12
+SM_CLOCK_HZ = 1.98e9
+LANE_OPS_PER_S = 128 * 132 * SM_CLOCK_HZ
+FP32_FLOPS_PER_S = 67e12
 BF16_MMA_PER_S = 989e12
 TF32_MMA_PER_S = 495e12  # dense TF32 tensor-core operations/s
 # the fused window contractions against their plain versions: |diff| <=
@@ -217,9 +240,9 @@ def cuda_time_ms(fn, iters, readings=5):
 
 def bound_ms(nbytes, ops):
     """(bound_ms, bound_by): the larger of nbytes over the HBM rate and
-    ops over the peak rate."""
+    ops, lane operations, over the lane rate."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / OPS_PER_S * 1e3
+    t_ops = ops / LANE_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -287,9 +310,9 @@ def _prefix_inputs(rng, S, w, P, R):
     return table, sig, seg_g0.astype(np.int32)
 
 
-def _repeat_checks(tag, label, kern, first):
+def _repeat_checks(tag, label, kern, first, iters=20):
     """Fail unless a second launch, and a launch after a timing loop of
-    20, give first's bits; the loop's time (cuda_time_ms, 20 launches)."""
+    iters, give first's bits; the loop's time (cuda_time_ms)."""
     import torch
 
     again = kern()
@@ -297,7 +320,7 @@ def _repeat_checks(tag, label, kern, first):
     if not torch.equal(first, again):
         fail(f"{tag} kernel at {label}: two launches differ")
     del again
-    ms = cuda_time_ms(kern, 20)
+    ms = cuda_time_ms(kern, iters)
     after = kern()
     torch.cuda.synchronize()
     if not torch.equal(first, after):
@@ -764,7 +787,7 @@ def _window_clr_case(label, ps, bounds, fbar, *, n_rep, n_cells, n_rows,
               + got.numel() * 4)
     mma, lerp = 2 * c * P * K * A, 6 * c * P * K
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (mma / BF16_MMA_PER_S + lerp / OPS_PER_S) * 1e3
+    t_ops = (mma / BF16_MMA_PER_S + lerp / LANE_OPS_PER_S) * 1e3
     b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
                   else (t_ops, "operations"))
     del got, want, err, lim
@@ -856,10 +879,10 @@ def _window_clr_f32_case(label, ps, bounds, fbar, *, n_rep, n_cells, n_rows,
               + got.numel() * 4)
     mma, lerp = 2 * M * K * A, 6 * M * K
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = (3 * mma / TF32_MMA_PER_S + lerp / OPS_PER_S) * 1e3
+    t_ops = (3 * mma / TF32_MMA_PER_S + lerp / LANE_OPS_PER_S) * 1e3
     b_ms, b_by = ((t_bytes, "bytes") if t_bytes >= t_ops
                   else (t_ops, "operations"))
-    ffma_ms = mma / OPS_PER_S * 1e3
+    ffma_ms = mma / FP32_FLOPS_PER_S * 1e3
     pack_read = -(-M // 64) * K * pack.shape[1] * 4  # every block of rows
     del got, again, want, mm, ref, s, err, lim
     torch.cuda.empty_cache()
@@ -1354,16 +1377,83 @@ def _lattice_capture(run):
         TL.clr_lattice = orig
 
 
-def _lattice_case(label, args, kw):
+def _lattice_sub(args, cands=None, reps=None):
+    """clr_lattice's inputs cut to candidates ``cands`` and replicates
+    ``reps`` (index tensors; None keeps all)."""
+    pack, row, pos, null, cand, lo, hi, m_base, m_rel = args
+    if reps is not None:
+        row, null, m_base = row[reps], null[reps], m_base[reps]
+    if cands is not None:
+        cand, lo, hi, m_base = cand[cands], lo[cands], hi[cands], \
+            m_base[:, cands]
+    return (pack, row, pos, null, cand, lo, hi, m_base.contiguous(), m_rel)
+
+
+def _lattice_alone(label, args, kw, first, identity):
+    """Contract checks, bitwise: an entry does not depend on the other
+    candidates of its block (every 7th candidate launched alone, other
+    tiles and another C), on Rr (the last replicate alone), nor, for a
+    replicate holding the observed attributes (identity = the observed
+    [1, W] row and null), on the replicates beside it: that replicate at
+    Rr, the observed call at Rr = 1 and three candidates alone at P = 1
+    give the same bits."""
+    import torch
+
+    from fscl_tpu_torch.ops import lattice as TL
+
+    def same(a, b):
+        return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+    Rr, P, _ = first.shape
+    dev = first.device
+    sub = torch.arange(3, P, 7, device=dev)
+    if len(sub) and not same(TL.clr_lattice(*_lattice_sub(args, sub), **kw),
+                             first[:, sub]):
+        fail(f"lkernel at {label}: every 7th candidate alone differs from "
+             "its value in the whole launch")
+    last = torch.tensor([Rr - 1], device=dev)
+    if Rr > 1 and not same(TL.clr_lattice(*_lattice_sub(args, reps=last),
+                                          **kw), first[-1:]):
+        fail(f"lkernel at {label}: the last replicate alone differs")
+    if identity is None:
+        return 0
+    row_obs, null_obs = identity
+    pack, row, pos, null = args[:4]
+    row, null = row.clone(), null.clone()
+    row[0], null[0] = row_obs[0], null_obs[0]
+    mixed = TL.clr_lattice(pack, row, pos, null, *args[4:], **kw)
+    obs = TL.clr_lattice(*_lattice_sub((pack, row_obs, pos, null_obs,
+                                        *args[4:]), reps=torch.tensor(
+                                            [0], device=dev)), **kw)
+    if not same(mixed[:1], obs):
+        fail(f"lkernel at {label}: the identity replicate at Rr={Rr} "
+             "differs from the observed call at Rr=1")
+    for p in sorted({0, P // 2, P - 1}):
+        one = TL.clr_lattice(*_lattice_sub(
+            (pack, row_obs, pos, null_obs, *args[4:]),
+            torch.tensor([p], device=dev),
+            torch.tensor([0], device=dev)), **kw)
+        if not same(one[0, 0], obs[0, p]):
+            fail(f"lkernel at {label}: candidate {p} alone differs from "
+                 "its value in the observed call")
+    return 3
+
+
+def _lattice_case(label, args, kw, *, identity=None, check_cands=None,
+                  iters=20):
     """Phase 3h: clr_lattice against its plain version within LAT_REL * S
-    + LAT_ABS per entry, dummy candidates exactly 0, two launches and a
-    launch after the timing loop bitwise equal to the first; kernel and
-    plain timed.  The bound: every input read once and the output written
-    once over the HBM rate (the whole pack counted, an upper count of the
-    rows the pairs read), or 12 + 7A operations a (candidate, site) pair
-    over the float32 rate, the larger.  Beside it, in smoke.json only,
-    pairs x 8A: a modeled upper estimate of the bytes the pack-row reads
-    move through L2, not a measured rate."""
+    + LAT_ABS per entry (on the candidates check_cands only, where given:
+    the plain version at the full shape would take minutes), dummy
+    candidates exactly 0, two launches and a launch after the timing loop
+    bitwise equal to the first, _lattice_alone's checks; kernel and plain
+    (on the checked candidates) timed.  The bound: every input the kernel
+    reads (the kernel pack whole, an upper count of the rows the pairs
+    read) and the output once over the HBM rate, or 12 + 7A lane
+    operations a (candidate, site) pair over the lane rate, the larger.
+    SM clocks a pair: the kernel time x 132 SMs x 1.98 GHz over the
+    pairs.  Beside them, in smoke.json only: pairs x 8A, a modeled upper
+    estimate of the bytes the pack-row reads move through L2, not a
+    measured rate."""
     import torch
 
     from fscl_tpu_torch.ops import lattice as TL
@@ -1374,16 +1464,21 @@ def _lattice_case(label, args, kw):
     def kern():
         return TL.clr_lattice(*args, **kw)
 
-    def plain():
-        return TL.clr_lattice_plain(*args, **kw)
+    chk = args if check_cands is None else _lattice_sub(args, check_cands)
 
-    got, want = kern(), plain()
-    lim = LAT_REL * TL.clr_lattice_plain(*args, **kw, abs_sum=True) + LAT_ABS
+    def plain():
+        return TL.clr_lattice_plain(*chk, **kw)
+
+    got = kern()
+    want = plain()
+    lim = (LAT_REL * TL.clr_lattice_plain(*chk, **kw, abs_sum=True)
+           + LAT_ABS)
     torch.cuda.synchronize()
-    if got.shape != want.shape:
-        fail(f"lkernel at {label}: {tuple(got.shape)} vs plain "
+    part = got if check_cands is None else got[:, check_cands]
+    if part.shape != want.shape:
+        fail(f"lkernel at {label}: {tuple(part.shape)} vs plain "
              f"{tuple(want.shape)}")
-    err = (got - want).abs()
+    err = (part - want).abs()
     max_err, ratio = float(err.max()), float((err / lim).max())
     if not bool((err <= lim).all()):
         fail(f"lkernel != plain at {label}: max |err| {max_err:.6g}, "
@@ -1393,7 +1488,8 @@ def _lattice_case(label, args, kw):
     if bool(got[:, dummy].any()):
         fail(f"lkernel at {label}: a dummy candidate is not 0")
     first = got.clone()
-    del got, want, err, lim
+    del got, want, err, lim, part
+    n_alone = _lattice_alone(label, args, kw, first, identity)
     Rr, P, A = first.shape
     live = lo <= hi
     pairs = Rr * int((hi[live] - lo[live] + 1).sum())
@@ -1401,28 +1497,39 @@ def _lattice_case(label, args, kw):
     b_ms, b_by = bound(args, [first], ops)
     nbytes = sum(t.numel() * t.element_size() for t in (*args, first))
     l2_model = pairs * 8 * A
+    n_sm = torch.cuda.get_device_properties(first.device).multi_processor_count
+    C = TL.block_candidates(Rr, P, n_sm)
     torch.cuda.empty_cache()
-    ms = _repeat_checks("lkernel", label, kern, first)
+    ms = _repeat_checks("lkernel", label, kern, first, iters)
     plain_ms = cuda_time_ms(plain, 1, readings=3)
     torch.cuda.empty_cache()
+    clocks = ms * 1e-3 * n_sm * SM_CLOCK_HZ / pairs
+    n_chk = P if check_cands is None else len(check_cands)
     shape = (f"Rr={Rr} P={P} ({int(dummy.sum())} dummy) A={A} G={G}, "
-             f"{pairs} (candidate, site) pairs")
+             f"{pairs} (candidate, site) pairs, C={C}")
     log(f"[lkernel] {label}: {shape}; max |err| {max_err:.4g} ({ratio:.3g}"
-        f" x tolerance), repeat launches bitwise; kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f}"
-        f" MB, {ops / 1e9:.3f} Gop); modeled upper estimate of the "
-        f"pack-row bytes through L2 (pairs x 8A, not measured) "
-        f"{l2_model / 1e9:.3f} GB")
+        f" x tolerance, {n_chk} candidates checked), repeat launches "
+        f"bitwise, every 7th candidate and the last replicate alone "
+        f"bitwise{', identity replicate bitwise' if n_alone else ''}; "
+        f"kernel {ms:.4f} ms ({clocks:.3f} SM clocks a pair), plain "
+        f"{plain_ms:.4f} ms ({n_chk} candidates), bound {b_ms:.4f} ms "
+        f"({b_by}: {nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G lane ops; "
+        f"{100 * b_ms / ms:.1f}%); modeled upper estimate of the pack-row "
+        f"bytes through L2 "
+        f"(pairs x 8A, not measured) {l2_model / 1e9:.3f} GB")
     return dict(label=label, shape=shape, ms=ms, plain_ms=plain_ms,
-                library_ms=None, max_abs_err=max_err,
-                max_err_over_tol=ratio, bound_ms=b_ms, bound_by=b_by,
-                bytes=nbytes, ops=ops, pairs=pairs,
+                plain_candidates=n_chk, library_ms=None,
+                max_abs_err=max_err, max_err_over_tol=ratio, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes, ops=ops, pairs=pairs,
+                sm_clocks_per_pair=clocks, block_candidates=C,
                 l2_bytes_model_upper=l2_model)
 
 
-def _lattice_first_chunk(data, tables, result, scan_cfg, perm_cfg, dev):
+def _lattice_first_chunk(data, tables, result, scan_cfg, perm_cfg, dev,
+                         points=None):
     """[R, K] statistic maxima of the first permutation chunk, computed as
-    the lattice driver computes them (every point active)."""
+    the lattice driver computes them (every point active; at the points
+    only, where given, the others 0)."""
     import numpy as np
     import torch
 
@@ -1444,6 +1551,8 @@ def _lattice_first_chunk(data, tables, result, scan_cfg, perm_cfg, dev):
     out = torch.zeros((R, result.n_points), device=dev)
     for c, cl in enumerate(data.chr_limits):
         pts = np.where(result.chr_id == c)[0]
+        if points is not None:
+            pts = np.intersect1d(pts, points)
         if len(pts) == 0:
             continue
         ctx = TP._ChrPermContext(data, cl, scan_cfg, pts, Jf, dev)
@@ -1455,6 +1564,44 @@ def _lattice_first_chunk(data, tables, result, scan_cfg, perm_cfg, dev):
                                        *ctx.build_batch(result, grp),
                                        n_pts=len(grp), Jf=Jf)
     return out
+
+
+def _check_first_chunk(label, data, tables, result, scan_cfg, perm_cfg,
+                       dev, plain_points=None):
+    """Phases 4b and 4d: the first permutation chunk recomputed as the
+    lattice driver computes it: the kernel's maxima equal the run's saved
+    nulls bitwise; the plain version's (at plain_points, every point where
+    None) within LAT_STAT_TOL of them, with the same exceedances of the
+    run's thresholds off 1e-4 near-ties.  The largest difference."""
+    import numpy as np
+    import torch
+
+    kern_max = _lattice_first_chunk(data, tables, result, scan_cfg,
+                                    perm_cfg, dev)
+    plain_max = _plain_lattice(lambda: _lattice_first_chunk(
+        data, tables, result, scan_cfg, perm_cfg, dev, points=plain_points))
+    torch.cuda.synchronize()
+    R = kern_max.shape[0]
+    saved = np.array([r[:R] for r in result.null_clr])
+    if not np.array_equal(kern_max.cpu().numpy().T, saved):
+        fail(f"{label}: the first chunk's recomputed maxima differ from "
+             "the run's saved null values")
+    cols = (torch.arange(result.n_points, device=dev) if plain_points is None
+            else torch.as_tensor(plain_points, device=dev))
+    k, p = kern_max[:, cols], plain_max[:, cols]
+    d = float((k - p).abs().max())
+    thr = torch.as_tensor(result.stat_threshold, device=dev,
+                          dtype=torch.float32)[cols]
+    near = (((k - thr).abs() < 1e-4) | ((p - thr).abs() < 1e-4)).any(0)
+    same = bool(((k >= thr) == (p >= thr))[:, ~near].all())
+    if d > LAT_STAT_TOL or not same:
+        fail(f"{label}: first chunk kernel vs plain max |d| {d:.3g} "
+             f"(limit {LAT_STAT_TOL}), exceedances equal: {same}")
+    log(f"[{label}] first chunk: maxima [{R}, {result.n_points}] equal "
+        f"to the run's saved nulls; plain version at {len(cols)} points "
+        f"within {d:.3g}; exceedances equal on {int((~near).sum())} points "
+        f"({int(near.sum())} near-tie points excluded)")
+    return d
 
 
 def _other_kernel_counts():
@@ -1538,44 +1685,17 @@ def phase_20k_nohist(dev):
             and np.array_equal(result.permute_n, res0.permute_n)):
         fail("20k no-hist: two runs differ")
 
-    # first chunk: the kernel's maxima vs the plain version's
-    kern_max = _lattice_first_chunk(data, tables, result, scan_cfg,
-                                    perm_cfg, dev)
-    orig = TL.clr_lattice
-    TL.clr_lattice = TL.clr_lattice_plain
-    try:
-        plain_max = _lattice_first_chunk(data, tables, result, scan_cfg,
-                                         perm_cfg, dev)
-    finally:
-        TL.clr_lattice = orig
-    torch.cuda.synchronize()
-    R = kern_max.shape[0]
-    saved = np.array([r[:R] for r in result.null_clr])
-    if not np.array_equal(kern_max.cpu().numpy().T, saved):
-        fail("20k no-hist: the first chunk's recomputed maxima differ from "
-             "the run's saved null values")
-    d = float((kern_max - plain_max).abs().max())
-    thr = torch.as_tensor(result.stat_threshold, device=dev,
-                          dtype=torch.float32)
-    near = (((kern_max - thr).abs() < 1e-4)
-            | ((plain_max - thr).abs() < 1e-4)).any(0)
-    same = bool(((kern_max >= thr) == (plain_max >= thr))[:, ~near].all())
-    if d > LAT_STAT_TOL or not same:
-        fail(f"20k no-hist: first chunk kernel vs plain max |d| {d:.3g} "
-             f"(limit {LAT_STAT_TOL}), exceedances equal: {same}")
-    log(f"[20k no-hist] first chunk: maxima [{R}, {result.n_points}] equal "
-        f"to the run's saved nulls; plain version within {d:.3g}; "
-        f"exceedances equal on {int((~near).sum())} points "
-        f"({int(near.sum())} near-tie points excluded)")
+    d = _check_first_chunk("20k no-hist", data, tables, result, scan_cfg,
+                           perm_cfg, dev)
 
-    G = tables.grid_points
     chunk = [c for c in perm_calls if c[0][1].shape[0] > 1][:2]
-    cases = [(f"20k no-hist scan, dense {stage}", scan_calls[i])
-             for i, stage in enumerate(("coarse", "fine", "ultra"))]
-    cases += [(f"20k no-hist permutation chunk, {stage}", c)
-              for stage, c in zip(("coarse", "fine"), chunk)]
-    lkern = [_lattice_case(label, a, dict(k, grid_points=G))
-             for label, (a, k) in cases]
+    observed = scan_calls[0][0][1], scan_calls[0][0][3]  # row, null [1, W]
+    lkern = [_lattice_case(f"20k no-hist scan, dense {stage}", a, k)
+             for stage, (a, k) in zip(("coarse", "fine", "ultra"),
+                                      scan_calls)]
+    lkern += [_lattice_case(f"20k no-hist permutation chunk, {stage}", a, k,
+                            identity=observed)
+              for stage, (a, k) in zip(("coarse", "fine"), chunk)]
     del scan_calls, perm_calls
     return dict(sites=data.n_snps, points=result.n_points, cold_s=t_cold,
                 scan_s=t_scan, perm_s=t_perm, point_rounds=pr,
@@ -1726,12 +1846,10 @@ def phase_20k_grid1024(dev):
         f" ({(d / tol).max():.3g} x 1e-5 S + 1e-3); positions and lalpha "
         f"equal off near-tie points {list(differ)}")
 
-    G = tables.grid_points
     if len(tie_calls) != 3 * len(data.chr_limits):
         fail(f"20k grid 1024: {len(tie_calls)} tie-stage lattice calls, "
              "not 3 a chromosome (coarse, fine, ultra)")
-    lkern = [_lattice_case(f"20k grid 1024 tie stage, {stage}", a,
-                           dict(k, grid_points=G))
+    lkern = [_lattice_case(f"20k grid 1024 tie stage, {stage}", a, k)
              for stage, (a, k) in zip(("coarse", "fine", "ultra"),
                                       tie_calls)]
     del tie_calls
@@ -1739,6 +1857,137 @@ def phase_20k_grid1024(dev):
                 launches=n_lat, window_launches=other,
                 plain_max_clr_diff=float(d.max()),
                 near_ties=[int(i) for i in differ], lkernel=lkern)
+
+
+def big_chromosome_data():
+    """One chromosome past the hist gate (SITES_MAX = 4,000,000 sites):
+    120 Mb at 45 sites a kb, depth 50, one sweep, K >= 2 (about 4.19M
+    sites), simulated in memory."""
+    import numpy as np
+
+    from fscl_tpu_torch.data import build_snp_data
+    from fscl_tpu_torch.sim import simulate_dataset
+
+    sim = simulate_dataset(seed=300, sample_size=50, snp_density=45.0,
+                           mb_length=120.0, alpha=3e-5, n_sweeps=1)
+    keep = sim["freq"] >= 2
+    n = int(keep.sum())
+    data = build_snp_data(["1"] * n, sim["pos"][keep], sim["freq"][keep],
+                          np.full(n, 50), np.zeros(n, bool))
+    return data, sim["sweep_pos"]
+
+
+def phase_big_chromosome(dev, n_permute=16):
+    """Phase 4d: a chromosome of over 4M sites through the CLI defaults
+    (windows of 2 x 81,920 + 1 sites, candidates 1 kb apart): the hist
+    gate returns None, the scan and one chunk of n_permute permutations
+    run the lattice kernel (launches > 0, the hist kernels' 0, each
+    counted over its own run); the reported CLRs recomputed with the
+    plain version at the reported (position, lalpha), within 1e-5 S +
+    1e-3; the permutation chunk recomputed as in 4b (the plain version at
+    64 points spread over the chromosome); kernel 3h at the scan's dense
+    coarse, fine and ultra calls and at the chunk's first coarse and fine
+    calls (Rr = n_permute, per-candidate windows that cross; the observed
+    attributes as an identity replicate), held against the plain version
+    on 64 candidates of each."""
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch.engine import scan_genome, scan_permute
+    from fscl_tpu_torch.engine.permute import PermuteConfig
+    from fscl_tpu_torch.engine.scan import ScanConfig, make_scan_hist_tables
+    from fscl_tpu_torch.ops import lattice as TL
+    from fscl_tpu_torch.ops.histclr import SITES_MAX
+
+    t0 = time.monotonic()
+    data, sweep_pos = big_chromosome_data()
+    tables = _load_model(data, compat=False)
+    t_setup = time.monotonic() - t0
+    if data.n_snps <= SITES_MAX:
+        fail(f"big chromosome: {data.n_snps} sites, not past the gate")
+    scan_cfg = ScanConfig()
+    if make_scan_hist_tables(data, tables, scan_cfg.hist_alphas,
+                             decimate=scan_cfg.hist_decimate,
+                             device=dev) is not None:
+        fail("big chromosome: the hist gate took the chromosome")
+    torch.cuda.synchronize()
+    _zero_other_kernel_counts()
+    TL.lattice_clr_launches = 0
+    t0 = time.monotonic()
+    result, calls = _lattice_capture(
+        lambda: scan_genome(data, tables, scan_cfg, device=dev))
+    torch.cuda.synchronize()
+    t_scan = time.monotonic() - t0
+    n_scan = TL.lattice_clr_launches
+    other_scan = _other_kernel_counts()
+    perm_cfg = PermuteConfig(n_permute=n_permute)
+    _zero_other_kernel_counts()
+    TL.lattice_clr_launches = 0
+    t0 = time.monotonic()
+    _, perm_calls = _lattice_capture(
+        lambda: scan_permute(data, tables, result, scan_cfg,
+                             copy.deepcopy(perm_cfg), device=dev))
+    torch.cuda.synchronize()
+    t_perm = time.monotonic() - t0
+    n_perm = TL.lattice_clr_launches
+    other_perm = _other_kernel_counts()
+    if n_scan <= 0 or n_perm <= 0:
+        fail(f"big chromosome: lattice kernel launches scan {n_scan}, "
+             f"permutations {n_perm}")
+    if any(other_scan.values()) or any(other_perm.values()):
+        fail(f"big chromosome: hist kernels launched: scan {other_scan}, "
+             f"permutations {other_perm}")
+    _check_result(result, "big chromosome")
+    er = scan_cfg.eval_range
+    every = np.arange(result.n_points)
+    clr_p, S = _lattice_at(data, tables, result, er, every,
+                           result.sweep_pos, result.lalpha, dev)
+    tol = LAT_REL * S + 1e-3
+    d = np.abs(result.clr - clr_p)
+    if not (d <= tol).all():
+        fail(f"big chromosome: reported CLR vs plain at the reported "
+             f"position and lalpha max |d| {d.max():.6g}, "
+             f"{int((d > tol).sum())} points over 1e-5 S + 1e-3")
+    top = int(np.argmax(result.clr))
+    pr = int(result.permute_n.sum())
+    log(f"[big chromosome] {data.n_snps} sites, {result.n_points} points, "
+        f"windows {2 * er + 1} sites; data+tables {t_setup:.1f}s, scan "
+        f"{t_scan:.3f}s, permute ({n_permute}) {t_perm:.3f}s, {pr} "
+        f"point-rounds; lattice kernel launches scan {n_scan}, "
+        f"permutations {n_perm}, hist kernels 0; reported CLRs within "
+        f"{d.max():.4g} of the plain version ({(d / tol).max():.3g} x 1e-5 "
+        f"S + 1e-3); max CLR {result.clr[top]:.2f} at "
+        f"{int(result.sweep_pos[top])} (sweep planted at "
+        f"{[int(x) for x in sweep_pos]})")
+    K = result.n_points
+    d_chunk = _check_first_chunk(
+        "big chromosome", data, tables, result, scan_cfg, perm_cfg, dev,
+        plain_points=np.unique(np.linspace(0, K - 1, 64).round().astype(int)))
+
+    observed = calls[0][0][1], calls[0][0][3]  # row, null [1, W]
+    cases = [(f"big chromosome scan, dense {stage}", c, None)
+             for stage, c in zip(("coarse", "fine", "ultra"), calls)]
+    chunk = [c for c in perm_calls if c[0][1].shape[0] > 1][:2]
+    if len(chunk) != 2:
+        fail(f"big chromosome: {len(chunk)} permutation chunk calls "
+             "captured, not a coarse and a fine one")
+    cases += [(f"big chromosome permutation chunk, {stage}", c, observed)
+              for stage, c in zip(("coarse", "fine"), chunk)]
+    del calls, perm_calls, chunk
+    lkern = []
+    for label, (a, k), identity in cases:
+        P = a[4].shape[0]
+        sub = torch.linspace(0, P - 1, 64, device=dev).round().long()
+        lkern.append(_lattice_case(label, a, k, identity=identity,
+                                   check_cands=sub, iters=2))
+    del cases, observed
+    torch.cuda.empty_cache()
+    return dict(sites=data.n_snps, points=result.n_points,
+                window_sites=2 * er + 1, setup_s=t_setup, scan_s=t_scan,
+                perm_s=t_perm, n_permute=n_permute, point_rounds=pr,
+                launches=dict(scan=n_scan, permute=n_perm),
+                plain_max_clr_diff=float(d.max()),
+                first_chunk_plain_max_diff=d_chunk, lkernel=lkern)
 
 
 def genome_data():
@@ -2278,6 +2527,8 @@ def phase_profile(dev):
     tg = _load_model(dg, compat=False)
     dm = load_snp_input(REPO / "bench" / "data" / "headline_mixed100k.sf")
     tm = _load_model(dm, compat=True)
+    db, _ = big_chromosome_data()
+    tb = _load_model(db, compat=False)
     # (label, data, tables, scan config, permutation config, FSCL_RDP,
     # stages)
     runs = [
@@ -2292,6 +2543,8 @@ def phase_profile(dev):
          TP.RDP_FORCE, ("scan", "permute")),
         ("mixed100k", dm, tm, ScanConfig(), PermuteConfig(n_permute=16),
          TP.RDP_FORCE, ("scan", "permute")),
+        ("big_chromosome", db, tb, ScanConfig(),
+         PermuteConfig(n_permute=16), TP.RDP_FORCE, ("scan", "permute")),
         ("20k_rdp_on", d20, t20, s20, rdp_cfg, "on", ("permute",)),
         ("20k_rdp_off", d20, t20, s20, rdp_cfg, "off", ("permute",)),
     ]
@@ -2428,6 +2681,7 @@ def main():
              f"R={r20['n_rows']}, not the shape phase 3 checked")
     rl = phase_20k_nohist(dev)
     r1024 = phase_20k_grid1024(dev)
+    rb = phase_big_chromosome(dev)
     rg = phase_genome(dev)
     if rg["stacks"] != [(36864, 22, sub_gen)] or rg["n_rows"] != 48:
         fail(f"genome main path ran at {rg['stacks']} R={rg['n_rows']}, "
@@ -2453,9 +2707,10 @@ def main():
     detail = dict(device=name, nvidia_smi=smi, kernel=kern, wkernel=wkern,
                   rkernel=rkern, pkernel=pkern, gkernel=gkern,
                   okernel=okern, fkernel=fkern, f32kernel=f32kern,
-                  lkernel=rl["lkernel"] + r1024["lkernel"], bench_20k=r20,
-                  bench_20k_nohist=rl,
-                  bench_20k_grid1024=r1024, genome=rg, mixed100k=rm,
+                  lkernel=rl["lkernel"] + r1024["lkernel"] + rb["lkernel"],
+                  bench_20k=r20, bench_20k_nohist=rl,
+                  bench_20k_grid1024=r1024, big_chromosome=rb, genome=rg,
+                  mixed100k=rm,
                   check=chk, rdp=rr)
     (OUT / "smoke.json").write_text(json.dumps(detail, indent=1) + "\n")
 
@@ -2539,10 +2794,12 @@ def main():
               "fscl_tpu/ops/lattice.py:94-155 clr_lattice (XLA-fused, no "
               "Pallas kernel)",
               rl["launches"]["scan"] + rl["launches"]["permute"],
-              rl["lkernel"] + r1024["lkernel"],
+              rl["lkernel"] + r1024["lkernel"] + rb["lkernel"],
               note="no single PyTorch call computes the per-site lattice "
                    "CLR",
-              grid1024_tie_launches=r1024["launches"]),
+              grid1024_tie_launches=r1024["launches"],
+              big_chromosome_launches=(rb["launches"]["scan"]
+                                       + rb["launches"]["permute"])),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

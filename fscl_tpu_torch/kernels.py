@@ -138,8 +138,8 @@ def load():
     lib.fscl_window_clr_f32.restype = i
     lib.fscl_window_clr_f32_splits.argtypes = [i64, i, i, i, i]
     lib.fscl_window_clr_f32_splits.restype = i
-    lib.fscl_lattice_clr.argtypes = [vp] * 10 + [i, i, i, i, i,
-                                           ctypes.c_float, vp]
+    lib.fscl_lattice_clr.argtypes = [vp] * 10 + [i, i, i, i, i, i,
+                                           ctypes.c_float, i, vp]
     lib.fscl_lattice_clr.restype = i
     for tile in (lib.fscl_ps_tile, lib.fscl_wps_tile, lib.fscl_rps_tile):
         tile.argtypes = []

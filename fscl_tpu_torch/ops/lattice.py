@@ -28,6 +28,10 @@ gives exactly 0.  ``clr_lattice_plain`` is the plain PyTorch version;
 the wrapper ``clr_lattice`` runs it for CPU tensors and launches the CUDA
 kernel (csrc/lattice_clr.cu) for CUDA tensors, never falling back from
 one to the other.  ``lattice_clr_launches`` counts the kernel's launches.
+The kernel reads a pack whose rows are padded to KERNEL_ROW[A] offsets
+(``kernel_pack``; LatticeTables keeps its packs so, and the plain version
+reads a row's first 2A columns), and takes C consecutive candidates a
+block (``block_candidates``; the output does not depend on C).
 
 ``two_stage_lattice_max`` (coarse, fine and ultra stages; the
 permutation statistic takes coarse and fine only) and
@@ -49,6 +53,15 @@ from .prefix_sums import _check_inputs
 N_COARSE = 11  # sm-search.c:276-282
 N_FINE = 16  # 15 C fine points + re-evaluation of the winner
 KERNEL_A = (N_COARSE, N_FINE)  # the offset-list lengths the kernel takes
+# offsets a kernel pack row holds (lerp pairs of 16-byte lanes; the
+# coarse row is padded, csrc/lattice_clr.cu FSCL_LATTICE_COARSE_ROW)
+KERNEL_ROW = {N_COARSE: 12, N_FINE: 16}
+# candidates a block where that still gives MIN_BLOCKS_PER_SM blocks an
+# SM, else 1 (C = 8 and 16 were slower at every shape measured but one,
+# where C = 8 gained 0.7%, PERF.md §6; only tools/lattice_variants.py
+# builds them)
+BLOCK_CANDS = 4
+MIN_BLOCKS_PER_SM = 8
 PLAIN_BYTES = 1 << 28  # the plain version's gathered pack rows per chunk
 lattice_clr_launches = 0  # CUDA kernel launches by clr_lattice
 
@@ -107,10 +120,29 @@ def build_lattice_pack(table, offsets):
     return out.reshape(R * G, 2 * A)
 
 
+def kernel_pack(pack):
+    """The pack [n*G, 2A] as the kernel reads it: each row padded with
+    zero columns to 2 * KERNEL_ROW[A] floats (its first 2A columns are
+    the pack's); the pack itself where A needs no padding."""
+    A = pack.shape[1] // 2
+    pad = 2 * (KERNEL_ROW[A] - A)
+    return torch.nn.functional.pad(pack, (0, pad)) if pad else pack
+
+
+def block_candidates(Rr, P, n_sm):
+    """Candidates a block: BLOCK_CANDS where the grid, Rr * ceil(P / C)
+    blocks, still gives MIN_BLOCKS_PER_SM blocks to each of n_sm SMs,
+    else 1."""
+    enough = Rr * -(-P // BLOCK_CANDS) >= MIN_BLOCKS_PER_SM * n_sm
+    return BLOCK_CANDS if enough else 1
+
+
 class LatticeTables:
     """The coarse, fine and ultra packs and their offsets on one device.
 
-    ``m_*`` are the offsets as numpy int32, ``m_*_dev`` as tensors."""
+    ``m_*`` are the offsets as numpy int32, ``m_*_dev`` as tensors;
+    ``pack_*`` the packs as the kernel reads them (kernel_pack: the
+    build_lattice_pack rows, padded)."""
 
     def __init__(self, grid_points, packs, offsets, device="cuda"):
         device = parse_device(device)
@@ -120,7 +152,8 @@ class LatticeTables:
         self.m_coarse, self.m_fine, self.m_ultra = (
             np.asarray(m, dtype=np.int32) for m in offsets)
         self.pack_coarse, self.pack_fine, self.pack_ultra = (
-            torch.tensor(np.asarray(p, dtype=np.float32), device=device)
+            kernel_pack(torch.tensor(np.asarray(p, dtype=np.float32),
+                                     device=device))
             for p in packs)
         self.m_coarse_dev, self.m_fine_dev, self.m_ultra_dev = (
             torch.tensor(m, device=device)
@@ -142,7 +175,8 @@ def clr_lattice_plain(pack, row, pos, null, cand, lo, hi, m_base, m_rel, *,
                       grid_points, abs_sum=False):
     """Plain PyTorch version: [Rr, P, A] (see module doc), float32; with
     ``abs_sum``, 2 sum |y - null| instead, the scale S of the float32
-    sums' rounding that tolerances are stated against.
+    sums' rounding that tolerances are stated against.  Reads the first
+    2A columns of the pack's rows (a kernel pack's padding is unread).
 
     Each candidate's window is gathered as L = the widest window's sites
     from its lo (sites past hi masked), a chunk of candidates at a time,
@@ -153,6 +187,7 @@ def clr_lattice_plain(pack, row, pos, null, cand, lo, hi, m_base, m_rel, *,
     G = grid_points
     Rr, P, A = row.shape[0], cand.shape[0], m_rel.shape[0]
     dev = pack.device
+    pack = pack[:, :2 * A]
     out = torch.zeros((Rr, P, A), dtype=torch.float32, device=dev)
     live = torch.nonzero(lo <= hi).flatten()
     if live.numel() == 0:
@@ -196,58 +231,73 @@ def _check_kernel_inputs(pack, row, pos, null, cand, lo, hi, m_base, m_rel,
             or tuple(lo.shape) != (P,) or tuple(hi.shape) != (P,)
             or tuple(m_base.shape) != (Rr, P) or m_rel.dim() != 1
             or A not in KERNEL_A or pack.dim() != 2
-            or pack.shape[1] != 2 * A or pack.shape[0] % grid_points):
+            or pack.shape[1] != 2 * KERNEL_ROW[A]
+            or pack.shape[0] % grid_points):
         raise ValueError(
             f"clr_lattice: pack {tuple(pack.shape)}, row {tuple(row.shape)}, "
             f"null {tuple(null.shape)}, pos {tuple(pos.shape)}, cand "
             f"{tuple(cand.shape)}, m_base {tuple(m_base.shape)}, m_rel "
             f"{tuple(m_rel.shape)} do not fit [Rr, W] rows, [P] "
             f"candidates, [Rr, P] bases and A in {KERNEL_A} offsets of a "
-            f"[n*{grid_points}, 2A] pack"
+            f"[n*{grid_points}, 2 * KERNEL_ROW[A]] kernel pack"
         )
     i32 = torch.int32
     _check_inputs("clr_lattice", pack.device, (
         ("pack", pack, torch.float32), ("row", row, i32), ("pos", pos, i32),
         ("null", null, torch.float32), ("cand", cand, i32), ("lo", lo, i32),
         ("hi", hi, i32), ("m_base", m_base, i32), ("m_rel", m_rel, i32)))
-    if pack.data_ptr() % (16 if A % 2 == 0 else 8):
-        raise ValueError("clr_lattice: the pack's rows must be 16-byte "
-                         "aligned (even A) or 8-byte aligned (odd A)")
-    if Rr * P >= 2**31 or pack.shape[0] * 2 * A >= 2**62:
+    if Rr * P >= 2**31 or pack.shape[0] >= 2**31:
         raise ValueError("clr_lattice: too many (replicate, candidate) "
-                         "pairs for one launch")
+                         "pairs or pack rows for one launch")
+    if pack.data_ptr() % 16:
+        raise ValueError("clr_lattice: the pack must be 16-byte aligned")
 
 
-def clr_lattice(pack, row, pos, null, cand, lo, hi, m_base, m_rel, *,
-                grid_points):
-    """[Rr, P, A] f32 CLR of every (replicate, candidate, offset) (see
-    module doc).  pack: [n_rows*G, 2A] f32; row [Rr, W] int32; pos [W]
-    int32; null [Rr, W] f32; cand, lo, hi [P] int32; m_base [Rr, P]
-    int32; m_rel [A] int32.  CPU tensors take the plain version; CUDA
-    tensors launch the kernel or raise."""
-    if _device("clr_lattice", pack) == "cpu":
-        return clr_lattice_plain(pack, row, pos, null, cand, lo, hi, m_base,
-                                 m_rel, grid_points=grid_points)
-    _check_kernel_inputs(pack, row, pos, null, cand, lo, hi, m_base, m_rel,
-                         grid_points)
+def launch_lattice(lib, pack, row, pos, null, cand, lo, hi, m_base, m_rel,
+                   grid_points, cands):
+    """One launch of ``lib``'s fscl_lattice_clr at ``cands`` candidates a
+    block on checked inputs (pack: a kernel pack); the [Rr, P, A]
+    output."""
+    from .. import kernels
+
     dev = pack.device
     Rr, W = row.shape
     P, A = cand.shape[0], m_rel.shape[0]
     out = torch.empty((Rr, P, A), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
-    from .. import kernels
-
-    lib = kernels.load()
     with torch.cuda.device(dev):
         rc = lib.fscl_lattice_clr(
-            pack.data_ptr(), row.data_ptr(), pos.data_ptr(), null.data_ptr(),
-            cand.data_ptr(), lo.data_ptr(), hi.data_ptr(), m_base.data_ptr(),
-            m_rel.data_ptr(), out.data_ptr(), Rr, P, W, A, grid_points,
-            lattice_inv_step(grid_points),
+            pack.data_ptr(), row.data_ptr(), pos.data_ptr(),
+            null.data_ptr(), cand.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            m_base.data_ptr(), m_rel.data_ptr(), out.data_ptr(), Rr, P, W,
+            A, pack.shape[1] // 2, grid_points,
+            lattice_inv_step(grid_points), cands,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     kernels.check(lib, rc, "clr_lattice")
+    return out
+
+
+def clr_lattice(pack, row, pos, null, cand, lo, hi, m_base, m_rel, *,
+                grid_points):
+    """[Rr, P, A] f32 CLR of every (replicate, candidate, offset) (see
+    module doc).  pack: [n_rows*G, 2 * KERNEL_ROW[A]] f32, a kernel_pack
+    (on the CPU any width from 2A on); row [Rr, W] int32; pos [W] int32;
+    null [Rr, W] f32; cand, lo, hi [P] int32; m_base [Rr, P] int32; m_rel
+    [A] int32.  CPU tensors take the plain version; CUDA tensors launch
+    the kernel or raise."""
+    if _device("clr_lattice", pack) == "cpu":
+        return clr_lattice_plain(pack, row, pos, null, cand, lo, hi, m_base,
+                                 m_rel, grid_points=grid_points)
+    _check_kernel_inputs(pack, row, pos, null, cand, lo, hi, m_base, m_rel,
+                         grid_points)
+    from .. import kernels
+
+    n_sm = torch.cuda.get_device_properties(pack.device).multi_processor_count
+    out = launch_lattice(kernels.load(), pack, row, pos, null, cand, lo, hi,
+                         m_base, m_rel, grid_points,
+                         block_candidates(row.shape[0], cand.shape[0], n_sm))
     global lattice_clr_launches
     lattice_clr_launches += 1
     return out
@@ -292,11 +342,11 @@ def two_stage_lattice_max(lt: LatticeTables, row, pos, null, cand, lo, hi,
     ic = torch.argmax(clr_c, dim=2, keepdim=True)
     best = torch.gather(clr_c, 2, ic)[..., 0]
     m_best = lt.m_coarse_dev[ic[..., 0]]
-    m_best, best = _refine(lt.pack_fine, lt.m_fine_dev, row, pos, null,
-                           cand, lo, hi, m_best, best, G)
+    m_best, best = _refine(lt.pack_fine, lt.m_fine_dev, row, pos, null, cand,
+                           lo, hi, m_best, best, G)
     if ultra:
-        m_best, best = _refine(lt.pack_ultra, lt.m_ultra_dev, row, pos,
-                               null, cand, lo, hi, m_best, best, G)
+        m_best, best = _refine(lt.pack_ultra, lt.m_ultra_dev, row, pos, null,
+                               cand, lo, hi, m_best, best, G)
     return best, _lalpha(m_best, G)
 
 

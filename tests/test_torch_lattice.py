@@ -26,9 +26,19 @@ and XLA's CPU log differs from torch's by an ulp at ~1% of sites):
     hold the observed attributes, common where blocks are as long as the
     chromosome, gives the threshold bit for bit in either package and
     counts alike);
+  * the kernel's pack (kernel_pack, LatticeTables' pack_*): its first
+    2A columns are build_lattice_pack's bitwise, the padding zeros; the
+    plain version reads a padded pack's first 2A columns only (NaN in the
+    padding changes no bit); the candidates a block (block_candidates)
+    against a direct count; the kernel's mask limit (a numpy mirror)
+    against the sum mask;
   * on the card (marker ``gpu``): the kernel against its plain version
     within 1e-5 S + 1e-4 at three shapes, dummy candidates exactly 0, two
-    launches bitwise equal.
+    launches bitwise equal; candidate tiles whose windows differ in width
+    and cross, dummy candidates inside a tile and W off the site tile,
+    each candidate's bits equal alone and in its tile; an identity
+    replicate at Rr = 32, the observed call at Rr = 1 and a candidate
+    alone bitwise equal; NaN in the kernel pack's padding changes no bit.
 
 This file imports nothing of tests/: on the card machine such imports do
 not collect.
@@ -124,11 +134,21 @@ def _torch(x, dev="cpu"):
     return torch.as_tensor(np.ascontiguousarray(x), device=dev)
 
 
-def _port_clr(k, dev="cpu", plain=False):
+def _port_clr(k, dev="cpu", plain=False, pack=None):
+    """The port's CLRs of k's inputs, from its kernel pack (or pack)."""
     fn = TL.clr_lattice_plain if plain else TL.clr_lattice
-    return fn(*(_torch(k[n], dev) for n in (
-        "pack", "row", "pos", "null", "cand", "lo", "hi", "m_base",
-        "m_rel")), grid_points=k["G"])
+    if pack is None:
+        pack = TL.kernel_pack(_torch(k["pack"], dev))
+    return fn(pack, *(_torch(k[n], dev) for n in (
+        "row", "pos", "null", "cand", "lo", "hi", "m_base", "m_rel")),
+        grid_points=k["G"])
+
+
+def _nan_padded(k, dev="cpu"):
+    """k's kernel pack with NaN in its padding columns."""
+    pack = TL.kernel_pack(_torch(k["pack"], dev)).clone()
+    pack[:, k["pack"].shape[1]:] = float("nan")
+    return pack
 
 
 def _jax_clr(k, r):
@@ -178,6 +198,82 @@ def test_converted_tables_equal_the_ports_own():
     assert got.step == own.step == JL.lattice_step(G)
 
 
+@pytest.mark.parametrize("stage", ["coarse", "fine", "ultra"])
+def test_kernel_pack_extends_build_lattice_pack(stage):
+    G = 256
+    table = np.random.default_rng(6).normal(size=(5, G)).astype(np.float32)
+    m = getattr(JL, f"{stage}_lattice_offsets")(G)
+    want = JL.build_lattice_pack(table, m)
+    A = len(m)
+    got = TL.kernel_pack(torch.as_tensor(TL.build_lattice_pack(table, m)))
+    assert got.shape == (5 * G, 2 * TL.KERNEL_ROW[A])
+    assert got.is_contiguous() and got.dtype == torch.float32
+    np.testing.assert_array_equal(got[:, :2 * A].numpy(), want)
+    assert not got[:, 2 * A:].any()
+    lt = TL.LatticeTables.from_table(table, G, device="cpu")
+    assert torch.equal(getattr(lt, f"pack_{stage}"), got)
+
+
+def _mask_limit(m, gmax):
+    """numpy float32 mirror of csrc/lattice_clr.cu mask_limit: the
+    largest float t with fl(t + m) <= gmax, by binary search over the
+    floats in value order."""
+    f32 = np.float32
+
+    def key(x):
+        b = int(np.array(x, np.float32).view(np.int32))
+        return b if b >= 0 else -2**31 - b
+
+    def value(k):
+        return np.array(k if k >= 0 else -2**31 - k,
+                        np.int32).view(np.float32)[()]
+
+    edge = f32(gmax) - f32(m)
+    lo, hi = key(edge - f32(2)), key(edge + f32(2))
+    while hi - lo > 1:
+        mid = lo + (hi - lo) // 2
+        if f32(value(mid) + f32(m)) <= f32(gmax):
+            lo = mid
+        else:
+            hi = mid
+    return value(lo)
+
+
+@pytest.mark.parametrize("G", [512, 1024, 2048])
+def test_mask_limit_is_the_sum_mask(G):
+    """u <= mask_limit(m) exactly where fl(u + m) <= G-1, at the limit's
+    neighbouring floats and at random u, for every offset of the three
+    lists (the kernel tests the mask so)."""
+    rng = np.random.default_rng(G)
+    gmax = np.float32(G - 1)
+    offsets = np.unique(np.concatenate([
+        getattr(TL, f"{s}_lattice_offsets")(G)
+        for s in ("coarse", "fine", "ultra")]))
+    for m in offsets.astype(np.float32):
+        t = _mask_limit(m, gmax)
+        near = [t]
+        for step in (np.inf, -np.inf):
+            x = t
+            for _ in range(3):
+                x = np.nextafter(x, np.float32(step))
+                near.append(x)
+        u = np.concatenate([np.array(near, np.float32),
+                            rng.uniform(-60, G + 60, 2000).astype(np.float32),
+                            np.float32([0.0, -0.0, np.inf])])
+        assert ((u <= t) == ((u + m).astype(np.float32) <= gmax)).all(), m
+
+
+@pytest.mark.parametrize("Rr, P, n_sm", [(1, 20400, 132), (32, 448, 132),
+                                         (1, 1556, 132), (16, 448, 132),
+                                         (1, 120000, 132), (3, 5, 2)])
+def test_block_candidates_against_count(Rr, P, n_sm):
+    got = TL.block_candidates(Rr, P, n_sm)
+    blocks = Rr * int(np.ceil(P / TL.BLOCK_CANDS))
+    assert got == (TL.BLOCK_CANDS
+                   if blocks >= TL.MIN_BLOCKS_PER_SM * n_sm else 1)
+    assert got in (1, 4)  # the package build's instantiations
+
+
 # ---- clr_lattice -----------------------------------------------------------
 
 @pytest.mark.parametrize("seed, stage", [(0, "fine"), (1, "coarse"),
@@ -202,6 +298,19 @@ def test_clr_lattice_plain_matches_jax(seed, stage):
     G, inv = k["G"], np.float32((k["G"] - 1) / 24.0)
     far = np.log(np.float32(3_500_000)) * inv + k["m_base"].max()
     assert far + k["m_rel"].max() > G - 1
+
+
+@pytest.mark.parametrize("stage", ["coarse", "fine"])
+def test_clr_lattice_plain_ignores_padding(stage):
+    """The plain version reads a kernel pack's first 2A columns: the
+    unpadded pack, the zero-padded one and a NaN-padded one give the same
+    bits."""
+    k = _kernel_inputs(7, A_rel=stage)
+    bits = [_port_clr(k, pack=p).view(torch.int32).numpy()
+            for p in (_torch(k["pack"]), None, _nan_padded(k))]
+    assert TL.KERNEL_ROW[len(k["m_rel"])] * 2 == _nan_padded(k).shape[1]
+    np.testing.assert_array_equal(bits[0], bits[1])
+    np.testing.assert_array_equal(bits[0], bits[2])
 
 
 def test_clr_lattice_replicate_axis_matches_loop():
@@ -585,3 +694,82 @@ def test_clr_lattice_kernel_deterministic_on_card():
     b = _port_clr(k, dev)
     torch.cuda.synchronize()
     assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _tile_inputs(stage, seed=33):
+    """Windows of many widths that cross each other, dummy candidates
+    inside candidate tiles, W off every site tile."""
+    k = _kernel_inputs(seed, W=3000 + 37, Rr=2, P=70, A_rel=stage)
+    rng = np.random.default_rng(seed)
+    W = k["pos"].shape[0]
+    lo = rng.integers(0, W, 70)
+    hi = np.minimum(lo + rng.choice([0, 1, 5, 200, 1200, W], 70), W - 1)
+    lo[[0, 5, 17, 18, 40]], hi[[0, 5, 17, 18, 40]] = 1, 0
+    k["lo"], k["hi"] = lo.astype(np.int32), hi.astype(np.int32)
+    return k
+
+
+def _sub(k, cands=None, reps=None):
+    """Inputs cut to candidates and replicates (numpy index lists)."""
+    k = dict(k)
+    if reps is not None:
+        k["row"], k["null"] = k["row"][reps], k["null"][reps]
+        k["m_base"] = k["m_base"][reps]
+    if cands is not None:
+        for n in ("cand", "lo", "hi"):
+            k[n] = k[n][cands]
+        k["m_base"] = k["m_base"][:, cands]
+    return k
+
+
+def _bits(x):
+    return x.cpu().view(torch.int32).numpy()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", ["coarse", "fine"])
+def test_clr_lattice_kernel_tiles_on_card(stage):
+    dev = _card()
+    k = _tile_inputs(stage)
+    got = _port_clr(k, dev)
+    want = _port_clr(k, dev, plain=True).cpu().numpy()
+    _, S = _ref(k["pack"], k["row"], k["pos"], k["null"], k["cand"],
+                k["lo"], k["hi"], k["m_base"], k["m_rel"], k["G"])
+    assert (np.abs(got.cpu().numpy() - want) <= REL * S + ABS).all()
+    assert not got[:, [0, 5, 17, 18, 40]].any()
+    # alone (P = 1, one candidate a block) and in other tiles: same bits
+    for p in (1, 6, 16, 19, 41, 69):
+        one = _port_clr(_sub(k, [p]), dev)
+        np.testing.assert_array_equal(_bits(one[:, 0]), _bits(got[:, p]))
+    odd = list(range(1, 70, 3))
+    np.testing.assert_array_equal(_bits(_port_clr(_sub(k, odd), dev)),
+                                  _bits(got[:, odd]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", ["coarse", "fine"])
+def test_clr_lattice_kernel_identity_replicate_on_card(stage):
+    dev = _card()
+    k = _kernel_inputs(34, W=20000, Rr=32, P=448, A_rel=stage)
+    k["lo"] = np.zeros(448, np.int32)  # whole-chromosome windows
+    k["hi"] = np.full(448, 19999, np.int32)
+    k["lo"][:3], k["hi"][:3] = 1, 0
+    k["m_base"][5] = k["m_base"][0]
+    obs = dict(row=k["row"][5:6].copy(), null=k["null"][5:6].copy())
+    many = _port_clr(k, dev)  # replicate 5 holds the observed attributes
+    scan = _port_clr(dict(_sub(k, reps=[0]), **obs), dev)
+    np.testing.assert_array_equal(_bits(many[5]), _bits(scan[0]))
+    for p in (3, 200, 447):
+        one = _port_clr(dict(_sub(k, [p], [0]), **obs), dev)
+        np.testing.assert_array_equal(_bits(one[0, 0]), _bits(scan[0, p]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stage", ["coarse", "fine"])
+def test_clr_lattice_kernel_ignores_padding_on_card(stage):
+    dev = _card()
+    k = _tile_inputs(stage, seed=35)
+    a = _port_clr(k, dev)
+    b = _port_clr(k, dev, pack=_nan_padded(k, dev))
+    np.testing.assert_array_equal(_bits(a), _bits(b))
+    assert torch.isfinite(a).all()
