@@ -21,13 +21,22 @@ non-zero:
                segment's max |prefix|, repeat launches bitwise equal as
                in 3; kernel, plain and the cumsum-only yardstick (over
                the float64 weight stream) timed at the first two
-  3a. rkernel - the row-id prefix-sum kernel (mode (a), hist_clr_reps)
-               against its plain version, bitwise, at the 20k path's shape
-               and one genome1m chromosome; both timed
+  3a. rkernel - the row-id prefix-sum kernel (mode (a), hist_clr_reps;
+               phase 3's chained scan with the row ids as its id source)
+               against its plain version, bitwise, at the 20k path's
+               shapes and one genome1m chromosome (timed, with the
+               cumsum-only yardstick) and at eight stress shapes with ids
+               that alias in int16 (r +- 65536, negative ids): W off the
+               tile, one tile, under a tile, odd L, L = 8192 in int16 and
+               int32, P = 256 at R = 1 (64 KB of staged ids) and W = 0
+               (the zero row, no launch); repeat launches as in 3
   3b. pkernel - the permuted single-chromosome prefix-sum kernel (mode
-               (b'), _hist_perm_batch) against its plain version, bitwise,
-               at the 20k path's shape and at an int32 shape with a
-               chromosome start off a group boundary; both timed
+               (b'), _hist_perm_batch; the same chained scan) against its
+               plain version, bitwise, at the 20k path's shape and at an
+               int32 shape with a chromosome start off a group boundary
+               (timed, with the cumsum-only yardstick), and at 3a's
+               stress shapes with n < w_pad, starts off a group boundary
+               and n = 0; repeat launches as in 3
   3d. gkernel - the row gather (pallas_gather's function) against its
                plain version, bitwise, at the probe's own shape
                (bench/micro_pallas_gather.py: [20481, 128] int16 and
@@ -161,7 +170,8 @@ genome (16 permutations), of mixed100k (16 permutations) and of phase
 permutations of the 20k task with RDP forced on and off: device time by
 kernel (the prefix-sum kernels, the two fused window kernels, the window
 operand, the matmuls, the row gather) and the device's busy share, with
-the tables written under OUT.
+the tables written under OUT, and the one-hot body's launches by id
+source; it fails if a three-pass row-id kernel (rtile_*) runs.
 """
 
 from __future__ import annotations
@@ -529,8 +539,87 @@ def _time_pair(tag, label, shape, kern, plain, tensors_in, nbytes=None,
                 out_mb=mb, bound_ms=b_ms, bound_by=b_by)
 
 
-def phase_rkernel(dev, shapes):
-    """Phase 3a: the row-id kernel (mode (a)) vs plain, bitwise, times."""
+def _onehot_cumsum_ms(ids, R):
+    """The cumsum-only yardstick of an unsegmented one-hot mode:
+    torch.cumsum over the materialised [W, P*R] int32 one-hot of [W, P]
+    ids."""
+    import torch
+
+    oh = (ids[..., None] == torch.arange(R, device=ids.device,
+                                         dtype=ids.dtype))
+    oh = oh.to(torch.int32).reshape(ids.shape[0], -1)
+    ms = cuda_time_ms(lambda: torch.cumsum(oh, 0, dtype=torch.int32), 20)
+    del oh
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _rowid_case(tag, label, shape, kern, plain, tensors_in, launched,
+                ids=None, R=None):
+    """A row-id mode (3a, 3b) at one shape: kern() == plain() bitwise,
+    one launch counted by launched() (none at W = 0, where only the zero
+    row is written), two launches and a launch after a 20-launch loop
+    bitwise equal to the first.  Timed (kernel, plain, and the cumsum-only
+    yardstick over ids' one-hot) where ids are given; the record."""
+    import torch
+
+    before = launched()
+    got = kern()
+    n_launch = launched() - before
+    want = plain()
+    torch.cuda.synchronize()
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"{tag} kernel != plain at {label}: {got.dtype} "
+             f"{tuple(got.shape)} vs {want.dtype} {tuple(want.shape)}")
+    n_bad, err = _differing(got, want)
+    if n_bad:
+        fail(f"{tag} kernel != plain at {label}: {n_bad} entries differ, "
+             f"max {err:.6g}")
+    if n_launch != (got.shape[0] > 1):
+        fail(f"{tag} kernel at {label}: {n_launch} launches counted for "
+             f"{got.shape[0] - 1} sites")
+    b_ms, b_by = bound(tensors_in, (got,), 2 * got.numel())
+    mb = got.numel() * got.element_size() / 1e6
+    rec = dict(label=label, shape=shape,
+               dtype=str(got.dtype).replace("torch.", ""), max_abs_err=err,
+               out_mb=mb, bound_ms=b_ms, bound_by=b_by)
+    del want
+    torch.cuda.empty_cache()
+    ms = _repeat_checks(tag, label, kern, got)
+    del got
+    if ids is None:
+        log(f"[{tag}] {label} (stress): {shape} {rec['dtype']} bitwise "
+            "equal; repeat launches equal")
+        return rec
+    plain_ms = cuda_time_ms(plain, 5)
+    cum_ms = _onehot_cumsum_ms(ids, R)
+    log(f"[{tag}] {label}: {shape} {rec['dtype']} bitwise equal, repeat "
+        f"launches equal; kernel {ms:.4f} ms ({mb / ms:.1f} GB/s written, "
+        f"{100 * b_ms / ms:.1f}% of bound), plain {plain_ms:.4f} ms, "
+        f"cumsum only {cum_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    return dict(rec, ms=ms, plain_ms=plain_ms, library_ms=None,
+                cumsum_only_ms=cum_ms)
+
+
+def _aliased_row_ids(rng, P, W, R):
+    """[P, W] int32 row ids in [0, R + 2], a fifth of them moved to ids
+    that count nowhere: r +- 65536 (r when cast to int16), -1, and the
+    int32 extremes."""
+    import numpy as np
+
+    ids = rng.integers(0, R + 3, size=(P, W)).astype(np.int64)
+    moved = np.stack([ids + 65536, ids - 65536, np.full_like(ids, -1),
+                      np.full_like(ids, -2**31), np.full_like(ids, 2**31 - 1)])
+    pick = rng.random((P, W)) < 0.2
+    which = rng.integers(0, len(moved), (1, P, W))
+    return np.where(pick, np.take_along_axis(moved, which, 0)[0],
+                    ids).astype(np.int32)
+
+
+def phase_rkernel(dev, shapes, stress):
+    """Phase 3a: the row-id kernel (mode (a)) vs plain, bitwise, at the
+    main path's shapes (timed) and at shapes that stress the chained scan
+    (ids that alias in int16 among their inputs)."""
     import numpy as np
     import torch
 
@@ -538,14 +627,17 @@ def phase_rkernel(dev, shapes):
 
     rng = np.random.default_rng(2)
     out = []
-    for label, P, W, R in shapes:
-        row_rep = torch.as_tensor(
-            rng.integers(0, R + 3, size=(P, W)).astype(np.int32), device=dev)
-        out.append(_time_pair(
+    for label, P, W, R in shapes + stress:
+        timed = (label, P, W, R) in shapes
+        ids = (rng.integers(0, R + 3, size=(P, W)).astype(np.int32)
+               if timed else _aliased_row_ids(rng, P, W, R))
+        row_rep = torch.as_tensor(ids, device=dev)
+        out.append(_rowid_case(
             "rkernel", label, f"P={P} W={W} R={R}",
             lambda: ps.rowid_prefix_sums(row_rep, n_rows=R),
             lambda: ps.rowid_prefix_sums_plain(row_rep, n_rows=R),
-            (row_rep,)))
+            (row_rep,), lambda: ps.rowid_launches,
+            ids=row_rep.T if timed else None, R=R))
     return out
 
 
@@ -565,9 +657,10 @@ def _perm_inputs(rng, W_genome, P, R, w_pad):
     return table.numpy(), sig
 
 
-def phase_pkernel(dev, shapes):
+def phase_pkernel(dev, shapes, stress):
     """Phase 3b: the single-chromosome permuted kernel (mode (b')) vs
-    plain, bitwise, times."""
+    plain, bitwise, at the main path's shapes (timed) and at shapes that
+    stress the chained scan and the chromosome's geometry."""
     import numpy as np
     import torch
 
@@ -575,17 +668,20 @@ def phase_pkernel(dev, shapes):
 
     rng = np.random.default_rng(3)
     out = []
-    for label, W_genome, start, n, w_pad, P, R in shapes:
+    for label, W_genome, start, n, w_pad, P, R in shapes + stress:
+        timed = (label, W_genome, start, n, w_pad, P, R) in shapes
         table, sig = (torch.as_tensor(x, device=dev) for x in
                       _perm_inputs(rng, W_genome, P, R, w_pad))
         kw = dict(start=start, n=n, w_pad=w_pad, n_rows=R)
-        out.append(_time_pair(
+        ids = (ps.perm_row_ids(table, sig, start=start, n=n, w_pad=w_pad)
+               if timed else None)
+        out.append(_rowid_case(
             "pkernel", label,
             f"start={start} (off {start % 32}) n={n} w_pad={w_pad} P={P} "
             f"R={R}",
             lambda: ps.perm_prefix_sums(table, sig, **kw),
             lambda: ps.perm_prefix_sums_plain(table, sig, **kw),
-            (table, sig)))
+            (table, sig), lambda: ps.perm_launches, ids=ids, R=R))
     return out
 
 
@@ -2577,8 +2673,14 @@ def phase_profile(dev):
                     if e.device_type == DeviceType.CUDA
                     and not e.key.startswith("Command Buffer")]
             busy = sum(t for t, _, _ in kern) / 1e6
-            ours = sum(t for t, _, k in kern
-                       if "chained_scan" in k or "rtile_" in k) / 1e6
+            if any("rtile_" in k for _, _, k in kern):
+                fail(f"profile {label} {stage}: a three-pass row-id kernel "
+                     "(rtile_*) ran")
+            ours = sum(t for t, _, k in kern if "chained_scan" in k) / 1e6
+            # launches of the one-hot body by id source: (b), (a), (b')
+            modes = {m: sum(n for _, n, k in kern
+                            if "onehot_chained_scan" in k and m in k)
+                     for m in ("SegmentSource", "RowRepIds", "PermIds")}
             wours = sum(t for t, _, k in kern
                         if "weighted_chained_scan" in k) / 1e6
             gath = sum(t for t, _, k in kern if "gather_rows" in k) / 1e6
@@ -2597,7 +2699,8 @@ def phase_profile(dev):
             log(f"[profile] {label} {stage}: wall {wall:.3f}s (profiled), "
                 f"device kernels {busy:.3f}s = {100 * busy / wall:.1f}% "
                 f"busy; prefix-sum kernels {ours * 1e3:.3f} ms (weighted "
-                f"{wours * 1e3:.3f} ms); fused window kernel "
+                f"{wours * 1e3:.3f} ms; one-hot launches by id source "
+                f"{modes}); fused window kernel "
                 f"{fused * 1e3:.3f} ms ({100 * fused / busy:.1f}%); float32 "
                 f"window kernel (and its split reduction) {f32 * 1e3:.3f} ms "
                 f"({100 * f32 / busy:.1f}%); window "
@@ -2671,10 +2774,34 @@ def main():
     rshapes = [("20k path", RDP_CHUNK, 20000, 56),
                ("20k padded", RDP_CHUNK, 20480, 56),
                ("genome1m chromosome", 16, 35351, 48)]
-    rkern = phase_rkernel(dev, rshapes)
+    # shapes that stress the shared chained scan (tile as phase 3's): W
+    # off the tile, one tile, under a tile, odd L, the largest L in int16
+    # and int32, R = 1 at 256 replicates (64 KB of staged ids: the shared
+    # memory opt-in), and no site at all (the zero row, no launch)
+    tile = kernels.load().fscl_ps_tile()
+    rstress = [("W off the tile", 8, 5 * tile + 96, 45),
+               ("one tile", 32, tile, 56),
+               ("under a tile", 32, 300, 56),
+               ("odd L", 5, 12 * tile + 224, 37),
+               ("L=8192 P=64", 64, 8 * tile + 32, 128),
+               ("L=8192 P=64 int32", 64, 33024, 128),
+               ("P=256 R=1", 256, 20000, 1),
+               ("W=0", 16, 0, 8)]
+    rkern = phase_rkernel(dev, rshapes, rstress)
     pshapes = [("20k path", 20000, 0, 20000, 20480, RDP_CHUNK, 56),
                ("genome1m chromosome", 80000, 40013, 35351, 36864, 16, 48)]
-    pkern = phase_pkernel(dev, pshapes)
+    # the same, plus the chromosome's geometry: n < w_pad with a start off
+    # a group boundary, and n = 0 (every site without an id)
+    pstress = [("W off the tile, n < w_pad", 9000, 4133, 2600, 5 * tile + 96,
+                8, 45),
+               ("one tile", 2000, 0, tile, tile, 32, 56),
+               ("under a tile, off 0", 2000, 64, 300, 320, 32, 56),
+               ("odd L", 10000, 1000, 6300, 12 * tile + 224, 5, 37),
+               ("L=8192 P=64", 6000, 37, 4100, 8 * tile + 32, 64, 128),
+               ("L=8192 P=64 int32", 40000, 3, 33000, 33024, 64, 128),
+               ("P=256 R=1", 30000, 555, 20000, 20480, 256, 1),
+               ("n=0", 3000, 100, 0, 1024, 16, 8)]
+    pkern = phase_pkernel(dev, pshapes, pstress)
     r20 = phase_20k(dev)
     if (r20["w_seg_p"], r20["sub_rep"], r20["n_rows"]) != (20480, sub_20k, 56):
         fail(f"20k main path ran at w={r20['w_seg_p']} P={r20['sub_rep']} "
@@ -2747,12 +2874,14 @@ def main():
         entry("weighted_prefix_sums", "weighted_prefix_sums.cu",
               pallas_ps + "(mode (c), f32 weight channels)", rm["launches"],
               wkern, note=fused, cumsum_only_ms=wkern[0]["cumsum_only_ms"]),
-        entry("rowid_prefix_sums", "rowid_prefix_sums.cu",
+        entry("rowid_prefix_sums", "prefix_sums.cu",
               pallas_ps + "(mode (a), row ids vs lane % R)",
-              rr["launches"]["rowid"], rkern, note=fused),
-        entry("perm_prefix_sums", "rowid_prefix_sums.cu",
+              rr["launches"]["rowid"], rkern, note=fused,
+              cumsum_only_ms=rkern[0]["cumsum_only_ms"]),
+        entry("perm_prefix_sums", "prefix_sums.cu",
               pallas_ps + "(mode (b), unsegmented one-hot)",
-              rr["launches"]["perm"], pkern, note=fused),
+              rr["launches"]["perm"], pkern, note=fused,
+              cumsum_only_ms=pkern[0]["cumsum_only_ms"]),
         entry("row_gather", "row_gather.cu",
               "bench/micro_pallas_gather.py:40 pallas_gather",
               rr["launches"]["gather_rdp_on"], gkern),

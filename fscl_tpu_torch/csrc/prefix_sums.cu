@@ -1,34 +1,57 @@
-// Segmented one-hot prefix sums of the permuted row-id stream, for Hopper.
+// One-hot prefix sums of row-id streams, for Hopper: one chained-scan
+// kernel body for the three one-hot modes of the TPU prefix-sum kernel.
 //
-// Replaces the TPU kernel fscl_tpu/ops/pallas_ps.py:onehot_prefix_sums
-// (input mode (b), segmented by reset_every) together with the
-// gather -> expand steps of fscl_tpu/engine/permute.py:_stack_stat that
-// fed it: the i16 row-id group table is gathered at sigma and compared
-// against the row index inside the kernel, so the [S*w, P*R] one-hot
-// stream never reaches device memory.
+// Replaces the TPU kernel fscl_tpu/ops/pallas_ps.py:onehot_prefix_sums in
+//   (b)   its segmented one-hot mode (reset_every), together with the
+//         gather -> expand steps of fscl_tpu/engine/permute.py:_stack_stat
+//         that fed it: the i16 row-id group table is gathered at sigma and
+//         compared against the row index inside the kernel, so the
+//         [S*w, P*R] one-hot stream never reaches device memory;
+//   (a)   its row-id mode (n_rows), fed by build_prefix_sums
+//         (fscl_tpu/ops/histclr.py:873, the hist_clr_reps statistic).  JAX
+//         repeats each replicate's id column R times into a [W, P*R] i32
+//         stream; here the kernel reads row_rep[p, k] itself;
+//   (b')  its unsegmented one-hot mode, fed by build_prefix_sums_oh
+//         (:811) from _perm_ps (fscl_tpu/engine/permute.py:648), which
+//         gathers the fat i8 one-hot group table at sigma, shifts it to
+//         the chromosome's first site and zeroes sites past its end.  Here
+//         the i16 row-id group table is gathered at sigma in the kernel.
 //
-// What it computes, for segment s, site k < w, replicate p, row r:
+// What it computes, for replicate p, row r (L = P*R lanes):
 //
-//   ps[s*w + k, p*R + r] = #{k' <= k : id(s, p, k') == r}
-//   id(s, p, k) = table[sig[p, j8] * pg + k % pg]
-//   j8 = seg_g0[s] + k / pg - 1,  a negative j8 reads column n_sig - 1
+//   (b)   ps[s*w + k, p*R + r] = #{k' <= k : id(s, p, k') == r}, k < w
+//         id(s, p, k) = table[sig[p, j8] * pg + k % pg]
+//         j8 = seg_g0[s] + k / pg - 1, a negative j8 reads column n_sig - 1
+//         (the sentinel column)
+//   (a), (b')  ps[0, p*R + r] = 0,
+//         ps[k + 1, p*R + r] = #{k' <= k : id(p, k') == r}, k < W
+//   (a)   id(p, k) = row_rep[p * W + k]
+//   (b')  id(p, k) = table[sig[p, g0 + j / pg] * pg + j % pg], j = off + k,
+//         for k < n; no id for k >= n
 //
-// (the sentinel column).  An id >= R matches no lane.
+// An id outside [0, R) matches no lane.  Output is int16 or int32 (the
+// wrappers' rule: int16 up to 32767 sites); the count is cast at the
+// store, as the plain versions cast their int32 cumsum.
 //
-// What bounds it on the H100: the bytes written, S*w*P*R*sizeof(out) --
-// 73 MB at the 20k shape (S=1, w=20480, P=32, R=56, int16) -- against P
-// ids read per site, R times fewer bytes.
+// What bounds it on the H100: the bytes written, rows*P*R*sizeof(out) --
+// 73 MB at the 20k shapes (w=20480 or W=20000, P=32, R=56, int16) --
+// against P ids read per site, R times fewer bytes.
 //
 // Design.  The TPU version walked the sites in order, carrying a running
 // row across its sequential grid with a tril matmul per tile.  Blocks on
 // the GPU run in no order, so the site axis is cut into kTile-site tiles
 // and each (segment, lane block) is one chain of tiles, scanned in one
 // launch by a chained scan with decoupled look-back (chained_scan.cuh).
-// A block owns kLanes lanes (kVec adjacent ones a thread of each warp)
-// and one tile, which its kWarps warps cut into slices of kSub sites.  It
-// takes its (tile, segment, lane block) from a ticket, tile-major, then:
+// The modes differ only in where a site's id comes from (an id source,
+// which builds a block's id functor from its segment, first replicate and
+// first site) and in the output's first row (kRow0: row s*w + k, or row
+// k + 1 under a zero row).  A block owns kLanes lanes (kVec adjacent ones
+// a thread of each warp) and one tile, which its kWarps warps cut into
+// slices of kSub sites.  It takes its (tile, segment, lane block) from a
+// ticket, tile-major, then:
 //   1. stages the tile's ids in shared memory, once, for only the
-//      replicates its lanes cover;
+//      replicates its lanes cover (ids outside [0, R) as -1, so int16
+//      holds every id);
 //   2. each warp walks its slice for its lanes: the slice's counts; their
 //      sum is the tile's;
 //   3. publishes the tile's counts (flag and count in one 64-bit word per
@@ -38,7 +61,8 @@
 //      storing the running counts.
 // A warp's lanes are adjacent, so it stores whole 128-byte lines (int16:
 // 4 bytes a thread a site), and a staged id is a broadcast.  The host
-// zeroes the flags and the ticket before the kernel, on the same stream.
+// zeroes the flags and the ticket before the kernel, on the same stream;
+// the zero row of (a) and (b') is written by the blocks of tile 0.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -55,6 +79,9 @@ constexpr int kSub = kTile / kWarps;  // sites per slice
 constexpr int kThreads = 32 * kWarps;
 constexpr int kVec = 2;     // adjacent lanes per thread
 constexpr int kLanes = 32 * kVec;  // lanes per block
+// the zero row of (a) and (b'): written by the blocks of tile 0 (true) or
+// by a memset before the kernel (false)
+constexpr bool kRow0InKernel = true;
 
 // scratch: [S][n_tiles][L] packed words, then the ticket
 struct Scratch {
@@ -74,6 +101,58 @@ __host__ __device__ inline int rep_count(int lb, int P, int R) {
   const int p_hi = (lb * kLanes + kLanes - 1) / R;
   return (p_hi < P - 1 ? p_hi : P - 1) - rep_lo(lb, R) + 1;
 }
+
+// ---- id sources: at(s, p_lo, k0) is the id functor of a block whose
+// replicates start at p_lo and whose tile starts at site k0 of segment s;
+// its (pe, kk) is the id of replicate p_lo + pe at site k0 + kk.
+
+// (b): the segment's slab of the group table gathered at sigma
+struct SegmentSource {
+  static constexpr int kRow0 = 0;
+  const int16_t* table;
+  const int32_t* sig;
+  const int32_t* seg_g0;
+  int n_sig, pg;
+  __device__ fscl::SegmentIds at(int s, int p_lo, int k0) const {
+    return {table, sig + (size_t)p_lo * n_sig, n_sig, pg, seg_g0[s] - 1, k0};
+  }
+};
+
+// (a): a [P, W] int32 row-id matrix; an id outside [0, R) reads as -1
+// before the int16 staging can alias it (65536 + r would stage as r)
+struct RowRepIds {
+  static constexpr int kRow0 = 1;
+  const int32_t* rows;
+  int W, R;
+  __device__ RowRepIds at(int, int p_lo, int k0) const {
+    return {rows + (size_t)p_lo * W + k0, W, R};
+  }
+  __device__ __forceinline__ int operator()(int pe, int kk) const {
+    const int id = __ldg(rows + (size_t)pe * W + kk);
+    return (unsigned)id < (unsigned)R ? id : -1;
+  }
+};
+
+// (b'): the chromosome starting at group g0, site off of it, gathered at
+// sigma; no id (-1) at sites k >= n, whose sigma columns are not read
+struct PermIds {
+  static constexpr int kRow0 = 1;
+  const int16_t* table;
+  const int32_t* sig;
+  int n_sig, g0, off, n, pg, R, k0;
+  __device__ PermIds at(int, int p_lo, int k0_) const {
+    return {table, sig + (size_t)p_lo * n_sig, n_sig, g0, off, n, pg, R,
+            k0_};
+  }
+  __device__ __forceinline__ int operator()(int pe, int kk) const {
+    const int k = k0 + kk;
+    if (k >= n) return -1;
+    const int j = off + k;
+    const int sel = __ldg(sig + (size_t)pe * n_sig + g0 + j / pg);
+    const int id = __ldg(table + (size_t)sel * pg + j % pg);
+    return (unsigned)id < (unsigned)R ? id : -1;
+  }
+};
 
 // kVec counts of type OutT as one vector store
 template <typename OutT>
@@ -97,14 +176,10 @@ __device__ __forceinline__ void store_vec(OutT* dst,
   }
 }
 
-template <typename OutT>
+template <typename Src, typename OutT>
 __global__ void __launch_bounds__(kThreads)
-    onehot_chained_scan(const int16_t* __restrict__ table,
-                        const int32_t* __restrict__ sig,
-                        const int32_t* __restrict__ seg_g0,
-                        OutT* __restrict__ out, Scratch sc, int S, int w,
-                        int P, int R, int n_sig, int pg, int n_tiles,
-                        int n_lb) {
+    onehot_chained_scan(Src src, OutT* __restrict__ out, Scratch sc, int S,
+                        int w, int P, int R, int n_tiles, int n_lb) {
   extern __shared__ int16_t ids[];  // [kTile][n_rep]
   // slice counts, then slice starts, of each lane
   __shared__ uint32_t part[kWarps][kLanes];
@@ -119,9 +194,7 @@ __global__ void __launch_bounds__(kThreads)
   const int n = min(kTile, w - k0);
 
   // 1. the tile's ids of this block's replicates
-  const fscl::SegmentIds id_at{table, sig + (size_t)p_lo * n_sig, n_sig,
-                               pg, seg_g0[s] - 1, k0};
-  fscl::stage_tile_ids<kThreads>(ids, n, n_rep, id_at);
+  fscl::stage_tile_ids<kThreads>(ids, n, n_rep, src.at(s, p_lo, k0));
 
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -168,6 +241,11 @@ __global__ void __launch_bounds__(kThreads)
         part[i][lane * kVec + v] = run[v];
         run[v] += c;
       }
+    if (Src::kRow0 && kRow0InKernel && t == 0) {  // the zero row
+#pragma unroll
+      for (int v = 0; v < kVec; ++v)
+        if (live[v]) out[l + v] = (OutT)0;
+    }
   }
   __syncthreads();
 
@@ -176,7 +254,7 @@ __global__ void __launch_bounds__(kThreads)
   uint32_t run[kVec];
 #pragma unroll
   for (int v = 0; v < kVec; ++v) run[v] = part[warp][lane * kVec + v];
-  OutT* dst = out + ((size_t)s * w + k0 + kk0) * L + l;
+  OutT* dst = out + ((size_t)s * w + Src::kRow0 + k0 + kk0) * L + l;
   if (L % kVec == 0) {
     if (!live[0]) return;
 #pragma unroll 4
@@ -198,29 +276,44 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename OutT>
-int launch(const int16_t* tab, const int32_t* sg, const int32_t* g0,
-           OutT* out, const Scratch& sc, int S, int w, int P, int R,
-           int n_sig, int pg, cudaStream_t st) {
+// One flag memset and one kernel on st (and the zero row's memset where
+// the kernel does not write it); w == 0 launches no kernel.
+template <typename Src, typename OutT>
+int launch(const Src& src, OutT* out, void* scratch, int S, int w, int P,
+           int R, cudaStream_t st) {
+  const int L = P * R;
+  cudaError_t err = cudaSuccess;
+  if (Src::kRow0 && (!kRow0InKernel || w == 0))
+    err = cudaMemsetAsync(out, 0, (size_t)L * sizeof(OutT), st);
+  if (err != cudaSuccess || w == 0) return (int)err;
   const int n_tiles = (w + kTile - 1) / kTile;
-  const int n_lb = (P * R + kLanes - 1) / kLanes;
+  const int n_lb = (L + kLanes - 1) / kLanes;
   int n_rep = 0;
   for (int lb = 0; lb < n_lb; ++lb)
     if (rep_count(lb, P, R) > n_rep) n_rep = rep_count(lb, P, R);
   const size_t smem = (size_t)kTile * n_rep * sizeof(int16_t);
-  cudaError_t err = cudaSuccess;
   if (smem + sizeof(uint32_t) * kWarps * kLanes > 48 * 1024)  // opt in
-    err = cudaFuncSetAttribute(onehot_chained_scan<OutT>,
+    err = cudaFuncSetAttribute(onehot_chained_scan<Src, OutT>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
   if (err != cudaSuccess) return (int)err;
-  err = cudaMemsetAsync(sc.words, 0,
-                        (scratch_words(S, w, P * R) + 1) * sizeof(uint64_t),
-                        st);
+  uint64_t* words = (uint64_t*)scratch;
+  const size_t n_words = scratch_words(S, w, L);
+  err = cudaMemsetAsync(words, 0, (n_words + 1) * sizeof(uint64_t), st);
   if (err != cudaSuccess) return (int)err;
-  onehot_chained_scan<OutT><<<n_tiles * S * n_lb, kThreads, smem, st>>>(
-      tab, sg, g0, out, sc, S, w, P, R, n_sig, pg, n_tiles, n_lb);
+  const Scratch sc = {words, (unsigned*)(words + n_words)};
+  onehot_chained_scan<Src, OutT><<<n_tiles * S * n_lb, kThreads, smem, st>>>(
+      src, out, sc, S, w, P, R, n_tiles, n_lb);
   return (int)cudaGetLastError();
+}
+
+template <typename Src>
+int launch_as(int out_bytes, const Src& src, void* out, void* scratch,
+              int S, int w, int P, int R, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  if (out_bytes == 2)
+    return launch(src, (int16_t*)out, scratch, S, w, P, R, st);
+  return launch(src, (int32_t*)out, scratch, S, w, P, R, st);
 }
 
 }  // namespace
@@ -230,31 +323,46 @@ extern "C" {
 // Sites per tile: the chains' step, and the largest w one tile covers.
 int fscl_ps_tile() { return kTile; }
 
-// Bytes of scratch fscl_onehot_prefix_sums needs (flags and ticket).
+// Bytes of scratch a kernel of this file needs (flags and ticket): S
+// segments of w sites, or S = 1 and w = W for (a) and (b').
 int64_t fscl_ps_scratch_bytes(int S, int w, int P, int R) {
   return (int64_t)(scratch_words(S, w, P * R) + 1) * sizeof(uint64_t);
 }
 
-// table  [*, pg] int16   row-id group table (row = group, sentinel last)
-// sig    [P, n_sig] int32 group-level sigma of one replicate slice
-// seg_g0 [S] int32       first genome group of each segment
-// out    [S*w, P*R]      int16 (out_bytes 2) or int32 (out_bytes 4)
-// scratch                fscl_ps_scratch_bytes(S, w, P, R) bytes, 8-aligned
-// One memset and one kernel on stream; returns cudaGetLastError() after
-// the launch (0 = success).
+// Each entry point: one memset of scratch, fscl_ps_scratch_bytes bytes,
+// 8-aligned, and one kernel, on stream; returns cudaGetLastError() after
+// the launch (0 = success).  out_bytes 2: int16 output, 4: int32.
+
+// (b) table [*, pg] int16 row-id group table (row = group, sentinel
+// last); sig [P, n_sig] int32 group-level sigma of one replicate slice;
+// seg_g0 [S] int32 first genome group of each segment; out [S*w, P*R].
 int fscl_onehot_prefix_sums(const void* table, const void* sig,
                             const void* seg_g0, void* out, void* scratch,
                             int S, int w, int P, int R, int n_sig, int pg,
                             int out_bytes, void* stream) {
-  uint64_t* words = (uint64_t*)scratch;
-  const Scratch sc = {words, (unsigned*)(words + scratch_words(S, w, P * R))};
-  const int16_t* tab = (const int16_t*)table;
-  const int32_t* sg = (const int32_t*)sig;
-  const int32_t* g0 = (const int32_t*)seg_g0;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (out_bytes == 2)
-    return launch(tab, sg, g0, (int16_t*)out, sc, S, w, P, R, n_sig, pg, st);
-  return launch(tab, sg, g0, (int32_t*)out, sc, S, w, P, R, n_sig, pg, st);
+  const SegmentSource src{(const int16_t*)table, (const int32_t*)sig,
+                          (const int32_t*)seg_g0, n_sig, pg};
+  return launch_as(out_bytes, src, out, scratch, S, w, P, R, stream);
+}
+
+// (a) row_rep [P, W] int32; out [W+1, P*R].
+int fscl_rowid_prefix_sums(const void* row_rep, void* out, void* scratch,
+                           int W, int P, int R, int out_bytes,
+                           void* stream) {
+  const RowRepIds src{(const int32_t*)row_rep, W, R};
+  return launch_as(out_bytes, src, out, scratch, 1, W, P, R, stream);
+}
+
+// (b') table [*, pg] int16 row-id group table; sig [P, n_sig] int32 group
+// sigma, sentinel-padded so columns g0 .. g0 + (off + n - 1) / pg exist;
+// out [w_pad+1, P*R].
+int fscl_perm_prefix_sums(const void* table, const void* sig, void* out,
+                          void* scratch, int w_pad, int P, int R, int n_sig,
+                          int g0, int off, int n, int pg, int out_bytes,
+                          void* stream) {
+  const PermIds src{(const int16_t*)table, (const int32_t*)sig, n_sig, g0,
+                    off, n, pg, R, 0};
+  return launch_as(out_bytes, src, out, scratch, 1, w_pad, P, R, stream);
 }
 
 const char* fscl_cuda_error_string(int code) {

@@ -141,7 +141,7 @@ def load():
     lib.fscl_lattice_clr.argtypes = [vp] * 10 + [i, i, i, i, i, i,
                                            ctypes.c_float, i, vp]
     lib.fscl_lattice_clr.restype = i
-    for tile in (lib.fscl_ps_tile, lib.fscl_wps_tile, lib.fscl_rps_tile):
+    for tile in (lib.fscl_ps_tile, lib.fscl_wps_tile):
         tile.argtypes = []
         tile.restype = i
     for size in (lib.fscl_ps_scratch_bytes, lib.fscl_wps_scratch_bytes):

@@ -28,7 +28,7 @@ in float32, summed in float64 and rounded once.  The sentinel id R_used
 reads the all-zero last row.
 
 ``rowid_prefix_sums`` and ``perm_prefix_sums`` are the same TPU kernel's
-unsegmented modes, with a zero first row (csrc/rowid_prefix_sums.cu):
+unsegmented modes, with a zero first row:
 
     ps[0, p*R + r] = 0,  ps[k+1, p*R + r] = #{k' <= k : id(p, k') == r}
 
@@ -45,9 +45,11 @@ Output is int16 when W <= 32767 and int32 otherwise (W = row_rep's width,
 or w_pad), the rule of the JAX package's prefix functions.
 
 Each wrapper runs the plain PyTorch version for CPU tensors and its CUDA
-kernel (csrc/prefix_sums.cu, csrc/weighted_prefix_sums.cu,
-csrc/rowid_prefix_sums.cu) for CUDA tensors; it never falls back from one
-to the other.  ``launches``, ``weighted_launches``, ``rowid_launches`` and
+kernel for CUDA tensors; it never falls back from one to the other.  The
+three one-hot modes are one kernel body in csrc/prefix_sums.cu, a chained
+scan with decoupled look-back (csrc/chained_scan.cuh) templated on where a
+site's id comes from; the weighted mode is csrc/weighted_prefix_sums.cu.
+``launches``, ``weighted_launches``, ``rowid_launches`` and
 ``perm_launches`` count the kernels' launches.
 """
 
@@ -59,8 +61,9 @@ launches = 0  # CUDA kernel launches by onehot_prefix_sums
 weighted_launches = 0  # CUDA kernel launches by weighted_prefix_sums
 rowid_launches = 0  # CUDA kernel launches by rowid_prefix_sums
 perm_launches = 0  # CUDA kernel launches by perm_prefix_sums
-# lanes (P*R) and replicates the row-id kernels take: the tile histogram
-# holds P*R int32 and the staged ids kStage*P int16 in shared memory
+# lanes (P*R) and replicates the row-id modes take: at R = 1 a 64-lane
+# block stages 512 sites of 64 replicates' int16 ids (64 KB of shared
+# memory)
 ROWID_LANES_MAX = 8192
 ROWID_REPS_MAX = 256
 
@@ -238,7 +241,8 @@ def rowid_prefix_sums_plain(row_rep, *, n_rows, out_dtype=None):
 
 
 def _launch_rowid(what, lib_fn, dev, W, P, n_rows, out_dtype, args):
-    """Allocate, check limits, launch one row-id kernel; the output."""
+    """Allocate, check limits, launch one row-id kernel (none at W = 0,
+    where the C entry point only zeroes row 0); the output."""
     odt = _out_dtype(W, out_dtype)
     L = P * n_rows
     if odt not in (torch.int16, torch.int32):
@@ -251,9 +255,10 @@ def _launch_rowid(what, lib_fn, dev, W, P, n_rows, out_dtype, args):
     from .. import kernels
 
     lib = kernels.load()
-    n_tiles = -(-W // lib.fscl_rps_tile())
     out = torch.empty((W + 1, L), dtype=odt, device=dev)
-    scratch = torch.empty(max(n_tiles * L, 1), dtype=torch.int32, device=dev)
+    # flags and ticket of the chained scan, in 8-byte words
+    scratch = torch.empty(lib.fscl_ps_scratch_bytes(1, W, P, n_rows) // 8,
+                          dtype=torch.int64, device=dev)
     with torch.cuda.device(dev):
         rc = getattr(lib, lib_fn)(
             *args(out, scratch), out.element_size(),
@@ -287,7 +292,8 @@ def rowid_prefix_sums(row_rep, *, n_rows, out_dtype=None):
                               scratch.data_ptr(), W, P, n_rows),
     )
     global rowid_launches
-    rowid_launches += 1
+    if W:
+        rowid_launches += 1
     return out
 
 
@@ -357,5 +363,6 @@ def perm_prefix_sums(table, sig, *, start, n, w_pad, n_rows,
                               n_rows, n_sig, g0, off, n, pg),
     )
     global perm_launches
-    perm_launches += 1
+    if w_pad:
+        perm_launches += 1
     return out

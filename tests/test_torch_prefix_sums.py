@@ -292,6 +292,20 @@ def _row_rep(seed, P, W, R):
     return rng.integers(0, R + 3, size=(P, W)).astype(np.int32)
 
 
+def _aliased_row_rep(seed, P, W, R):
+    """_row_rep with a fifth of the ids moved to ids that count nowhere
+    but alias a row when cast to int16 (r + 65536, r - 65536), or are
+    negative (-1, the int32 minimum)."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(0, R + 3, size=(P, W)).astype(np.int64)
+    pick = rng.random((P, W)) < 0.2
+    moved = np.stack([ids + 65536, ids - 65536, np.full_like(ids, -1),
+                      np.full_like(ids, -2**31)])
+    ids = np.where(pick, moved[rng.integers(0, 4, (P, W)),
+                               np.arange(P)[:, None], np.arange(W)], ids)
+    return ids.astype(np.int32)
+
+
 @pytest.mark.parametrize("out", ["int16", "int32"])
 def test_rowid_plain_matches_pallas_mode_a_interpret(out):
     P, W, R = 16, 1024, 8  # lanes 128
@@ -318,6 +332,26 @@ def test_rowid_plain_matches_build_prefix_sums(P, W, R, dtype):
     before = tps.rowid_launches
     got = tps.rowid_prefix_sums(torch.as_tensor(row_rep), n_rows=R).numpy()
     assert tps.rowid_launches == before  # plain version on the CPU
+    assert got.dtype == want.dtype == dtype
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("P, W, R, dtype", [
+    (4, 1000, 7, np.int16),
+    (2, 33000, 5, np.int32),
+    (16, 700, 1, np.int16),  # R = 1: every alias is one of row 0
+])
+def test_rowid_plain_matches_build_prefix_sums_on_aliasing_ids(P, W, R,
+                                                               dtype):
+    """Ids r +- 65536, R and negative ids count nowhere in either package
+    (the kernel must not count them as the int16 they cast to)."""
+    from fscl_tpu.ops.histclr import build_prefix_sums
+
+    row_rep = _aliased_row_rep(17, P, W, R)
+    assert (row_rep >= 65536).any() and (row_rep < -1).any()
+    assert (row_rep == -1).any() and (row_rep == R).any()
+    want = np.asarray(build_prefix_sums(jnp.asarray(row_rep), n_rows=R))
+    got = tps.rowid_prefix_sums(torch.as_tensor(row_rep), n_rows=R).numpy()
     assert got.dtype == want.dtype == dtype
     np.testing.assert_array_equal(got, want)
 
@@ -392,6 +426,19 @@ def test_perm_plain_matches_perm_ps(W_genome, start, n, w_pad, dtype):
     np.testing.assert_array_equal(got, want)
 
 
+@pytest.mark.parametrize("start, w_pad", [(0, 512), (4133, 2656)])
+def test_perm_plain_matches_perm_ps_at_n0(start, w_pad):
+    """No site of the chromosome has an id: every row is zero."""
+    P, R = 4, 6
+    fat, thin, sig = _perm_inputs(18, 9000, P, R, w_pad)
+    want = np.asarray(_perm_ps(fat, jnp.asarray(sig), start=start, n=0,
+                               w_pad=w_pad))
+    got = _port_perm(thin, sig, start, 0, w_pad, R)
+    assert got.shape == (w_pad + 1, P * R) and not got.any()
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)
+
+
 def test_perm_refuses_unpadded_sigma():
     P, R, w_pad = 2, 4, 512
     _, thin, sig = _perm_inputs(14, 600, P, R, w_pad)
@@ -400,30 +447,57 @@ def test_perm_refuses_unpadded_sigma():
         _port_perm(thin, sig[:, :G], 590, 100, w_pad, R)
 
 
+# The row-id modes run phase 1b's chained scan (512-site tiles, 64 lanes
+# a block): the same stress shapes, plus W under a tile, R = 1 at 256
+# replicates (64 KB of staged ids: the shared-memory opt-in) and no site
+# (the zero row, no launch); 1a on ids that alias in int16, 1b' with
+# n < w_pad, starts off a group boundary and n = 0.  n_launch launches in
+# a row must all give the first one's bits.
 @pytest.mark.gpu
-@pytest.mark.parametrize("P, W, R, dtype", [
-    (32, 20480, 56, torch.int16),  # the 20k shape
-    (16, 35351, 48, torch.int32),  # one genome1m chromosome
+@pytest.mark.parametrize("P, W, R, dtype, n_launch", [
+    (32, 20480, 56, torch.int16, 1),  # the 20k shape
+    (16, 35351, 48, torch.int32, 1),  # one genome1m chromosome
+    (8, 2656, 45, torch.int16, 1),  # W off the tile
+    (32, 512, 56, torch.int16, 1),  # one tile
+    (32, 300, 56, torch.int16, 1),  # under a tile
+    (5, 6368, 37, torch.int16, 1),  # odd L = 185
+    (64, 4128, 128, torch.int16, 1),  # L = 8192, P = 64
+    (64, 33024, 128, torch.int32, 1),  # L = 8192, int32
+    (256, 20000, 1, torch.int16, 1),  # P = 256, R = 1
+    (16, 0, 8, torch.int16, 1),  # no site
+    (32, 20000, 56, torch.int16, 20),  # repeated launches
 ])
-def test_rowid_kernel_matches_plain_on_card(P, W, R, dtype):
+def test_rowid_kernel_matches_plain_on_card(P, W, R, dtype, n_launch):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the CUDA kernel runs only on the card")
-    row_rep = torch.as_tensor(_row_rep(15, P, W, R), device="cuda")
+    row_rep = torch.as_tensor(_aliased_row_rep(15, P, W, R), device="cuda")
     before = tps.rowid_launches
     got = tps.rowid_prefix_sums(row_rep, n_rows=R)
     want = tps.rowid_prefix_sums_plain(row_rep, n_rows=R)
     torch.cuda.synchronize()
-    assert tps.rowid_launches == before + 1
     assert got.dtype == want.dtype == dtype
     assert torch.equal(got, want)
+    for _ in range(n_launch - 1):
+        assert torch.equal(got, tps.rowid_prefix_sums(row_rep, n_rows=R))
+    assert tps.rowid_launches == before + (n_launch if W else 0)
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("W_genome, start, n, w_pad, P, R", [
-    (20000, 0, 20000, 20480, 32, 56),  # the 20k shape
-    (80000, 40013, 35351, 36864, 16, 48),  # off = 13, int32
+@pytest.mark.parametrize("W_genome, start, n, w_pad, P, R, n_launch", [
+    (20000, 0, 20000, 20480, 32, 56, 1),  # the 20k shape
+    (80000, 40013, 35351, 36864, 16, 48, 1),  # off = 13, int32
+    (9000, 4133, 2600, 2656, 8, 45, 1),  # w_pad off the tile, n < w_pad
+    (2000, 0, 512, 512, 32, 56, 1),  # one tile
+    (2000, 64, 300, 320, 32, 56, 1),  # under a tile
+    (10000, 1000, 6300, 6368, 5, 37, 1),  # odd L = 185, off = 8
+    (6000, 37, 4100, 4128, 64, 128, 1),  # L = 8192, P = 64
+    (40000, 3, 33000, 33024, 64, 128, 1),  # L = 8192, int32
+    (30000, 555, 20000, 20480, 256, 1, 1),  # P = 256, R = 1
+    (3000, 100, 0, 1024, 16, 8, 1),  # n = 0
+    (20000, 0, 20000, 20480, 32, 56, 20),  # repeated launches
 ])
-def test_perm_kernel_matches_plain_on_card(W_genome, start, n, w_pad, P, R):
+def test_perm_kernel_matches_plain_on_card(W_genome, start, n, w_pad, P, R,
+                                           n_launch):
     if not torch.cuda.is_available():
         pytest.skip("no CUDA card: the CUDA kernel runs only on the card")
     _, thin, sig = _perm_inputs(16, W_genome, P, R, w_pad)
@@ -433,5 +507,7 @@ def test_perm_kernel_matches_plain_on_card(W_genome, start, n, w_pad, P, R):
     got = tps.perm_prefix_sums(t, s, **kw)
     want = tps.perm_prefix_sums_plain(t, s, **kw)
     torch.cuda.synchronize()
-    assert tps.perm_launches == before + 1
     assert torch.equal(got, want)
+    for _ in range(n_launch - 1):
+        assert torch.equal(got, tps.perm_prefix_sums(t, s, **kw))
+    assert tps.perm_launches == before + n_launch

@@ -1,27 +1,32 @@
 #!/usr/bin/env python3
-"""Time variants of the two chained-scan prefix-sum kernels on one Hopper
-card: the one-hot kernel (csrc/prefix_sums.cu) and the weighted one
+"""Time variants of the chained-scan prefix-sum kernels on one Hopper
+card: the one-hot body (csrc/prefix_sums.cu) in its segmented mode (b)
+and its row-id modes (a) and (b'), and the weighted kernel
 (csrc/weighted_prefix_sums.cu).
 
 A variant is the committed source with named pieces of text replaced:
 either a tuning constant changed (its output is checked against the
 plain version, bitwise or within 2 float32 ulps) or one part of the
 kernel taken out (an ablation: the output is wrong and not checked; the
-time it saves is that part's share).  For each variant the script builds
-the two sources (and their headers) with nvcc into a library of its own,
-puts it in place of the package's library for the wrappers, and times
-each wrapper it changes at the main path's shapes: CUDA events over 20
-launches, median of 5 (chip_smoke.cuda_time_ms), the kernel and its
-flag memset alone under torch.profiler, and the host's time to enqueue
-one call.  Every replacement must match
-the source once, or the script fails.
+time it saves is that part's share).  One variant is another source:
+rps_three_pass puts the row-id entry points of the first, three-pass
+version (tools/rowid_prefix_sums_baseline.cu) in place of the chained
+scan's, so name it between base runs to time the two in turns.  For
+each variant the script builds the two sources (and their headers) with
+nvcc into a library of its own, puts it in place of the package's
+library for the wrappers, and times each wrapper it changes at the main
+path's shapes (mode (b): phase 3's; (a) and (b'): phases 3a and 3b's
+timed ones): CUDA events over 20 launches, median of 5
+(chip_smoke.cuda_time_ms), the kernel and the memsets alone under
+torch.profiler, and the host's time to enqueue one call.  Every
+replacement must match the source once, or the script fails.
 
 Run from the repo root on the card:
 
     python3 tools/prefix_scan_variants.py [variant ...]
 
-(no names: every variant, then base again).  Writes
-chiprun_out/variants/variants.json.
+(no names: every variant, then base again; a name may repeat, and each
+is built once).  Writes chiprun_out/variants/variants.json.
 """
 
 from __future__ import annotations
@@ -60,10 +65,20 @@ def _window(k):
 _NO_STAGE = ("for (int e = threadIdx.x; e < n * n_rep; e += kThreads) "
              "ids[e] = 0;\n  __syncthreads();")
 
-# name -> (kernel it changes: "ps", "wps" or None for both, is it an
+# the row-id entry points the three-pass baseline replaces
+BASELINE = REPO / "tools" / "rowid_prefix_sums_baseline.cu"
+ROWID_FNS = ("fscl_rowid_prefix_sums", "fscl_perm_prefix_sums")
+
+# name -> (kernels it changes: "ps" (the one-hot body: modes (b), (a),
+# (b')), "rps" (modes (a), (b') only), "wps" or None for all, is it an
 # ablation, [(file, old text, new text), ...])
 VARIANTS = {
     "base": (None, False, []),
+    # modes (a) and (b'): the three-pass version; the zero row by memset
+    "rps_three_pass": ("rps", False, []),
+    "rps_row0_memset": ("rps", False, [
+        (PS, "constexpr bool kRow0InKernel = true;",
+         "constexpr bool kRow0InKernel = false;")]),
     # the one-hot kernel: tile, warps a tile, lanes a thread, look-back
     "ps_tile256": ("ps", False, [_const(PS, "kTile", 512, 256)]),
     "ps_tile1024": ("ps", False, [_const(PS, "kTile", 512, 1024)]),
@@ -82,8 +97,8 @@ VARIANTS = {
          '"ld.relaxed.gpu.u64 %0, [%1];"')]),
     # the one-hot kernel, one part taken out
     "ps_no_stage": ("ps", True, [
-        (PS, "fscl::stage_tile_ids<kThreads>(ids, n, n_rep, id_at);",
-         _NO_STAGE)]),
+        (PS, "fscl::stage_tile_ids<kThreads>(ids, n, n_rep, "
+             "src.at(s, p_lo, k0));", _NO_STAGE)]),
     "ps_no_walk1": ("ps", True, [
         (PS, "for (int v = 0; v < kVec; ++v) cnt[v] += row[pl[v]] == r[v];",
          "for (int v = 0; v < kVec; ++v) cnt[v] += 0 * row[pl[v]];")]),
@@ -161,11 +176,41 @@ def build(name, edits, work):
         f.argtypes, f.restype = [i] * 4, i64
     for f in (lib.fscl_ps_tile, lib.fscl_wps_tile):
         f.argtypes, f.restype = [], i
+    lib.fscl_rowid_prefix_sums.argtypes = [vp] * 3 + [i] * 4 + [vp]
+    lib.fscl_perm_prefix_sums.argtypes = [vp] * 4 + [i] * 9 + [vp]
+    for f in ROWID_FNS:
+        getattr(lib, f).restype = i
     lib.fscl_cuda_error_string.argtypes = [i]
     lib.fscl_cuda_error_string.restype = ctypes.c_char_p
+    if name == "rps_three_pass":
+        so = src / "three_pass.so"
+        p = subprocess.run([nvcc, *kernels.NVCC_FLAGS, "-shared", "-o",
+                            str(so), str(BASELINE)], capture_output=True,
+                           text=True)
+        log += p.stdout + p.stderr
+        if p.returncode:
+            raise SystemExit(f"{name}: nvcc failed\n{log}")
+        old = ctypes.CDLL(str(so))
+        old.fscl_rowid_prefix_sums.argtypes = (
+            lib.fscl_rowid_prefix_sums.argtypes)
+        old.fscl_perm_prefix_sums.argtypes = (
+            lib.fscl_perm_prefix_sums.argtypes)
+        for f in ROWID_FNS:
+            getattr(old, f).restype = i
+        lib = _ThreePass(lib, old)
     regs = [ln.strip() for ln in log.splitlines()
             if "registers" in ln or "spill" in ln]
     return lib, regs
+
+
+class _ThreePass:
+    """A variant's library with the three-pass row-id entry points."""
+
+    def __init__(self, lib, old):
+        self._lib, self._old = lib, old
+
+    def __getattr__(self, name):
+        return getattr(self._old if name in ROWID_FNS else self._lib, name)
 
 
 def device_ms(fn, key, n=20):
@@ -261,6 +306,53 @@ def time_wps(dev, label, S, w, P, R, n_ids, check):
                 host_ms=h_ms, bound_ms=b_ms, equal=ok)
 
 
+def _time_rowid_mode(label, kern, plain, tensors_in, key, check):
+    """One row-id mode's wrapper at one shape: times and, unless an
+    ablation, bitwise equality with the plain version."""
+    import torch
+
+    got = kern()
+    ok = bool(torch.equal(got, plain())) if check else None
+    b_ms, _ = cs.bound(tensors_in, (got,), 2 * got.numel())
+    del got
+    torch.cuda.empty_cache()
+    ms = cs.cuda_time_ms(kern, 20)
+    k_ms, m_ms, h_ms = device_ms(kern, key)
+    return dict(label=label, ms=ms, kernel_ms=k_ms, memset_ms=m_ms,
+                host_ms=h_ms, bound_ms=b_ms, equal=ok)
+
+
+def time_rowid(dev, label, P, W, R, key, check):
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch.ops import prefix_sums as ps
+
+    rng = np.random.default_rng(2)
+    row_rep = torch.as_tensor(
+        rng.integers(0, R + 3, size=(P, W)).astype(np.int32), device=dev)
+    return _time_rowid_mode(
+        "(a) " + label, lambda: ps.rowid_prefix_sums(row_rep, n_rows=R),
+        lambda: ps.rowid_prefix_sums_plain(row_rep, n_rows=R), (row_rep,),
+        key, check)
+
+
+def time_perm(dev, label, W_genome, start, n, w_pad, P, R, key, check):
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch.ops import prefix_sums as ps
+
+    rng = np.random.default_rng(3)
+    table, sig = (torch.as_tensor(x, device=dev) for x in
+                  cs._perm_inputs(rng, W_genome, P, R, w_pad))
+    kw = dict(start=start, n=n, w_pad=w_pad, n_rows=R)
+    return _time_rowid_mode(
+        "(b') " + label, lambda: ps.perm_prefix_sums(table, sig, **kw),
+        lambda: ps.perm_prefix_sums_plain(table, sig, **kw), (table, sig),
+        key, check)
+
+
 def main():
     import torch
 
@@ -278,17 +370,33 @@ def main():
     ps_shapes = [("20k", 1, 20480, 32, 56), ("genome", 24, 36864, 16, 48)]
     wps_shapes = [("mixed100k", 4, 24576, 32, 32, 1590),
                   ("widest", 1, 36864, 16, 104, 8193)]
+    # phases 3a and 3b's timed shapes (the 20k path's and one genome1m
+    # chromosome's)
+    rowid_shapes = [("20k", 32, 20000, 56), ("genome1m chr", 16, 35351, 48)]
+    perm_shapes = [("20k", 20000, 0, 20000, 20480, 32, 56),
+                   ("genome1m chr", 80000, 40013, 35351, 36864, 16, 48)]
     OUT.mkdir(parents=True, exist_ok=True)
-    rows = []
+    rows, built = [], {}
     with tempfile.TemporaryDirectory() as tmp:
         for name in names:
             which, ablation, edits = VARIANTS[name]
-            lib, regs = build(name, edits, pathlib.Path(tmp) / str(len(rows)))
+            if name not in built:
+                built[name] = build(name, edits,
+                                    pathlib.Path(tmp) / str(len(built)))
+            lib, regs = built[name]
             kernels._lib = lib
             res = dict(variant=name, ablation=ablation, ptxas=regs, runs=[])
             if which in (None, "ps"):
                 res["runs"] += [time_ps(dev, *s, check=not ablation)
                                 for s in ps_shapes]
+            if which in (None, "ps", "rps"):
+                three = name == "rps_three_pass"
+                res["runs"] += [
+                    time_rowid(dev, *s, "rtile_" if three else "RowRepIds",
+                               check=not ablation) for s in rowid_shapes]
+                res["runs"] += [
+                    time_perm(dev, *s, "rtile_" if three else "PermIds",
+                              check=not ablation) for s in perm_shapes]
             if which in (None, "wps"):
                 res["runs"] += [time_wps(dev, *s, check=not ablation)
                                 for s in wps_shapes]

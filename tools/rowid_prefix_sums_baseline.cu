@@ -1,3 +1,10 @@
+// The first, three-pass version of the row-id prefix-sum kernels (modes
+// (a) and (b') of fscl_tpu_torch/csrc/prefix_sums.cu), kept as the
+// baseline that tools/prefix_scan_variants.py times the chained scan
+// against (the package does not build it).  Same functions and C
+// signatures; its scratch, ceil(W / 256) * P * R int32, fits in the
+// chained scan's fscl_ps_scratch_bytes(1, W, P, R).
+//
 // Unsegmented one-hot prefix sums of per-replicate row-id streams, for
 // Hopper: the row-id modes of the TPU prefix-sum kernel.
 //
