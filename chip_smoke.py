@@ -155,6 +155,39 @@ non-zero:
                bfloat16 one nor the window operand on these float32
                routes); then the same chunk on the bfloat16 route through
                rdp_clr_reps and hist_clr_reps (bfloat16 kernel only)
+  3i. cgkernel - the clr_grid kernel (csrc/clr_grid.cu) against its
+               plain version within 1e-5 S + 1e-4 per entry (S = 2 sum
+               |y - null|), candidates with lo > hi exactly 0, repeat
+               launches and the checked candidates alone at one candidate
+               a warp bitwise, at the 20k task's dense grid (20,400
+               candidates, whole-chromosome windows) with the 11 shared
+               coarse alphas and with each candidate's 14 fine alphas (the
+               plain version on 64 candidates), at the 20k scan's reported
+               points with their reported lalpha (A = 1, the C-parity
+               oracle's call) and at the genome1m scan's reported points
+               with the coarse alphas (64 checked); kernel, plain and
+               bound timed; the lattice kernel at its coarse offsets
+               against this kernel at the lattice's alphas (rtol 2e-4,
+               atol 2e-3)
+  4e. exact  - two_stage_alpha_max (the reference's 11 + 14 alpha search)
+               at the 20k and genome1m scans' reported positions, its
+               clr_grid launches counted; the exact CLRs against the
+               plain version within 3i's tolerance (every 20k point, 256
+               genome1m points), all finite; the gap |reported - exact|
+               (max, mean, 99th percentile) and the points where the scan
+               reports more than the exact maximum printed, not gated
+  8. ms      - the ms pipeline (-m): bench/data/headline_ms_sweep.ms with
+               bench/headline.py cfg_ms_sweep's flags (5 Mb segments,
+               --ms-folded, 100 permutations): per-block scan and
+               permutation walls, point-rounds/s; its first two blocks on
+               the card and with the plain CPU versions at hist_bf16=False
+               (CLR, thresholds and replicate statistics within 1e-3,
+               replicate exceedances equal off 1e-4 near-ties); a
+               200-replicate neutral file made from a seed (n = 50, 2,500
+               sites, 5 Mb, --ms-folded --max-only): total and median
+               block walls and each stage's share (parse, attach_model,
+               scan, output); every kernel's launches counted over each
+               run
 Then one JSON line with every kernel's numbers (time, plain time, bound,
 launches on a path of this run, the one-call PyTorch equivalent's time
 where there is one; for the fused window kernels also their largest error
@@ -214,6 +247,9 @@ F32_ABS = 1e-5
 F64_RATIO = 4.0
 # the scan's reported CLR, new float32 route vs the two-step route
 SCAN_CLR_TOL = 1e-3
+# (data, tables, scan_cfg, result) of the 20k and genome1m scans (phases 4
+# and 5), for phases 3i and 4e
+SCANS = {}
 
 
 def log(msg):
@@ -1387,6 +1423,7 @@ def phase_20k(dev):
         data, tables, scan_cfg, perm_cfg, dev, OUT / "bench_20k.tsv", "20k")
     launches = ps.launches
     _check_result(result, "20k")
+    SCANS["20k"] = (data, tables, scan_cfg, result)
     if launches <= 0:
         fail("20k: the prefix-sum kernel was never launched")
     pr = int(result.permute_n.sum())
@@ -2126,6 +2163,7 @@ def phase_genome(dev, n_permute=64):
     rdp_auto = dict(TP.last_stats)  # FSCL_RDP as set (auto by default)
     launches = ps.launches - before
     _check_result(result, "genome")
+    SCANS["genome1m"] = (data, tables, ScanConfig(), result)
     hs = setup_hist(data, tables, result, ScanConfig(), PermuteConfig(), dev)
     stacks = [(st.w_seg_p, len(st.segs), _sub_rep_for(hs.ht, _ladder_pad(
         len(st.segs)), st.w_seg_p)) for st in hs.stacks]
@@ -2320,6 +2358,640 @@ def _mixed_check_data():
         fo.append(folded[keep])
     return build_snp_data(chrs, np.concatenate(pos), np.concatenate(fr),
                           np.concatenate(dep), np.concatenate(fo))
+
+
+# ---- clr_grid: kernel 3i, phase 4e, and the ms pipeline (phase 8) ---------
+
+# the clr_grid kernel against its plain version: |diff| <= CG_REL * S +
+# CG_ABS per entry, S = 2 sum |y - null| over its terms (_cg_scale)
+CG_REL = 1e-5
+CG_ABS = 1e-4
+# lane operations, counted from csrc/clr_grid.cu: a (candidate, site) pair
+# in its window (the distance and its two clamps, the conversion, logf
+# taken as one, the two window compares, the row's base), a term (pair,
+# alpha) inside the mask (the add and the compare, u's subtract and
+# multiply, the truncation and its two clamps, the conversion back,
+# frac's subtract and two clamps, the index add, 1 - frac, v1 * frac, the
+# fused multiply-add, y - null and the sum's add) and one outside it (the
+# add and the compare)
+CG_OPS_PAIR = 8
+CG_OPS_TERM = 17
+CG_OPS_MASKED = 2
+# the lattice kernel against the clr_grid kernel at the lattice's coarse
+# alphas (tests/test_lattice.py:58's tolerance: the two round their
+# coordinates apart)
+LAT_GRID_RTOL = 2e-4
+LAT_GRID_ATOL = 2e-3
+def _cg_terms(args, la, paired):
+    """((candidate, site) pairs in their windows, terms inside the mask,
+    all terms) of a clr_grid call on these inputs, counted on the card."""
+    import torch
+
+    from fscl_tpu_torch import LOG_AD_MAX
+
+    _, _, pos, _, cand, lo, hi = args
+    A = la.shape[-1]
+    live = torch.nonzero(lo <= hi).flatten()
+    if live.numel() == 0:
+        return 0, 0, 0
+    width = hi[live] - lo[live] + 1
+    pairs, L = int(width.sum()), int(width.max())
+    k = torch.arange(L, device=lo.device)
+    inside = 0
+    per = max(1, (1 << 24) // (L * A))
+    for k0 in range(0, live.numel(), per):
+        idx = live[k0:k0 + per]
+        w = lo[idx, None] + k
+        ok = w <= hi[idx, None]
+        w = torch.where(ok, w, lo[idx, None]).long()
+        logd = torch.log((pos[w] - cand[idx, None]).abs().clamp_min(1)
+                         .to(torch.float32))
+        lal = la[idx] if paired else la[None].expand(len(idx), A)
+        x = logd[..., None] + lal[:, None, :]
+        inside += int(((x <= LOG_AD_MAX) & ok[..., None]).sum())
+    return pairs, inside, pairs * A
+
+
+def _cg_scale(args, la, paired, G):
+    """S [P, A] float64, 2 sum |y - null| over each entry's terms (the
+    coordinates in float32 as the kernel takes them, y in float64, as
+    tests/test_torch_clr.py::_ref): the scale of the float32 sums'
+    rounding that CG_REL is stated against."""
+    import torch
+
+    from fscl_tpu_torch import LOG_AD_MAX, LOG_AD_MIN
+    from fscl_tpu_torch.ops.lattice import lattice_inv_step
+
+    table, row, pos, null, cand, lo, hi = args
+    P, A = cand.shape[0], la.shape[-1]
+    lal = la if paired else la[None].expand(P, A)
+    inv = lattice_inv_step(G)
+    S = torch.zeros((P, A), dtype=torch.float64, device=table.device)
+    for p, (a, b) in enumerate(zip(lo.tolist(), hi.tolist())):
+        if a > b:
+            continue
+        w = torch.arange(a, b + 1, device=table.device)
+        logd = torch.log((pos[w] - cand[p]).abs().clamp_min(1)
+                         .to(torch.float32))
+        x = logd[:, None] + lal[p][None]
+        u = (x - LOG_AD_MIN) * inv
+        i = u.to(torch.int32).clamp(0, G - 2)
+        frac = (u - i.to(torch.float32)).clamp(0.0, 1.0).double()
+        k = row[w].to(torch.int64)[:, None] * G + i
+        y = table[k].double() * (1 - frac) + table[k + 1].double() * frac
+        S[p] = 2 * torch.where(x <= LOG_AD_MAX, y - null[w][:, None].double(),
+                               0.0).abs().sum(0)
+    return S
+
+
+def _cg_sub(args, la, paired, cands):
+    """clr_grid's inputs cut to candidates ``cands`` (an index tensor)."""
+    return ((*args[:4], *(t[cands].contiguous() for t in args[4:])),
+            la[cands].contiguous() if paired else la)
+
+
+def _cg_case(label, args, la, paired, G, *, check_cands=None, iters=20):
+    """Phase 3i at one shape: clr_grid against its plain version within
+    CG_REL * S + CG_ABS per entry (on check_cands only, where given: the
+    plain version at the dense shapes takes seconds a call), candidates
+    with lo > hi exactly 0, every entry finite, two launches and a launch
+    after the timing loop bitwise equal to the first, the checked
+    candidates launched alone at one candidate a warp (C = 1) bitwise
+    equal to their entries; kernel and plain (on the checked candidates)
+    timed.  The bound: every input read once and the output written once
+    over the HBM rate, or the lane operations that these inputs' terms
+    need (CG_OPS_*) over the lane rate, the larger.  Returns (record, the
+    kernel's output)."""
+    import torch
+
+    from fscl_tpu_torch import kernels
+    from fscl_tpu_torch.ops import clr as TC
+
+    dev = args[0].device
+    kw = dict(grid_points=G, paired_alpha=paired)
+
+    def kern():
+        return TC.clr_grid(*args, la, device=dev, **kw)
+
+    P = args[4].shape[0]
+    if check_cands is None:
+        check_cands = torch.arange(P, device=dev)
+    sub, la_sub = _cg_sub(args, la, paired, check_cands)
+
+    def plain():
+        return TC.clr_grid_plain(*sub, la_sub, **kw)
+
+    got = kern()
+    want = plain()
+    lim = CG_REL * _cg_scale(sub, la_sub, paired, G) + CG_ABS
+    torch.cuda.synchronize()
+    part = got[check_cands]
+    if part.shape != want.shape:
+        fail(f"cgkernel at {label}: {tuple(part.shape)} vs plain "
+             f"{tuple(want.shape)}")
+    err = (part - want).abs().double()
+    max_err, ratio = float(err.max()), float((err / lim).max())
+    if not bool((err <= lim).all()):
+        fail(f"cgkernel != plain at {label}: max |err| {max_err:.6g}, "
+             f"{ratio:.3g} x the tolerance {CG_REL} S + {CG_ABS}, "
+             f"{int((err > lim).sum())} entries over it")
+    if not bool(torch.isfinite(got).all()):
+        fail(f"cgkernel at {label}: a non-finite entry")
+    pad = args[5] > args[6]
+    if bool(got[pad].any()):
+        fail(f"cgkernel at {label}: a candidate with lo > hi is not 0")
+    c1 = TC.launch_clr_grid(kernels.load(), *sub, la_sub, G, paired, 1)
+    torch.cuda.synchronize()
+    if not torch.equal(c1.view(torch.int32), part.view(torch.int32)):
+        fail(f"cgkernel at {label}: the checked candidates alone at C = 1 "
+             "differ from their entries")
+    first = got.clone()
+    del got, want, err, lim, part, c1
+    pairs, inside, terms = _cg_terms(args, la, paired)
+    ops = (CG_OPS_PAIR * pairs + CG_OPS_TERM * inside
+           + CG_OPS_MASKED * (terms - inside))
+    b_ms, b_by = bound([*args, la], [first], ops)
+    nbytes = sum(t.numel() * t.element_size() for t in (*args, la, first))
+    ms = _repeat_checks("cgkernel", label, kern, first, iters)
+    plain_ms = cuda_time_ms(plain, 1, readings=3)
+    torch.cuda.empty_cache()
+    A = first.shape[1]
+    n_chk = check_cands.numel()
+    shape = (f"P={P} ({int(pad.sum())} with lo > hi) A={A} "
+             f"{'paired' if paired else 'shared'} G={G} W="
+             f"{args[1].shape[0]}, {pairs} (candidate, site) pairs, "
+             f"{inside} of {terms} terms inside the mask")
+    log(f"[cgkernel] {label}: {shape}; max |err| {max_err:.4g} ({ratio:.3g}"
+        f" x tolerance, {n_chk} candidates checked), repeat launches and "
+        f"C = 1 bitwise; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
+        f"({n_chk} candidates), bound {b_ms:.4f} ms ({b_by}: "
+        f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G lane ops; "
+        f"{100 * b_ms / ms:.1f}%)")
+    return (dict(label=label, shape=shape, ms=ms, plain_ms=plain_ms,
+                 plain_candidates=n_chk, library_ms=None,
+                 max_abs_err=max_err, max_err_over_tol=ratio, bound_ms=b_ms,
+                 bound_by=b_by, bytes=nbytes, ops=ops, pairs=pairs,
+                 terms=terms, terms_inside=inside), first)
+
+
+def _point_args(data, tables, result, eval_range, dev):
+    """clr_grid's inputs at a scan's reported points: the genome's sites
+    (positions per chromosome; no window crosses one) and each point's
+    window of +-eval_range sites around its reported position."""
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch.convert import clr_inputs_from_numpy
+    from fscl_tpu_torch.ops.windows import candidate_windows
+
+    K = result.n_points
+    lo, hi = np.zeros(K, np.int64), np.zeros(K, np.int64)
+    for c, cl in enumerate(data.chr_limits):
+        k = np.nonzero(result.chr_id == c)[0]
+        if len(k) == 0:
+            continue
+        sl = slice(cl.start_index, cl.start_index + cl.n_snps)
+        _, lo[k], hi[k] = candidate_windows(np.asarray(data.pos[sl]),
+                                            result.sweep_pos[k], eval_range)
+        lo[k] += cl.start_index
+        hi[k] += cl.start_index
+    site = clr_inputs_from_numpy(tables.table, data.row, data.pos,
+                                 data.null_logl, device=dev)
+    return (*site, *(torch.as_tensor(np.asarray(x, np.int32), device=dev)
+                     for x in (result.sweep_pos, lo, hi)))
+
+
+def phase_cgkernel(dev):
+    """Phase 3i: the clr_grid kernel (csrc/clr_grid.cu) through _cg_case at
+    the 20k task's dense grid (20,400 candidates, every window the whole
+    chromosome) with the 11 shared coarse alphas and with each candidate's
+    14 fine alphas around its coarse winner (the plain version on 64
+    candidates), at the 20k scan's reported points with their reported
+    lalpha (A = 1 paired, the C-parity oracle's call) and at the genome1m
+    scan's reported points with the coarse alphas (two_stage_alpha_max's
+    first call); and the lattice kernel at its coarse offsets against the
+    clr_grid kernel at the lattice's alphas on the 20k dense grid."""
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch import LOG_AD_MIN
+    from fscl_tpu_torch.convert import clr_inputs_from_numpy
+    from fscl_tpu_torch.engine.scan import (
+        chromosome_candidates, get_lattice_tables,
+    )
+    from fscl_tpu_torch.ops import clr as TC
+    from fscl_tpu_torch.ops import lattice as TL
+    from fscl_tpu_torch.ops.windows import candidate_windows
+
+    data, tables, cfg, result = SCANS["20k"]
+    G = tables.grid_points
+    site = clr_inputs_from_numpy(tables.table, data.row, data.pos,
+                                 data.null_logl, device=dev)
+    cand = chromosome_candidates(data.chr_limits[0], cfg)[0].reshape(-1)
+    _, lo, hi = candidate_windows(np.asarray(data.pos), cand, cfg.eval_range)
+    dense = (*site, *(torch.as_tensor(np.asarray(x, np.int32), device=dev)
+                      for x in (cand, lo, hi)))
+    P = len(cand)
+    chk = torch.as_tensor(np.linspace(0, P - 1, 64).astype(np.int64),
+                          device=dev)
+    coarse = torch.as_tensor(TC.coarse_alpha_grid(), device=dev)
+    out = []
+    rec, c_out = _cg_case("20k dense coarse", dense, coarse, False, G,
+                          check_cands=chk)
+    out.append(rec)
+    fine = TC.fine_alpha_grids(coarse[torch.argmax(c_out, dim=1)])
+    out.append(_cg_case("20k dense fine", dense, fine, True, G,
+                        check_cands=chk)[0])
+    # the lattice kernel at its coarse offsets against this kernel at the
+    # lattice's alphas
+    m = TL.coarse_lattice_offsets(G)
+    la_lat = torch.as_tensor(
+        (LOG_AD_MIN + m * TL.lattice_step(G)).astype(np.float32), device=dev)
+    lt = get_lattice_tables(tables, dev)
+    lat = TL.clr_lattice(lt.pack_coarse, dense[1][None], dense[2],
+                         dense[3][None], *dense[4:],
+                         torch.zeros((1, P), dtype=torch.int32, device=dev),
+                         lt.m_coarse_dev, grid_points=G)[0]
+    grid = TC.clr_grid(*dense, la_lat, grid_points=G, device=dev)
+    gap = (lat - grid).abs()
+    lim = LAT_GRID_ATOL + LAT_GRID_RTOL * grid.abs()
+    lat_ratio = float((gap / lim).max())
+    if not bool((gap <= lim).all()):
+        fail(f"cgkernel: the lattice kernel differs from clr_grid at the "
+             f"lattice's alphas by up to {float(gap.max()):.4g} "
+             f"({lat_ratio:.3g} x rtol {LAT_GRID_RTOL}, atol "
+             f"{LAT_GRID_ATOL})")
+    log(f"[cgkernel] lattice kernel vs clr_grid kernel at the lattice's 11 "
+        f"coarse alphas, 20k dense grid: max |diff| {float(gap.max()):.4g} "
+        f"({lat_ratio:.3g} x the tolerance)")
+    del c_out, fine, lat, grid, gap, lim
+    pts = _point_args(data, tables, result, cfg.eval_range, dev)
+    la_rep = torch.as_tensor(result.lalpha.astype(np.float32)[:, None],
+                             device=dev)
+    out.append(_cg_case("20k reported points, reported lalpha (oracle)",
+                        pts, la_rep, True, G)[0])
+    gdata, gtables, gcfg, gres = SCANS["genome1m"]
+    gpts = _point_args(gdata, gtables, gres, gcfg.eval_range, dev)
+    K = gres.n_points
+    gchk = torch.as_tensor(np.linspace(0, K - 1, 64).astype(np.int64),
+                           device=dev)
+    out.append(_cg_case("genome1m reported points, coarse alphas", gpts,
+                        coarse, False, gtables.grid_points,
+                        check_cands=gchk, iters=5)[0])
+    torch.cuda.empty_cache()
+    return dict(cgkernel=out, lattice_vs_clr_grid_over_tol=lat_ratio)
+
+
+def phase_exact(dev):
+    """Phase 4e: two_stage_alpha_max (11 coarse and 14 fine alphas, the
+    reference's search) at the 20k and genome1m scans' reported positions,
+    its kernel launches counted; the exact CLRs against the plain version
+    within CG_REL * S + CG_ABS (S at the exact lalpha; the plain search on
+    every 20k point and on 256 genome1m points), all finite.  The gap
+    |reported - exact| (max, mean, 99th percentile), the points where
+    the scan reports more than the exact maximum, and the gap to clr_grid
+    at the reported position and lalpha (the C-parity oracle's call: the
+    scan's own table error) are printed: findings, not gates.  The
+    launches counted are those of two_stage_alpha_max and the oracle's
+    call."""
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch.ops import clr as TC
+
+    out = {}
+    launches = 0
+    for label in ("20k", "genome1m"):
+        data, tables, cfg, result = SCANS[label]
+        G = tables.grid_points
+        args = _point_args(data, tables, result, cfg.eval_range, dev)
+        torch.cuda.synchronize()
+        TC.clr_grid_launches = 0
+        t0 = time.monotonic()
+        clr, la = TC.two_stage_alpha_max(*args, grid_points=G, device=dev)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        # the CLR at the reported position and lalpha (the oracle's call)
+        at = TC.clr_grid(*args, torch.as_tensor(
+            result.lalpha.astype(np.float32)[:, None], device=dev),
+            grid_points=G, paired_alpha=True, device=dev)[:, 0]
+        n = TC.clr_grid_launches
+        if n <= 0:
+            fail(f"exact {label}: clr_grid was never launched")
+        launches += n
+        K = result.n_points
+        if not bool(torch.isfinite(clr).all()) or clr.shape != (K,):
+            fail(f"exact {label}: {tuple(clr.shape)} exact CLRs, or a "
+                 "non-finite one")
+        chk = (torch.arange(K, device=dev) if K <= 256 else torch.as_tensor(
+            np.linspace(0, K - 1, 256).astype(np.int64), device=dev))
+        sub, _ = _cg_sub(args, la, False, chk)
+        orig = TC.clr_grid
+        TC.clr_grid = lambda *a, device=None, **k: TC.clr_grid_plain(*a, **k)
+        try:
+            p_clr, _ = TC.two_stage_alpha_max(*sub, grid_points=G,
+                                              device=dev)
+        finally:
+            TC.clr_grid = orig
+        S = _cg_scale(sub, la[chk][:, None], True, G)[:, 0]
+        err = (clr[chk] - p_clr).abs().double()
+        lim = CG_REL * S + CG_ABS
+        if not bool((err <= lim).all()):
+            fail(f"exact {label}: card vs plain exact CLR up to "
+                 f"{float(err.max()):.4g} ({float((err / lim).max()):.3g} x "
+                 f"{CG_REL} S + {CG_ABS})")
+        at_gap = np.abs(result.clr - at.double().cpu().numpy())
+        exact = clr.double().cpu().numpy()
+        gap = result.clr - exact
+        agap = np.abs(gap)
+        above = int((gap > 0).sum())
+        rec = dict(points=K, launches=n, wall_s=wall,
+                   card_vs_plain_max=float(err.max()),
+                   plain_points=int(chk.numel()),
+                   gap_max=float(agap.max()), gap_mean=float(agap.mean()),
+                   gap_p99=float(np.percentile(agap, 99)),
+                   reported_above=above,
+                   at_reported_gap_max=float(at_gap.max()),
+                   at_reported_gap_mean=float(at_gap.mean()),
+                   at_reported_gap_p99=float(np.percentile(at_gap, 99)),
+                   lalpha_equal=int((np.abs(result.lalpha - la.double().cpu()
+                                            .numpy()) < 1e-6).sum()))
+        log(f"[exact] {label}: {K} reported points, two_stage_alpha_max "
+            f"{wall:.3f}s ({n} clr_grid launches); card vs plain exact CLR "
+            f"max |diff| {rec['card_vs_plain_max']:.4g} on {chk.numel()} "
+            f"points; |reported - exact| max {rec['gap_max']:.4g}, mean "
+            f"{rec['gap_mean']:.4g}, p99 {rec['gap_p99']:.4g}; reported > "
+            f"exact at {above} of {K} points; reported lalpha equal to the "
+            f"exact one at {rec['lalpha_equal']}; |reported - CLR at the "
+            f"reported position and lalpha| max "
+            f"{rec['at_reported_gap_max']:.4g}, mean "
+            f"{rec['at_reported_gap_mean']:.4g}, p99 "
+            f"{rec['at_reported_gap_p99']:.4g}")
+        out[label] = rec
+    out["launches"] = launches
+    return out
+
+
+# phase 8: bench/headline.py cfg_ms_sweep's flags; the null-calibration
+# file's replicates (users run thousands; 200 keep the call in its limit)
+MS_SWEEP = REPO / "bench" / "data" / "headline_ms_sweep.ms"
+MS_SWEEP_FLAGS = ["--ms-segment-length", "5000000", "--ms-folded", "-p",
+                  "100"]
+MS_NULL_FLAGS = ["--ms-segment-length", "5000000", "--ms-folded",
+                 "--max-only"]
+MS_NULL_BLOCKS = 200
+
+
+def _all_counts():
+    """Launches of every kernel since _zero_all_counts."""
+    from fscl_tpu_torch.ops import clr as TC
+    from fscl_tpu_torch.ops import gather as G
+    from fscl_tpu_torch.ops import lattice as TL
+    from fscl_tpu_torch.ops import prefix_sums as ps
+
+    return dict(_window_counts(), prefix=ps.launches,
+                weighted=ps.weighted_launches, rowid=ps.rowid_launches,
+                perm=ps.perm_launches, row_gather=G.gather_launches,
+                lattice=TL.lattice_clr_launches,
+                clr_grid=TC.clr_grid_launches)
+
+
+def _zero_all_counts():
+    from fscl_tpu_torch.ops import clr as TC
+    from fscl_tpu_torch.ops import gather as G
+    from fscl_tpu_torch.ops import lattice as TL
+    from fscl_tpu_torch.ops import prefix_sums as ps
+
+    _zero_window_counts()
+    ps.launches = ps.weighted_launches = ps.rowid_launches = 0
+    ps.perm_launches = G.gather_launches = 0
+    TL.lattice_clr_launches = TC.clr_grid_launches = 0
+
+
+def _ms_run(path, tsv, flags, device, f32=False):
+    """The ms pipeline through the CLI's parser on ``device`` (with
+    ``f32``, its permutation statistic at hist_bf16=False, as phase 6
+    compares card and CPU); (host-clocked seconds a block by stage, wall
+    s, the blocks' permuted ScanResults).  The stages are timed around
+    the pipeline's own calls: "parse" the read of a block and its
+    SNPData (iter_ms_blocks), "attach" from there to scan_genome
+    (attach_model), "scan", "permute" (scan_permute), "output" from
+    there to the next block's read (scan_output and the null rows)."""
+    import dataclasses
+
+    import torch
+
+    from fscl_tpu_torch.cli import build_parser, validate_args
+    from fscl_tpu_torch.io import ms_input as TI
+
+    args = validate_args(build_parser().parse_args(
+        ["-m", str(path), "-o", str(tsv), "-v", "1", "--device",
+         str(device), *flags]))
+    results, walls, mark = [], {}, [None]
+    orig = TI.iter_ms_blocks, TI.scan_genome, TI.scan_permute
+
+    def clock(key):
+        t = time.monotonic()
+        if mark[0] is not None:
+            walls.setdefault(key, []).append(t - mark[0])
+        mark[0] = t
+
+    def blocks(*a, **k):
+        it = orig[0](*a, **k)
+        while True:
+            clock("output")
+            try:
+                data = next(it)
+            except StopIteration:
+                return
+            clock("parse")
+            yield data
+
+    def scan(*a, **k):
+        clock("attach")
+        out = orig[1](*a, **k)
+        clock("scan")
+        return out
+
+    def permute(data, tables, result, scan_cfg, perm_cfg, **k):
+        if f32:
+            perm_cfg = dataclasses.replace(perm_cfg, hist_bf16=False)
+        out = orig[2](data, tables, result, scan_cfg, perm_cfg, **k)
+        clock("permute")
+        results.append(result)
+        return out
+
+    TI.iter_ms_blocks, TI.scan_genome, TI.scan_permute = blocks, scan, permute
+    try:
+        if str(device) != "cpu":
+            torch.cuda.synchronize()
+        t0 = time.monotonic()
+        TI.ms_pipeline(args, device)
+        if str(device) != "cpu":
+            torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        TI.iter_ms_blocks, TI.scan_genome, TI.scan_permute = orig
+    return walls, wall, results
+
+
+def _ms_rows(tsv):
+    import numpy as np
+
+    rows = [line.rstrip("\n").split("\t") for line in open(tsv)]
+    if not rows or not np.isfinite([float(r[2]) for r in rows]).all():
+        fail(f"ms: {tsv.name} has no rows or a non-finite CLR")
+    return rows
+
+
+def _null_ms_file(path, n_blocks, *, n=50, segsites=2500, seed=12):
+    """An ms file of n_blocks neutral replicates made from a seed: each
+    block segsites sites at sorted uniform positions, derived counts from
+    the neutral 1/i spectrum, each site's derived alleles on random
+    haplotypes."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    i = np.arange(1, n)
+    p = (1.0 / i) / (1.0 / i).sum()
+    with open(path, "w") as f:
+        f.write(f"ms {n} {n_blocks} -s {segsites}\n{seed} 0 0\n")
+        for _ in range(n_blocks):
+            pos = np.sort(rng.random(segsites))
+            d = rng.choice(i, size=segsites, p=p)
+            hap = rng.random((n, segsites)).argsort(axis=0) < d[None, :]
+            text = np.where(hap, ord("1"), ord("0")).astype(np.uint8)
+            f.write("\n//\nsegsites: %d\npositions: %s\n" % (
+                segsites, " ".join(f"{x:.8f}" for x in pos)))
+            f.write("\n".join(r.tobytes().decode() for r in text) + "\n")
+
+
+def phase_ms(dev):
+    """Phase 8: the ms pipeline (-m) on the card.  (a) bench/data/
+    headline_ms_sweep.ms (10 blocks, 50 haplotypes, 2,500 sites each)
+    with cfg_ms_sweep's flags (5 Mb segments, --ms-folded, 100
+    permutations): per-block scan and permutation walls, point-rounds/s;
+    its first two blocks on the card and with the plain CPU versions, the
+    permutation statistic in float32 as phase 6 runs it (the bfloat16
+    kernel is held to its plain version within a tolerance, not
+    bitwise): CLR, thresholds and each replicate's statistic within 1e-3,
+    each replicate's exceedance equal unless it lies within 1e-4 of its
+    threshold; the points whose counts agree are reported (one differing
+    exceedance shifts the pruning generator a block's points share).  (b) a 200-replicate neutral
+    file made from a seed (n = 50, 2,500 sites, 5 Mb, --ms-folded
+    --max-only, no permutations): total and median block walls and each
+    stage's share of a block (parse, attach_model, scan, output).  Every
+    kernel's launches counted over (a) and over (b): the one-hot prefix
+    kernel and the two window kernels must run in (a), the window kernels
+    in (b)."""
+    import numpy as np
+
+    out = {}
+    _zero_all_counts()
+    walls, wall, _ = _ms_run(MS_SWEEP, OUT / "ms_sweep.tsv", MS_SWEEP_FLAGS,
+                             dev)
+    ca = _all_counts()
+    rows = _ms_rows(OUT / "ms_sweep.tsv")
+    n_blocks = len({r[0] for r in rows})
+    pr = sum(int(r[5]) for r in rows)
+    t_perm = sum(walls["permute"])
+    if n_blocks != 10 or pr <= 0:
+        fail(f"ms sweep: {n_blocks} blocks, {pr} point-rounds")
+    if min(ca["prefix"], ca["window_clr"], ca["window_clr_f32"]) <= 0:
+        fail(f"ms sweep: kernel launches {ca}")
+    log(f"[ms] sweep file: {n_blocks} blocks, {len(rows)} points, wall "
+        f"{wall:.3f}s; per block scan "
+        f"{' '.join(f'{t:.3f}' for t in walls['scan'])} s, permutations "
+        f"{' '.join(f'{t:.3f}' for t in walls['permute'])} s; {pr} "
+        f"point-rounds, {pr / t_perm:.1f} point-rounds/s; kernel launches "
+        f"{ca}")
+    out["sweep"] = dict(wall_s=wall, walls=walls, points=len(rows),
+                        point_rounds=pr, point_rounds_per_s=pr / t_perm,
+                        launches=ca)
+    # card vs CPU on the first two blocks
+    two = OUT / "ms_sweep2.ms"
+    two.write_text("\n//".join(MS_SWEEP.read_text().split("\n//")[:3])
+                   + "\n")
+    res = {}
+    for d, name in ((dev, "card"), ("cpu", "cpu")):
+        res[str(d)] = _ms_run(two, OUT / f"ms_sweep2.{name}.tsv",
+                              MS_SWEEP_FLAGS, d, f32=True)[2]
+    two.unlink()
+    g_all, c_all = res[str(dev)], res["cpu"]
+    if len(g_all) != len(c_all) or len(g_all) != 2:
+        fail(f"ms sweep, two blocks: {len(g_all)} card and {len(c_all)} "
+             "CPU blocks")
+    d_clr = d_thr = d_null = 0.0
+    compared = flips = same = points = 0
+    for g, c in zip(g_all, c_all):
+        if not np.array_equal(g.sweep_pos, c.sweep_pos):
+            fail("ms sweep, two blocks: card and CPU positions differ")
+        d_clr = max(d_clr, float(np.abs(g.clr - c.clr).max()))
+        d_thr = max(d_thr, float(np.abs(g.stat_threshold
+                                        - c.stat_threshold).max()))
+        # replicate k's sigma is a function of (seed, k) alone, so the
+        # saved nulls of a point line up replicate by replicate as far as
+        # both devices ran it; the pruning's host generator, shared by a
+        # block's points, draws differently for every later point once
+        # one exceedance differs, so the counts themselves are reported
+        for i in range(g.n_points):
+            ng, nc = (np.asarray(r.null_clr[i]) for r in (g, c))
+            m = min(len(ng), len(nc))
+            ng, nc = ng[:m], nc[:m]
+            tg, tc = g.stat_threshold[i], c.stat_threshold[i]
+            if m:
+                d_null = max(d_null, float(np.abs(ng - nc).max()))
+            flip = (ng >= tg) != (nc >= tc)
+            off = np.minimum(np.abs(ng - tg), np.abs(nc - tc))
+            if np.any(flip & (off >= 1e-4)):
+                fail(f"ms sweep, two blocks: point {i}'s replicate "
+                     "exceedances differ between card and CPU off the "
+                     "near-ties")
+            compared += m
+            flips += int(flip.sum())
+        same += int(np.sum((g.permute_p == c.permute_p)
+                           & (g.permute_n == c.permute_n)))
+        points += g.n_points
+    if max(d_clr, d_thr, d_null) > 1e-3:
+        fail(f"ms sweep, two blocks: card vs CPU clr {d_clr:.3g}, "
+             f"threshold {d_thr:.3g}, replicate statistic {d_null:.3g} "
+             "(limit 1e-3)")
+    log(f"[ms] sweep file, first two blocks: card vs CPU max |dCLR| "
+        f"{d_clr:.3g}, max |dthreshold| {d_thr:.3g}, max |d replicate "
+        f"statistic| {d_null:.3g} over {compared} (point, replicate) "
+        f"pairs; exceedances differ at {flips} of them, each within 1e-4 "
+        f"of its threshold; counts p/n equal at {same} of {points} points")
+    out["sweep_two_blocks"] = dict(d_clr=d_clr, d_thr=d_thr, d_null=d_null,
+                                   compared=compared, flips=flips,
+                                   same_counts=same, points=points)
+    # (b) null calibration over replicates
+    path = OUT / "ms_null.ms"
+    _null_ms_file(path, MS_NULL_BLOCKS)
+    _zero_all_counts()
+    walls, wall, _ = _ms_run(path, OUT / "ms_null.tsv", MS_NULL_FLAGS, dev)
+    path.unlink()
+    cb = _all_counts()
+    rows = _ms_rows(OUT / "ms_null.tsv")
+    if len(rows) != MS_NULL_BLOCKS:
+        fail(f"ms null: {len(rows)} rows for {MS_NULL_BLOCKS} blocks")
+    if min(cb["window_clr"], cb["window_clr_f32"]) <= 0:
+        fail(f"ms null: kernel launches {cb}")
+    stages = ("parse", "attach", "scan", "output")
+    block = np.sum([walls[s] for s in stages], axis=0)
+    med = {s: float(np.median(walls[s])) for s in stages}
+    share = {s: float(np.sum(walls[s]) / block.sum()) for s in stages}
+    log(f"[ms] null file: {MS_NULL_BLOCKS} blocks, wall {wall:.3f}s, "
+        f"blocks {block.sum():.3f}s, median block {np.median(block):.4f}s "
+        f"(parse {med['parse']:.4f}, attach_model {med['attach']:.4f}, scan "
+        f"{med['scan']:.4f}, output {med['output']:.4f}); shares of the "
+        f"blocks' time: " + ", ".join(f"{s} {100 * share[s]:.1f}%"
+                                      for s in stages)
+        + f"; kernel launches {cb}")
+    out["null"] = dict(blocks=MS_NULL_BLOCKS, wall_s=wall,
+                       blocks_s=float(block.sum()),
+                       median_block_s=float(np.median(block)),
+                       median_stage_s=med, stage_share=share, launches=cb)
+    return out
 
 
 def phase_check(dev):
@@ -2818,12 +3490,15 @@ def main():
             or rm["rows_used"] != 1589:
         fail(f"mixed100k main path ran at {rm['stacks']} R={rm['n_rows']} "
              f"rows={rm['rows_used']}, not the shape phase 3c checked")
+    cg = phase_cgkernel(dev)
+    rx = phase_exact(dev)
     chk = phase_check(dev)
     rr = phase_rdp(dev)
     if (rr["rowid_shape"] != (RDP_CHUNK, 20000, 56)
             or rr["perm_shape"] != (20000, 20480, RDP_CHUNK, 56)):
         fail(f"rdp path ran the kernels at {rr['rowid_shape']} and "
              f"{rr['perm_shape']}, not the shapes phases 3a and 3b checked")
+    rms = phase_ms(dev)
 
     gkern = rr["gkernel"] + gkern  # the RDP path's shape first
     okern = (r20["okernel"] + rg["okernel"] + rm["okernel"]
@@ -2837,8 +3512,8 @@ def main():
                   lkernel=rl["lkernel"] + r1024["lkernel"] + rb["lkernel"],
                   bench_20k=r20, bench_20k_nohist=rl,
                   bench_20k_grid1024=r1024, big_chromosome=rb, genome=rg,
-                  mixed100k=rm,
-                  check=chk, rdp=rr)
+                  mixed100k=rm, cgkernel=cg["cgkernel"], exact=rx,
+                  check=chk, rdp=rr, ms=rms)
     (OUT / "smoke.json").write_text(json.dumps(detail, indent=1) + "\n")
 
     def entry(name, source, replaces, launches, runs, main=None, note=None,
@@ -2929,6 +3604,15 @@ def main():
               grid1024_tie_launches=r1024["launches"],
               big_chromosome_launches=(rb["launches"]["scan"]
                                        + rb["launches"]["permute"])),
+        # main shape: the 20k dense grid's coarse call; launches over phase
+        # 4e's two_stage_alpha_max calls
+        entry("clr_grid", "clr_grid.cu",
+              "fscl_tpu/ops/clr.py:88 clr_grid (XLA-fused, no Pallas "
+              "kernel)", rx["launches"], cg["cgkernel"],
+              note="no single PyTorch call computes the CLR of every "
+                   "(candidate, alpha) pair",
+              lattice_vs_clr_grid_over_tol=cg[
+                  "lattice_vs_clr_grid_over_tol"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,16 +1,20 @@
 """Command-line driver with the flags of fscl_tpu/cli.py, on PyTorch.
 
 Pipeline (fscl.c:272-341): options -> SNP input -> background SFS ->
-sweep-model tables -> null model -> scan -> permutations -> output.
+sweep-model tables -> null model -> scan -> permutations -> output.  -m
+(ms input) runs the two-pass ms pipeline (io/ms_input.py) instead: the
+background from all blocks, then each block scanned as its own
+chromosome.  -b loads the background spectrum from a file and --output-bs
+writes it (io/spectra_io.py).
 ``--device`` (default ``cuda``) picks where the scan and the permutations
 run; ``cpu`` runs the plain PyTorch versions of the kernels.
 
 Mixed-depth data (more than ROWS_MAX distinct table rows, up to
 COMPRESS_ROWS_MAX) runs on the SVD-compressed hist tables.  --no-hist,
 and datasets past the hist gate, run the per-site lattice path; its
-packs are built only when a run takes it.  Flags that need a path this
-port lacks raise NotPortedError and never fall back: -m (ms input),
---checkpoint, -b, --output-bs.
+packs are built only when a run takes it.  The one flag that needs a
+path this port lacks, --checkpoint, raises NotPortedError and never falls
+back.
 """
 
 from __future__ import annotations
@@ -21,7 +25,8 @@ import sys
 from . import NotPortedError, __version__
 from .device import parse_device
 from .engine import PermuteConfig, ScanConfig, scan_genome, scan_permute
-from .io import load_snp_input, scan_output, write_null_distribution
+from .io import (load_snp_input, load_spectra, scan_output,
+                 write_null_distribution, write_spectra)
 from .models import background_fsp, build_tables
 from .models.tables import DEFAULT_GRID_POINTS
 from .utils.logging import MSG_ERROR, MSG_STATUS, configure_logmsg, logmsg
@@ -54,7 +59,7 @@ def build_parser():
       help="maximum width of sweep effect in scanning, in Mb")
     a("--minimum-depth", type=int, default=5,
       help="minimum depth of sample (lower depth SNPs ignored)")
-    a("-m", "--msfile", help="Name of an ms output file (not yet ported)")
+    a("-m", "--msfile", help="Name of an ms output file")
     a("--ms-segment-length", type=int, default=0,
       help="Length in bp of simulated ms segments (use with -m option only)")
     a("--ms-folded", action="store_true", help="For ms input, treat all sites as folded")
@@ -67,9 +72,9 @@ def build_parser():
     a("--force-neutral-spectrum", action="store_true",
       help="Do not estimate background spectrum from the data. Use sum(1/i)/i")
     a("-b", "--background-spectrum",
-      help="Load the background frequency spectrum from a file (not yet ported)")
+      help="Load the background frequency spectrum from a file")
     a("--output-bs", help="write estimated background site-frequency spectra "
-      "to file (not yet ported)")
+      "to file")
     a("--include-invariant", action="store_true",
       help="Include invariant sites in analysis (default is to ignore them)")
     a("--splines", type=int, default=0,
@@ -143,30 +148,33 @@ def validate_args(args):
         for s in stop:
             logmsg(MSG_ERROR, "Error: %s", s)
         raise SystemExit(255)
-    for flag, on in (("-m/--msfile", args.msfile),
-                     ("--checkpoint", args.checkpoint),
-                     ("-b/--background-spectrum", args.background_spectrum),
-                     ("--output-bs", args.output_bs)):
-        if on:
-            raise NotPortedError(f"{flag} is not yet ported to fscl_tpu_torch")
+    if args.checkpoint:
+        raise NotPortedError("--checkpoint is not yet ported to fscl_tpu_torch")
     return args
 
 
-def run_pipeline(data, args, device):
-    """background -> tables -> scan -> permute for one dataset."""
+def model_tables(data, args):
+    """The background spectrum of ``data`` (loaded with -b, written with
+    --output-bs) and the sweep-model tables built on it; None with
+    --no-scan.  The -f and -m pipelines both start here."""
+    loaded = (load_spectra(args.background_spectrum)
+              if args.background_spectrum else None)
     fsp = background_fsp(
         data.obs_freq,
         data.depth_p,
         data.folded,
         data.sample_depths,
         force_neutral_spectrum=args.force_neutral_spectrum,
+        loaded_spectra=loaded,
         include_invariant=args.include_invariant,
         compat_mirror_unfolded=args.compat_mirror_unfolded,
     )
+    if args.output_bs:
+        write_spectra(args.output_bs, data.sample_depths, fsp)
     if args.no_scan:
         return None
     logmsg(MSG_STATUS, "Computing sweep models for all sample depths")
-    tables = build_tables(
+    return build_tables(
         fsp,
         data.sample_depths,
         grid_points=args.grid_points,
@@ -175,7 +183,11 @@ def run_pipeline(data, args, device):
         ascbias_background_only=args.ascbias_background_only,
         include_invariant=args.include_invariant,
     )
-    data.attach_model(tables)
+
+
+def scan_configs(args):
+    """(ScanConfig, PermuteConfig or None without -p) from the flags, the
+    same in -f and -m modes (fscl.c:281-314 passes the same globals)."""
     scan_cfg = ScanConfig(
         eval_range=args.eval_range,
         bp_resl=args.bp_resl,
@@ -185,17 +197,28 @@ def run_pipeline(data, args, device):
         refine=not args.no_refine,
         use_hist=not args.no_hist,
     )
+    if args.n_permute <= 0:
+        return scan_cfg, None
+    return scan_cfg, PermuteConfig(
+        n_permute=args.n_permute,
+        permute_nbp=args.permute_nbp,
+        scan_width_mb=args.sweep_width,
+        chunk_replicates=args.chunk_replicates,
+        seed=args.seed,
+        alpha_factor=args.alpha_factor,
+        use_hist=not args.no_hist,
+    )
+
+
+def run_pipeline(data, args, device):
+    """background -> tables -> scan -> permute for one dataset."""
+    tables = model_tables(data, args)
+    if tables is None:
+        return None
+    data.attach_model(tables)
+    scan_cfg, perm_cfg = scan_configs(args)
     result = scan_genome(data, tables, scan_cfg, device=device)
-    if args.n_permute > 0:
-        perm_cfg = PermuteConfig(
-            n_permute=args.n_permute,
-            permute_nbp=args.permute_nbp,
-            scan_width_mb=args.sweep_width,
-            chunk_replicates=args.chunk_replicates,
-            seed=args.seed,
-            alpha_factor=args.alpha_factor,
-            use_hist=not args.no_hist,
-        )
+    if perm_cfg is not None:
 
         def dump():
             scan_output(args.output_file, data, result, False,
@@ -210,6 +233,10 @@ def run_pipeline(data, args, device):
 def main(argv=None):
     args = validate_args(build_parser().parse_args(argv))
     device = parse_device(args.device)
+    if args.msfile:
+        from .io.ms_input import ms_pipeline
+
+        return ms_pipeline(args, device)
     data = load_snp_input(
         args.snpfile,
         include_invariant=args.include_invariant,

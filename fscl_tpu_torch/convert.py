@@ -1,8 +1,9 @@
-"""Carry hist and lattice state across from the JAX package as numpy.
+"""Carry hist, lattice and CLR state across from the JAX package as numpy.
 
-With these, a test feeds both packages identical table packs and run
-geometry: the JAX HistTables / HistPoints / LatticeTables fields, read
-back as numpy arrays (``np.asarray``), become the port's objects on
+With these, a test feeds both packages identical table packs, run
+geometry and sites: the JAX HistTables / HistPoints / LatticeTables
+fields and the model table with the sites' rows, positions and nulls,
+read back as numpy arrays (``np.asarray``), become the port's objects on
 ``device`` (``cuda`` unless the caller asks for ``cpu``).
 """
 
@@ -61,3 +62,16 @@ def lattice_tables_from_numpy(*, grid_points, pack_coarse, pack_fine,
     three [n_rows*G, 2A] packs and their offsets."""
     return LatticeTables(grid_points, (pack_coarse, pack_fine, pack_ultra),
                          (m_coarse, m_fine, m_ultra), device=device)
+
+
+def clr_inputs_from_numpy(table, row, pos, null, device="cuda"):
+    """clr_grid's site arguments from the JAX package's model and data:
+    ``tables.table`` [R, G] (flattened to [R*G] float32), ``data.row``
+    (int32), ``data.pos`` (int32) and ``data.null_logl`` (float32), as
+    tensors on ``device``."""
+    device = parse_device(device)
+    return tuple(
+        torch.tensor(np.ascontiguousarray(np.asarray(x, dtype=dt).reshape(
+            -1)), device=device)
+        for x, dt in ((table, np.float32), (row, np.int32),
+                      (pos, np.int32), (null, np.float32)))

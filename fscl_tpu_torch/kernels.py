@@ -141,6 +141,9 @@ def load():
     lib.fscl_lattice_clr.argtypes = [vp] * 10 + [i, i, i, i, i, i,
                                            ctypes.c_float, i, vp]
     lib.fscl_lattice_clr.restype = i
+    lib.fscl_clr_grid.argtypes = [vp] * 9 + [i, i, i, i, ctypes.c_float,
+                                              i, vp]
+    lib.fscl_clr_grid.restype = i
     for tile in (lib.fscl_ps_tile, lib.fscl_wps_tile):
         tile.argtypes = []
         tile.restype = i

@@ -126,7 +126,10 @@ def test_model_copy_builds_bitwise_equal_tables(folded, depths):
 
 
 def _entry_points():
+    from types import SimpleNamespace
+
     from fscl_tpu_torch.convert import (
+        clr_inputs_from_numpy,
         hist_points_from_numpy,
         hist_tables_from_numpy,
         lattice_tables_from_numpy,
@@ -136,6 +139,8 @@ def _entry_points():
         get_lattice_tables,
         make_scan_hist_tables,
     )
+    from fscl_tpu_torch.io.ms_input import ms_pipeline
+    from fscl_tpu_torch.ops.clr import clr_grid, two_stage_alpha_max
     from fscl_tpu_torch.ops.lattice import LatticeTables
     from fscl_tpu_torch.ops.histclr import build_hist_tables, build_pos_prefix
     from fscl_tpu_torch.ops.permute import (
@@ -145,6 +150,10 @@ def _entry_points():
 
     g = np.arange(0, 3_000_000, 500)
     z = np.zeros((2, 2, 3))
+    site = (np.zeros(32, np.float32), np.zeros(3, np.int32),
+            np.arange(3, dtype=np.int32), np.zeros(3, np.float32),
+            np.ones(2, np.int32), np.zeros(2, np.int32),
+            np.full(2, 2, np.int32))
     return {
         "scan_genome": lambda: scan_genome(None, None, None),
         "scan_permute": lambda: scan_permute(None, None, None, None, None),
@@ -166,6 +175,13 @@ def _entry_points():
         "lattice_tables_from_numpy": lambda: lattice_tables_from_numpy(
             grid_points=16, pack_coarse=z, pack_fine=z, pack_ultra=z,
             m_coarse=[0], m_fine=[0], m_ultra=[0]),
+        "clr_grid": lambda: clr_grid(*site, np.zeros(3, np.float32),
+                                     grid_points=16),
+        "two_stage_alpha_max": lambda: two_stage_alpha_max(
+            *site, grid_points=16),
+        "clr_inputs_from_numpy": lambda: clr_inputs_from_numpy(*site[:4]),
+        "ms_pipeline": lambda: ms_pipeline(
+            SimpleNamespace(ms_segment_length=10**6)),
     }
 
 
@@ -174,7 +190,8 @@ def _entry_points():
     "build_hist_tables", "build_pos_prefix", "block_permutation_groups",
     "block_permutation_runs", "hist_tables_from_numpy",
     "hist_points_from_numpy", "get_lattice_tables",
-    "LatticeTables.from_table", "lattice_tables_from_numpy",
+    "LatticeTables.from_table", "lattice_tables_from_numpy", "clr_grid",
+    "two_stage_alpha_max", "clr_inputs_from_numpy", "ms_pipeline",
 ])
 def test_entry_point_defaults_to_the_card(name):
     if torch.cuda.is_available():
