@@ -158,17 +158,21 @@ non-zero:
   3i. cgkernel - the clr_grid kernel (csrc/clr_grid.cu) against its
                plain version within 1e-5 S + 1e-4 per entry (S = 2 sum
                |y - null|), candidates with lo > hi exactly 0, repeat
-               launches and the checked candidates alone at one candidate
-               a warp bitwise, at the 20k task's dense grid (20,400
-               candidates, whole-chromosome windows) with the 11 shared
-               coarse alphas and with each candidate's 14 fine alphas (the
-               plain version on 64 candidates), at the 20k scan's reported
-               points with their reported lalpha (A = 1, the C-parity
-               oracle's call) and at the genome1m scan's reported points
-               with the coarse alphas (64 checked); kernel, plain and
-               bound timed; the lattice kernel at its coarse offsets
-               against this kernel at the lattice's alphas (rtol 2e-4,
-               atol 2e-3)
+               launches and the checked candidates (every 7th where all
+               are checked) launched alone bitwise, at the 20k task's
+               dense grid (20,400 candidates, whole-chromosome windows)
+               with the 11 shared coarse alphas and with each candidate's
+               14 fine alphas (the plain version on 64 candidates), at the
+               20k scan's reported points with their reported lalpha (A =
+               1, the C-parity oracle's call), at the genome1m scan's
+               reported points with the coarse alphas (64 checked) and at
+               __graft_entry__.py's flagship problem (rebuilt here: 2,048
+               sites, 64 candidates, +-600 sites, grid 512; coarse and
+               fine alphas); the call and its launches alone, plain and
+               the bound (on the work these inputs need, and PR 12's
+               count of every pair beside it) timed; the lattice kernel
+               at its coarse offsets against this kernel at the lattice's
+               alphas (rtol 2e-4, atol 2e-3)
   4e. exact  - two_stage_alpha_max (the reference's 11 + 14 alpha search)
                at the 20k and genome1m scans' reported positions, its
                clr_grid launches counted; the exact CLRs against the
@@ -2366,14 +2370,21 @@ def _mixed_check_data():
 # CG_ABS per entry, S = 2 sum |y - null| over its terms (_cg_scale)
 CG_REL = 1e-5
 CG_ABS = 1e-4
-# lane operations, counted from csrc/clr_grid.cu: a (candidate, site) pair
-# in its window (the distance and its two clamps, the conversion, logf
-# taken as one, the two window compares, the row's base), a term (pair,
-# alpha) inside the mask (the add and the compare, u's subtract and
-# multiply, the truncation and its two clamps, the conversion back,
-# frac's subtract and two clamps, the index add, 1 - frac, v1 * frac, the
-# fused multiply-add, y - null and the sum's add) and one outside it (the
-# add and the compare)
+# lane operations, counted from PR 12's csrc/clr_grid.cu (now
+# tools/clr_grid_baseline.cu): a (candidate, site) pair in its window (the
+# distance and its two clamps, the conversion, logf taken as one, the two
+# window compares, the row's base), a term (pair, alpha) inside the mask
+# (the add and the compare, u's subtract and multiply, the truncation and
+# its two clamps, the conversion back, frac's subtract and two clamps, the
+# index add, 1 - frac, v1 * frac, the fused multiply-add, y - null and the
+# sum's add) and one outside it (the add and the compare).  The bound
+# counts them on the work these inputs need (_cg_terms): the pairs where
+# at least one of the candidate's alphas is inside the mask, their terms
+# inside it, and outside it one term a pair and tile where the tile's
+# alphas ascend (the mask is then a prefix: the kernel stops at the
+# first term outside it), every one where they do not; PR 12's count
+# (every pair of every window, every term outside the mask) is printed
+# beside it as the old bound
 CG_OPS_PAIR = 8
 CG_OPS_TERM = 17
 CG_OPS_MASKED = 2
@@ -2382,34 +2393,57 @@ CG_OPS_MASKED = 2
 # coordinates apart)
 LAT_GRID_RTOL = 2e-4
 LAT_GRID_ATOL = 2e-3
+
+
 def _cg_terms(args, la, paired):
-    """((candidate, site) pairs in their windows, terms inside the mask,
-    all terms) of a clr_grid call on these inputs, counted on the card."""
+    """The work of a clr_grid call on these inputs, counted on their
+    device: dict of pairs (the (candidate, site) pairs in their windows),
+    reached (those where at least one alpha is inside the mask), inside
+    (their terms inside the mask), terms (every pair's A terms), masked
+    (the terms outside the mask that the reached pairs must test: per
+    tile of TILE_ALPHAS alphas, one where the tile's
+    alphas ascend and some are outside, else all of those); ops (CG_OPS_*
+    on reached, inside, masked) and ops_old (PR 12's count: every pair,
+    every term outside the mask)."""
     import torch
 
     from fscl_tpu_torch import LOG_AD_MAX
+    from fscl_tpu_torch.ops.clr import TILE_ALPHAS
 
     _, _, pos, _, cand, lo, hi = args
     A = la.shape[-1]
+    n = dict(pairs=0, reached=0, inside=0, terms=0, masked=0)
     live = torch.nonzero(lo <= hi).flatten()
-    if live.numel() == 0:
-        return 0, 0, 0
-    width = hi[live] - lo[live] + 1
-    pairs, L = int(width.sum()), int(width.max())
-    k = torch.arange(L, device=lo.device)
-    inside = 0
-    per = max(1, (1 << 24) // (L * A))
-    for k0 in range(0, live.numel(), per):
-        idx = live[k0:k0 + per]
-        w = lo[idx, None] + k
-        ok = w <= hi[idx, None]
-        w = torch.where(ok, w, lo[idx, None]).long()
-        logd = torch.log((pos[w] - cand[idx, None]).abs().clamp_min(1)
-                         .to(torch.float32))
-        lal = la[idx] if paired else la[None].expand(len(idx), A)
-        x = logd[..., None] + lal[:, None, :]
-        inside += int(((x <= LOG_AD_MAX) & ok[..., None]).sum())
-    return pairs, inside, pairs * A
+    if live.numel() > 0 and A > 0:
+        tiles = [slice(t, min(t + TILE_ALPHAS, A))
+                 for t in range(0, A, TILE_ALPHAS)]
+        width = hi[live] - lo[live] + 1
+        n["pairs"], L = int(width.sum()), int(width.max())
+        k = torch.arange(L, device=lo.device)
+        per = max(1, (1 << 24) // (L * A))
+        for k0 in range(0, live.numel(), per):
+            idx = live[k0:k0 + per]
+            w = lo[idx, None] + k
+            ok = w <= hi[idx, None]
+            w = torch.where(ok, w, lo[idx, None]).long()
+            logd = torch.log((pos[w] - cand[idx, None]).abs().clamp_min(1)
+                             .to(torch.float32))
+            lal = la[idx] if paired else la[None].expand(len(idx), A)
+            hit = (logd[..., None] + lal[:, None, :]) <= LOG_AD_MAX
+            reached = hit.any(-1) & ok  # [C, L]
+            n["inside"] += int((hit & ok[..., None]).sum())
+            n["reached"] += int(reached.sum())
+            for t in tiles:
+                out = (~hit[..., t] & reached[..., None]).sum(-1)  # [C, L]
+                up = (lal[:, t][:, 1:] >= lal[:, t][:, :-1]).all(-1)
+                n["masked"] += int(torch.where(up[:, None], out.clamp_max(1),
+                                               out).sum())
+        n["terms"] = n["pairs"] * A
+    n["ops"] = (CG_OPS_PAIR * n["reached"] + CG_OPS_TERM * n["inside"]
+                + CG_OPS_MASKED * n["masked"])
+    n["ops_old"] = (CG_OPS_PAIR * n["pairs"] + CG_OPS_TERM * n["inside"]
+                    + CG_OPS_MASKED * (n["terms"] - n["inside"]))
+    return n
 
 
 def _cg_scale(args, la, paired, G):
@@ -2454,14 +2488,18 @@ def _cg_case(label, args, la, paired, G, *, check_cands=None, iters=20):
     """Phase 3i at one shape: clr_grid against its plain version within
     CG_REL * S + CG_ABS per entry (on check_cands only, where given: the
     plain version at the dense shapes takes seconds a call), candidates
-    with lo > hi exactly 0, every entry finite, two launches and a launch
-    after the timing loop bitwise equal to the first, the checked
-    candidates launched alone at one candidate a warp (C = 1) bitwise
-    equal to their entries; kernel and plain (on the checked candidates)
-    timed.  The bound: every input read once and the output written once
-    over the HBM rate, or the lane operations that these inputs' terms
-    need (CG_OPS_*) over the lane rate, the larger.  Returns (record, the
-    kernel's output)."""
+    with lo > hi exactly 0, every entry finite, two calls and a call after
+    the timing loop bitwise equal to the first, the checked candidates
+    (every 7th where all are checked) launched alone bitwise equal to
+    their entries; timed: the call (ms: launch_clr_grid, the kernel's two
+    launches and their scratch, the slice plan computed beforehand), the
+    wrapper (wrapper_ms: with its checks and their sync) and plain (on
+    the checked candidates).  The bound: every input read
+    once and the output written once over the HBM rate, or the lane
+    operations that these inputs' work needs (_cg_terms) over the lane
+    rate, the larger; PR 12's count beside it.  The wrapper's first call
+    must count its two launches in clr_grid_launches.  Returns (record,
+    the kernel's output)."""
     import torch
 
     from fscl_tpu_torch import kernels
@@ -2469,19 +2507,34 @@ def _cg_case(label, args, la, paired, G, *, check_cands=None, iters=20):
 
     dev = args[0].device
     kw = dict(grid_points=G, paired_alpha=paired)
+    lib = kernels.load()
+
+    def wrapper():
+        return TC.clr_grid(*args, la, device=dev, **kw)
+
+    plan = TC.clr_grid_plan(args[5].cpu().numpy(), args[6].cpu().numpy(),
+                            lib.fscl_clr_grid_group(),
+                            lib.fscl_clr_grid_slice_sites())
 
     def kern():
-        return TC.clr_grid(*args, la, device=dev, **kw)
+        return TC.launch_clr_grid(lib, *args, la, G, paired, plan)
 
     P = args[4].shape[0]
     if check_cands is None:
         check_cands = torch.arange(P, device=dev)
+        alone_cands = torch.arange(0, P, 7, device=dev)
+    else:
+        alone_cands = check_cands
     sub, la_sub = _cg_sub(args, la, paired, check_cands)
 
     def plain():
         return TC.clr_grid_plain(*sub, la_sub, **kw)
 
-    got = kern()
+    TC.clr_grid_launches = 0
+    got = wrapper()
+    if TC.clr_grid_launches != 2:
+        fail(f"cgkernel at {label}: one call counted "
+             f"{TC.clr_grid_launches} launches, not 2")
     want = plain()
     lim = CG_REL * _cg_scale(sub, la_sub, paired, G) + CG_ABS
     torch.cuda.synchronize()
@@ -2500,38 +2553,49 @@ def _cg_case(label, args, la, paired, G, *, check_cands=None, iters=20):
     pad = args[5] > args[6]
     if bool(got[pad].any()):
         fail(f"cgkernel at {label}: a candidate with lo > hi is not 0")
-    c1 = TC.launch_clr_grid(kernels.load(), *sub, la_sub, G, paired, 1)
+    cut, la_cut = _cg_sub(args, la, paired, alone_cands)
+    alone = TC.launch_clr_grid(lib, *cut, la_cut, G, paired)
     torch.cuda.synchronize()
-    if not torch.equal(c1.view(torch.int32), part.view(torch.int32)):
-        fail(f"cgkernel at {label}: the checked candidates alone at C = 1 "
-             "differ from their entries")
+    if not torch.equal(alone.view(torch.int32),
+                       got[alone_cands].view(torch.int32)):
+        fail(f"cgkernel at {label}: {alone_cands.numel()} candidates "
+             "launched alone differ from their entries")
     first = got.clone()
-    del got, want, err, lim, part, c1
-    pairs, inside, terms = _cg_terms(args, la, paired)
-    ops = (CG_OPS_PAIR * pairs + CG_OPS_TERM * inside
-           + CG_OPS_MASKED * (terms - inside))
+    del got, want, err, lim, part, alone
+    work = _cg_terms(args, la, paired)
+    ops, ops_old = work["ops"], work["ops_old"]
+    A = first.shape[1]
     b_ms, b_by = bound([*args, la], [first], ops)
+    old_ms, old_by = bound([*args, la], [first], ops_old)
     nbytes = sum(t.numel() * t.element_size() for t in (*args, la, first))
     ms = _repeat_checks("cgkernel", label, kern, first, iters)
+    wrapper_ms = _repeat_checks("cgkernel wrapper", label, wrapper, first,
+                                iters)
     plain_ms = cuda_time_ms(plain, 1, readings=3)
     torch.cuda.empty_cache()
-    A = first.shape[1]
     n_chk = check_cands.numel()
     shape = (f"P={P} ({int(pad.sum())} with lo > hi) A={A} "
              f"{'paired' if paired else 'shared'} G={G} W="
-             f"{args[1].shape[0]}, {pairs} (candidate, site) pairs, "
-             f"{inside} of {terms} terms inside the mask")
+             f"{args[1].shape[0]}, {work['pairs']} (candidate, site) "
+             f"pairs, {work['reached']} with an alpha inside the mask, "
+             f"{work['inside']} of {work['terms']} terms inside the mask, "
+             f"{work['masked']} outside it tested")
     log(f"[cgkernel] {label}: {shape}; max |err| {max_err:.4g} ({ratio:.3g}"
-        f" x tolerance, {n_chk} candidates checked), repeat launches and "
-        f"C = 1 bitwise; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms "
-        f"({n_chk} candidates), bound {b_ms:.4f} ms ({b_by}: "
-        f"{nbytes / 1e6:.2f} MB, {ops / 1e9:.3f} G lane ops; "
-        f"{100 * b_ms / ms:.1f}%)")
-    return (dict(label=label, shape=shape, ms=ms, plain_ms=plain_ms,
-                 plain_candidates=n_chk, library_ms=None,
+        f" x tolerance, {n_chk} candidates checked), repeat calls and "
+        f"{alone_cands.numel()} candidates alone bitwise; kernel {ms:.4f} "
+        f"ms (wrapper {wrapper_ms:.4f}), plain {plain_ms:.4f} ms ({n_chk} "
+        f"candidates), bound {b_ms:.4f} ms ({b_by}: {nbytes / 1e6:.2f} MB, "
+        f"{ops / 1e9:.3f} G lane ops; {100 * b_ms / ms:.1f}%), PR 12's "
+        f"bound {old_ms:.4f} ms ({old_by}: {ops_old / 1e9:.3f} G; "
+        f"{100 * old_ms / ms:.1f}%)")
+    return (dict(label=label, shape=shape, ms=ms, wrapper_ms=wrapper_ms,
+                 plain_ms=plain_ms, plain_candidates=n_chk, library_ms=None,
                  max_abs_err=max_err, max_err_over_tol=ratio, bound_ms=b_ms,
-                 bound_by=b_by, bytes=nbytes, ops=ops, pairs=pairs,
-                 terms=terms, terms_inside=inside), first)
+                 bound_by=b_by, old_bound_ms=old_ms, old_bound_by=old_by,
+                 bytes=nbytes, ops=ops, ops_old=ops_old,
+                 pairs=work["pairs"], pairs_reached=work["reached"],
+                 terms=work["terms"], terms_inside=work["inside"],
+                 terms_masked_tested=work["masked"], slice_plan=plan), first)
 
 
 def _point_args(data, tables, result, eval_range, dev):
@@ -2561,6 +2625,40 @@ def _point_args(data, tables, result, eval_range, dev):
                      for x in (result.sweep_pos, lo, hi)))
 
 
+def _flagship_args(dev):
+    """__graft_entry__.py:18-40's flagship problem, rebuilt with the
+    port's own models.build_tables and ops/windows.py candidate_windows
+    from numpy seed 0: 2,048 sites over 2 Mb, n = 24 (30% folded), 64
+    candidates evenly spaced, windows of +-600 sites, grid 512; (clr_grid's
+    inputs, G)."""
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch.convert import clr_inputs_from_numpy
+    from fscl_tpu_torch.models import build_tables
+    from fscl_tpu_torch.ops.windows import candidate_windows
+
+    n_sites, n, n_cand, span, G = 2048, 24, 64, 2_000_000, 512
+    rng = np.random.default_rng(0)
+    pos = np.sort(rng.choice(span, n_sites, replace=False)).astype(np.int32)
+    w = 1 / np.arange(1, n)
+    w /= w.sum()
+    freqs = rng.choice(np.arange(1, n), p=w, size=n_sites)
+    folded = rng.random(n_sites) < 0.3
+    freqs = np.where(folded, np.minimum(freqs, n - freqs), freqs)
+    depth_p = np.zeros(n_sites, int)
+    hist = np.bincount(freqs, minlength=n + 1).astype(float)
+    hist[0] = hist[n] = 0
+    tables = build_tables([hist / hist.sum()], [n], grid_points=G)
+    row = tables.site_rows(depth_p, folded, freqs).astype(np.int32)
+    null = tables.null_logl(depth_p, folded, freqs).astype(np.float32)
+    cand = np.linspace(0, span, n_cand, dtype=np.int32)
+    _, lo, hi = candidate_windows(pos, cand, eval_range=600)
+    site = clr_inputs_from_numpy(tables.table, row, pos, null, device=dev)
+    return (*site, *(torch.as_tensor(np.asarray(x, np.int32), device=dev)
+                     for x in (cand, lo, hi))), G
+
+
 def phase_cgkernel(dev):
     """Phase 3i: the clr_grid kernel (csrc/clr_grid.cu) through _cg_case at
     the 20k task's dense grid (20,400 candidates, every window the whole
@@ -2569,7 +2667,8 @@ def phase_cgkernel(dev):
     candidates), at the 20k scan's reported points with their reported
     lalpha (A = 1 paired, the C-parity oracle's call) and at the genome1m
     scan's reported points with the coarse alphas (two_stage_alpha_max's
-    first call); and the lattice kernel at its coarse offsets against the
+    first call), at the flagship problem with the coarse alphas and its
+    fine ones; and the lattice kernel at its coarse offsets against the
     clr_grid kernel at the lattice's alphas on the 20k dense grid."""
     import numpy as np
     import torch
@@ -2638,6 +2737,14 @@ def phase_cgkernel(dev):
     out.append(_cg_case("genome1m reported points, coarse alphas", gpts,
                         coarse, False, gtables.grid_points,
                         check_cands=gchk, iters=5)[0])
+    flag, fG = _flagship_args(dev)
+    rec, f_out = _cg_case("flagship problem, coarse alphas", flag, coarse,
+                          False, fG)
+    out.append(rec)
+    out.append(_cg_case("flagship problem, fine alphas", flag,
+                        TC.fine_alpha_grids(
+                            coarse[torch.argmax(f_out, dim=1)]),
+                        True, fG)[0])
     torch.cuda.empty_cache()
     return dict(cgkernel=out, lattice_vs_clr_grid_over_tol=lat_ratio)
 
@@ -2652,8 +2759,8 @@ def phase_exact(dev):
     the scan reports more than the exact maximum, and the gap to clr_grid
     at the reported position and lalpha (the C-parity oracle's call: the
     scan's own table error) are printed: findings, not gates.  The
-    launches counted are those of two_stage_alpha_max and the oracle's
-    call."""
+    launches counted (clr_grid_partials and clr_grid_reduce, two a call)
+    are those of two_stage_alpha_max and the oracle's call."""
     import numpy as np
     import torch
 
@@ -2686,13 +2793,15 @@ def phase_exact(dev):
         chk = (torch.arange(K, device=dev) if K <= 256 else torch.as_tensor(
             np.linspace(0, K - 1, 256).astype(np.int64), device=dev))
         sub, _ = _cg_sub(args, la, False, chk)
-        orig = TC.clr_grid
-        TC.clr_grid = lambda *a, device=None, **k: TC.clr_grid_plain(*a, **k)
+        # the same search with each stage's clr_grid the plain version
+        orig = TC._clr_grid
+        TC._clr_grid = lambda a, plan, g, paired: TC.clr_grid_plain(
+            *a, grid_points=g, paired_alpha=paired)
         try:
             p_clr, _ = TC.two_stage_alpha_max(*sub, grid_points=G,
                                               device=dev)
         finally:
-            TC.clr_grid = orig
+            TC._clr_grid = orig
         S = _cg_scale(sub, la[chk][:, None], True, G)[:, 0]
         err = (clr[chk] - p_clr).abs().double()
         lim = CG_REL * S + CG_ABS
@@ -3604,15 +3713,22 @@ def main():
               grid1024_tie_launches=r1024["launches"],
               big_chromosome_launches=(rb["launches"]["scan"]
                                        + rb["launches"]["permute"])),
-        # main shape: the 20k dense grid's coarse call; launches over phase
-        # 4e's two_stage_alpha_max calls
+        # main shape: the 20k dense grid's coarse call; launches (of both
+        # its kernels) over phase 4e's calls
         entry("clr_grid", "clr_grid.cu",
               "fscl_tpu/ops/clr.py:88 clr_grid (XLA-fused, no Pallas "
               "kernel)", rx["launches"], cg["cgkernel"],
               note="no single PyTorch call computes the CLR of every "
-                   "(candidate, alpha) pair",
+                   "(candidate, alpha) pair; launches counts both kernels "
+                   "of a call, clr_grid_partials and clr_grid_reduce",
               lattice_vs_clr_grid_over_tol=cg[
-                  "lattice_vs_clr_grid_over_tol"]),
+                  "lattice_vs_clr_grid_over_tol"],
+              old_bound_ms=cg["cgkernel"][0]["old_bound_ms"],
+              flagship=[{k: r[k] for k in (
+                  "label", "ms", "wrapper_ms", "plain_ms", "bound_ms",
+                  "old_bound_ms", "max_abs_err")}
+                  for r in cg["cgkernel"] if r["label"].startswith(
+                      "flagship")]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

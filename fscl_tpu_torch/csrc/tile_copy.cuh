@@ -1,7 +1,8 @@
 // Copies shared by the two fused window-contraction kernels
 // (window_clr.cu, bfloat16; window_clr_f32.cu, float32): cp.async of
 // 16-byte pack chunks into shared memory, and 8 consecutive prefix values
-// of one bound row as 16-byte vector loads.
+// of one bound row as 16-byte vector loads; the 4-byte cp.async for
+// clr_grid.cu's staged sites.
 
 #pragma once
 
@@ -21,6 +22,13 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(bytes));
+}
+
+// 4 bytes global -> shared, asynchronously (any 4-byte aligned source).
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src));
 }
 
 __device__ __forceinline__ void cp_async_commit() {

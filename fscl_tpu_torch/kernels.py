@@ -141,10 +141,11 @@ def load():
     lib.fscl_lattice_clr.argtypes = [vp] * 10 + [i, i, i, i, i, i,
                                            ctypes.c_float, i, vp]
     lib.fscl_lattice_clr.restype = i
-    lib.fscl_clr_grid.argtypes = [vp] * 9 + [i, i, i, i, ctypes.c_float,
-                                              i, vp]
+    lib.fscl_clr_grid.argtypes = [vp] * 10 + [i, i, i, i, ctypes.c_float,
+                                               i, vp]
     lib.fscl_clr_grid.restype = i
-    for tile in (lib.fscl_ps_tile, lib.fscl_wps_tile):
+    for tile in (lib.fscl_ps_tile, lib.fscl_wps_tile,
+                 lib.fscl_clr_grid_slice_sites, lib.fscl_clr_grid_group):
         tile.argtypes = []
         tile.restype = i
     for size in (lib.fscl_ps_scratch_bytes, lib.fscl_wps_scratch_bytes):

@@ -20,10 +20,14 @@ product is exact, and rounds once; the kernel uses fmaf.  A candidate
 with lo > hi gives exactly 0.  ``clr_grid_plain`` is the plain PyTorch
 version; the wrapper ``clr_grid`` runs it for CPU tensors and launches
 the CUDA kernel (csrc/clr_grid.cu) for CUDA tensors, never falling back
-from one to the other.  ``clr_grid_launches`` counts the kernel's
-launches.  The JAX version pads candidates into chunks; this one walks
-each candidate's window alone (the kernel: C consecutive candidates a
-warp, BLOCK_CANDS; the output does not depend on C).
+from one to the other.  ``clr_grid_launches`` counts the kernel
+launches (two a call: the slice sums, then their sum; one where no
+window is live).  The JAX version pads candidates into chunks; this one
+walks each candidate's window alone.  The kernel cuts the sites into
+slices of SLICE_SITES, a block a group of BLOCK_CANDS candidates, one
+slice and a tile of alphas (``clr_grid_plan`` sizes its grid and
+scratch); an entry's sum order depends on its window alone, so the
+output does not depend on which candidates share a call.
 
 ``two_stage_alpha_max`` is the reference's search (sm-search.c:269-300):
 the 11 coarse alphas, then 14 fine ones inside the winner's bracket, the
@@ -50,9 +54,12 @@ N_COARSE = 11
 # fine stage: 15 subdivisions of the winning +-step bracket, evaluated at
 # left + k*fstep for k = 1..14 (sm-search.c:289-295).
 N_FINE = 14
-BLOCK_CANDS = 32  # candidates a warp: one a lane (csrc/clr_grid.cu)
+# csrc/clr_grid.cu's constants (the wrapper reads the built library's)
+BLOCK_CANDS = 32  # candidates a block, one a lane (kGroup)
+SLICE_SITES = 1024  # sites a slice (kSlice)
+TILE_ALPHAS = 16  # alphas a block (kTileA)
 PLAIN_TERMS = 1 << 22  # the plain version's [C, L, A] terms a chunk
-clr_grid_launches = 0  # CUDA kernel launches by clr_grid
+clr_grid_launches = 0  # CUDA kernel launches by launch_clr_grid
 
 
 def coarse_alpha_grid() -> np.ndarray:
@@ -113,19 +120,42 @@ def _check_shapes(table_flat, row, pos, null, cand_pos, lo, hi, lalpha,
 
 def _check_ranges(table_flat, row, lo, hi, grid_points):
     """Every live window (lo <= hi) inside [0, W) and every row inside
-    [0, R): the kernel reads pos, row, null and the table unchecked."""
+    [0, R): the kernel reads pos, row, null and the table unchecked.  lo
+    and hi (numpy int64) from the one copy to the host."""
     W, R = row.shape[0], table_flat.shape[0] // grid_points
-    live = lo <= hi
-    bad_win, bad_row = torch.stack([
-        (live & ((lo < 0) | (hi >= W))).any(),
-        ((row < 0) | (row >= R)).any(),
-    ]).tolist()
+    bad_row = ((row < 0) | (row >= R)).any()
+    P = lo.shape[0]
+    host = torch.cat([lo.long(), hi.long(), bad_row.long()[None]]).cpu() \
+        .numpy()
+    lo_h, hi_h, bad_row = host[:P], host[P:2 * P], host[2 * P]
+    live = lo_h <= hi_h
+    bad_win = bool((live & ((lo_h < 0) | (hi_h >= W))).any())
     if bad_win or bad_row:
         raise ValueError(
             "clr_grid: " + ("a window with lo <= hi outside [0, "
                             f"{W}) sites" if bad_win else
                             f"a table row outside [0, {R})")
         )
+    return lo_h, hi_h
+
+
+def clr_grid_plan(lo, hi, group=BLOCK_CANDS, slice_sites=SLICE_SITES):
+    """The kernel's slices, from lo and hi as numpy integer arrays: (the
+    most slices one live window meets, the scratch's [slices, P, A]; the
+    most that the live windows of one group of ``group`` consecutive
+    candidates meet, the grid's second dimension).  Slice s holds the
+    sites [s * slice_sites, (s + 1) * slice_sites); a block (group g, j)
+    takes slice first_g + j, first_g the group's first."""
+    lo, hi = np.asarray(lo, np.int64), np.asarray(hi, np.int64)
+    live = lo <= hi
+    if not live.any():
+        return 0, 0
+    first = np.where(live, lo // slice_sites, 1 << 62)
+    last = np.where(live, hi // slice_sites, -1)
+    starts = np.arange(0, len(lo), group)
+    span = (np.maximum.reduceat(last, starts)
+            - np.minimum.reduceat(first, starts) + 1)
+    return int((last - first)[live].max()) + 1, int(span.max())
 
 
 def clr_grid_plain(table_flat, row, pos, null, cand_pos, lo, hi, lalpha, *,
@@ -168,9 +198,11 @@ def clr_grid_plain(table_flat, row, pos, null, cand_pos, lo, hi, lalpha, *,
 
 
 def launch_clr_grid(lib, table_flat, row, pos, null, cand_pos, lo, hi,
-                    lalpha, grid_points, paired_alpha, cands):
-    """One launch of ``lib``'s fscl_clr_grid at ``cands`` candidates a
-    warp on checked inputs; the [P, A] output."""
+                    lalpha, grid_points, paired_alpha, plan=None):
+    """One call of ``lib``'s fscl_clr_grid (its two launches, counted in
+    clr_grid_launches) on checked inputs; the [P, A] output.  ``plan``:
+    clr_grid_plan's two numbers at the library's slice width and group,
+    computed here (one copy of lo and hi to the host) where not given."""
     from .. import kernels
 
     dev = table_flat.device
@@ -178,15 +210,24 @@ def launch_clr_grid(lib, table_flat, row, pos, null, cand_pos, lo, hi,
     out = torch.empty((P, A), dtype=torch.float32, device=dev)
     if out.numel() == 0:
         return out
+    if plan is None:
+        plan = clr_grid_plan(lo.cpu().numpy(), hi.cpu().numpy(),
+                             lib.fscl_clr_grid_group(),
+                             lib.fscl_clr_grid_slice_sites())
+    per, span = plan
+    part = torch.empty((per, P, A), dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         rc = lib.fscl_clr_grid(
             table_flat.data_ptr(), row.data_ptr(), pos.data_ptr(),
             null.data_ptr(), cand_pos.data_ptr(), lo.data_ptr(),
-            hi.data_ptr(), lalpha.data_ptr(), out.data_ptr(), P, A,
-            int(paired_alpha), grid_points, lattice_inv_step(grid_points),
-            cands, torch.cuda.current_stream(dev).cuda_stream,
+            hi.data_ptr(), lalpha.data_ptr(), part.data_ptr(),
+            out.data_ptr(), P, A, int(paired_alpha),
+            grid_points, lattice_inv_step(grid_points), span,
+            torch.cuda.current_stream(dev).cuda_stream,
         )
     kernels.check(lib, rc, "clr_grid")
+    global clr_grid_launches
+    clr_grid_launches += 2 if span > 0 else 1
     return out
 
 
@@ -205,20 +246,41 @@ def clr_grid(table_flat, row, pos, null, cand_pos, lo, hi, lalpha, *,
     dev = parse_device(device)
     args = _inputs(table_flat, row, pos, null, cand_pos, lo, hi, lalpha, dev)
     _check_shapes(*args, grid_points, paired_alpha)
-    _check_ranges(args[0], args[1], args[5], args[6], grid_points)
+    return _clr_grid(args, _plan(args, grid_points), grid_points,
+                     paired_alpha)
+
+
+def _plan(args, grid_points):
+    """clr_grid's checks on its inputs (``_inputs``' list), and for CUDA
+    tensors the kernel's slice plan (None on the CPU)."""
+    lo_h, hi_h = _check_ranges(args[0], args[1], args[5], args[6],
+                               grid_points)
     if _device("clr_grid", args[0]) == "cpu":
-        return clr_grid_plain(*args, grid_points=grid_points,
-                              paired_alpha=paired_alpha)
-    if args[0].shape[0] + 1 >= 2**31 or args[4].shape[0] >= 2**31:
-        raise ValueError("clr_grid: too many table entries or candidates "
-                         "for one launch")
+        return None
+    if (args[0].shape[0] + 1 >= 2**31 or args[4].shape[0] >= 2**31
+            or grid_points > 2**22):
+        raise ValueError("clr_grid: too many table entries, grid points or "
+                         "candidates for one launch")
     from .. import kernels
 
-    out = launch_clr_grid(kernels.load(), *args, grid_points, paired_alpha,
-                          BLOCK_CANDS)
-    global clr_grid_launches
-    clr_grid_launches += 1
-    return out
+    lib = kernels.load()
+    plan = clr_grid_plan(lo_h, hi_h, lib.fscl_clr_grid_group(),
+                         lib.fscl_clr_grid_slice_sites())
+    if plan[1] > 65535:
+        raise ValueError("clr_grid: windows too wide for one launch")
+    return plan
+
+
+def _clr_grid(args, plan, grid_points, paired_alpha):
+    """clr_grid on checked inputs: the plain version (plan None) or one
+    kernel call."""
+    if plan is None:
+        return clr_grid_plain(*args, grid_points=grid_points,
+                              paired_alpha=paired_alpha)
+    from .. import kernels
+
+    return launch_clr_grid(kernels.load(), *args, grid_points, paired_alpha,
+                           plan)
 
 
 def two_stage_alpha_max(table_flat, row, pos, null, cand_pos, lo, hi, *,
@@ -226,15 +288,17 @@ def two_stage_alpha_max(table_flat, row, pos, null, cand_pos, lo, hi, *,
     """Max CLR over the reference's two-stage lalpha search, per candidate:
     (clr [P], lalpha [P]) float32 tensors on ``device``, the best of 11
     coarse and 14 fine lalpha values (sm-search.c:269-300 semantics,
-    batched over candidates; arguments as ``clr_grid``'s)."""
+    batched over candidates; arguments as ``clr_grid``'s, checked once
+    for both stages)."""
     dev = parse_device(device)
     args = _inputs(table_flat, row, pos, null, cand_pos, lo, hi,
                    coarse_alpha_grid(), dev)
     coarse = args.pop()
-    kw = dict(grid_points=grid_points, device=dev)
-    clr_c = clr_grid(*args, coarse, **kw)  # [P, 11]
+    _check_shapes(*args, coarse, grid_points, False)
+    plan = _plan(args, grid_points)
+    clr_c = _clr_grid([*args, coarse], plan, grid_points, False)  # [P, 11]
     fine = fine_alpha_grids(coarse[torch.argmax(clr_c, dim=1)])  # [P, 14]
-    clr_f = clr_grid(*args, fine, paired_alpha=True, **kw)  # [P, 14]
+    clr_f = _clr_grid([*args, fine], plan, grid_points, True)  # [P, 14]
     all_clr = torch.cat([clr_c, clr_f], dim=1)
     all_la = torch.cat([coarse[None].expand_as(clr_c), fine], dim=1)
     j = torch.argmax(all_clr, dim=1, keepdim=True)
