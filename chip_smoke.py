@@ -192,6 +192,26 @@ non-zero:
                block walls and each stage's share (parse, attach_model,
                scan, output); every kernel's launches counted over each
                run
+  9. resume  - checkpoint and resume: (a) the 20k task on the hist path
+               (bfloat16, 64 permutations at chunks of 16), (b) the same
+               at float32 with the RDP tail forced on, (c) the 20k task
+               through --no-hist (32 permutations), each run
+               uninterrupted and stopped at 16 rounds with a checkpoint,
+               then resumed from the file: the break a chunk boundary of
+               the uninterrupted run and before any pruning draw, the
+               resumed leg launching the path's kernels (the one-hot
+               prefix and bfloat16 window kernels; the row gather and
+               float32 window kernel; the lattice kernel), permute_n,
+               permute_p, permute_finished, stat_threshold and every
+               saved null equal bit for bit (or, where the card's bits
+               differ, the largest difference and first point printed and
+               the counts equal off listed 1e-4 near-ties); (d) genome1m
+               (phase 5's scan), 64 permutations with a checkpoint: each
+               save's ms and record bytes, the log's size, the saves'
+               share of the permutation wall, walls with and without a
+               checkpoint in turns beside phase 5's; (e) -m with
+               --checkpoint on two blocks of headline_ms_sweep.ms, -p 8
+               then -p 16: one file a block, permute_n reaching 16
 Then one JSON line with every kernel's numbers (time, plain time, bound,
 launches on a path of this run, the one-call PyTorch equivalent's time
 where there is one; for the fused window kernels also their largest error
@@ -3384,6 +3404,298 @@ def phase_rdp(dev):
                 okernel=okern, f32kernel=f32kern)
 
 
+# ---- phase 9: checkpoint and resume ------------------------------------------
+
+RESUME_BREAK = 16  # the round each interrupted run stops at
+RESUME_NEAR = 1e-4  # near-tie band where resumed bits differ (as phase 7)
+
+
+def _unpermuted(result):
+    """A copy of a scan result with no permutation state."""
+    r = copy.deepcopy(result)
+    r.permute_n[:] = 0
+    r.permute_p[:] = 0
+    r.permute_finished[:] = False
+    r.null_clr = [None] * r.n_points
+    r.stat_threshold = None
+    return r
+
+
+def _permute_run(scanned, cfg, dev, ck=None, starts=None):
+    """scan_permute on a fresh copy of a scan result, with the port's own
+    sigma and runs streams wrapped to record each chunk's start; with
+    ``ck`` the run checkpoints there (and resumes if the file exists).
+    (result, host-clocked wall s, last_stats, kernel launches)."""
+    import dataclasses
+
+    import torch
+
+    from fscl_tpu_torch.engine import permute as TP
+    from fscl_tpu_torch.ops.permute import (
+        block_permutation_groups, block_permutation_runs,
+    )
+
+    data, tables, scan_cfg, result = scanned
+    gp, width = data.genome_pos(), cfg.scan_width_mb * 1e6
+    starts = [] if starts is None else starts
+
+    def sigma_source(n, start):
+        starts.append(start)
+        return block_permutation_groups(cfg.seed, gp, width, n, start=start,
+                                        device=dev)
+
+    def runs_source(n, start):
+        starts.append(start)
+        return block_permutation_runs(cfg.seed, gp, width, n, start=start,
+                                      device=dev)
+
+    r = _unpermuted(result)
+    torch.cuda.synchronize()
+    _zero_all_counts()
+    t0 = time.monotonic()
+    TP.scan_permute(data, tables, r, scan_cfg,
+                    dataclasses.replace(cfg, checkpoint_path=ck), device=dev,
+                    sigma_source=sigma_source, runs_source=runs_source)
+    torch.cuda.synchronize()
+    return r, time.monotonic() - t0, dict(TP.last_stats), _all_counts()
+
+
+def _resume_case(label, scanned, cfg, dev, smi, must_launch,
+                 n_break=RESUME_BREAK):
+    """The run to cfg.n_permute uninterrupted, then stopped at n_break
+    with a checkpoint and resumed from the file: the break must be a chunk
+    boundary of the uninterrupted run and come before any pruning draw
+    (permute_p < PRUNE_THRESHOLD everywhere), and the resumed leg must
+    launch the kernels in ``must_launch``.  The two results equal bit for
+    bit; where the card gives other bits, the largest difference and its
+    first point are printed and the counts held equal off points with a
+    saved replicate within RESUME_NEAR of its threshold (listed)."""
+    import dataclasses
+
+    import numpy as np
+
+    from fscl_tpu_torch.engine import permute as TP
+
+    ck = str(OUT / f"resume_{label.split()[0]}.npz")
+    for p in (ck, ck + ".log"):
+        pathlib.Path(p).unlink(missing_ok=True)
+    s_full, s_part, s_res = [], [], []
+    full, t_full, st_full, _ = _permute_run(scanned, cfg, dev,
+                                            starts=s_full)
+    part, t_part, _, _ = _permute_run(
+        scanned, dataclasses.replace(cfg, n_permute=n_break), dev, ck,
+        starts=s_part)
+    resumed, t_res, st_res, c_res = _permute_run(scanned, cfg, dev, ck,
+                                                 starts=s_res)
+    for p in (ck, ck + ".log"):
+        pathlib.Path(p).unlink(missing_ok=True)
+    bounds = sorted(set(s_full)) + [cfg.n_permute]
+    log(f"[resume] ({label}) chunk starts: uninterrupted {s_full}, stopped "
+        f"{s_part}, resumed {s_res}; at the break max permute_p "
+        f"{int(part.permute_p.max())}")
+    if n_break not in s_full:
+        fail(f"resume ({label}): the break at {n_break} is not a chunk "
+             f"boundary of the uninterrupted run ({bounds})")
+    if part.permute_p.max() >= TP.PRUNE_THRESHOLD:
+        fail(f"resume ({label}): a pruning draw came before the break")
+    missing = [k for k in must_launch if c_res[k] <= 0]
+    if missing:
+        fail(f"resume ({label}): the resumed leg launched no {missing}: "
+             f"{c_res}")
+    fields = ("permute_n", "permute_p", "permute_finished", "stat_threshold")
+    same = all(np.array_equal(getattr(full, f), getattr(resumed, f))
+               for f in fields)
+    diff_nulls = [i for i in range(full.n_points)
+                  if full.null_clr[i] != resumed.null_clr[i]]
+    out = dict(label=label, n_permute=cfg.n_permute, n_break=n_break,
+               starts=dict(full=s_full, stopped=s_part, resumed=s_res),
+               walls_s=dict(full=t_full, stopped=t_part, resumed=t_res),
+               stats=dict(full=st_full, resumed=st_res),
+               resumed_launches=c_res, bitwise=same and not diff_nulls)
+    if out["bitwise"]:
+        log(f"[resume] ({label}) {full.n_points} points, "
+            f"{int(full.permute_finished.sum())} finished: permute_n, "
+            "permute_p, permute_finished, stat_threshold and every null_clr "
+            f"equal bit for bit; walls uninterrupted {t_full:.3f}s, stopped "
+            f"{t_part:.3f}s, resumed {t_res:.3f}s ({smi}); resumed leg's "
+            f"launches {c_res}")
+        return out
+    d_thr = float(np.abs(full.stat_threshold - resumed.stat_threshold).max())
+    d_null = max((float(np.abs(np.subtract(a[:n], b[:n])).max())
+                  for a, b in zip(full.null_clr, resumed.null_clr)
+                  for n in [min(len(a), len(b))] if n), default=0.0)
+    first = min([i for f in fields for i in np.flatnonzero(
+        getattr(full, f) != getattr(resumed, f))] + diff_nulls)
+    near = sorted({i for i in range(full.n_points) for r in (full, resumed)
+                   if np.any(np.abs(np.asarray(r.null_clr[i])
+                                    - r.stat_threshold[i]) < RESUME_NEAR)})
+    keep = np.setdiff1d(np.arange(full.n_points), near)
+    log(f"[resume] ({label}) NOT bit for bit: max |threshold difference| "
+        f"{d_thr:.3g}, max |null difference| {d_null:.3g}, first differing "
+        f"point {first}; near-tie points excluded from the counts: {near}")
+    for f in fields[:3]:
+        if not np.array_equal(getattr(full, f)[keep],
+                              getattr(resumed, f)[keep]):
+            fail(f"resume ({label}): {f} differs off the near-tie points")
+    out.update(d_thr=d_thr, d_null=d_null, first_diff=int(first),
+               near_ties=near)
+    return out
+
+
+def _save_timer(saves):
+    """Wrap Checkpointer.save (and os.fsync, which only the save calls
+    here) to record (ms, fsync ms, record bytes, rounds) of each call;
+    returns the restore function."""
+    import os
+
+    from fscl_tpu_torch.engine import checkpoint as TC
+
+    orig, orig_fsync = TC.Checkpointer.save, os.fsync
+    fsync_ms = []
+
+    def fsync(fd):
+        t0 = time.perf_counter()
+        orig_fsync(fd)
+        fsync_ms.append((time.perf_counter() - t0) * 1e3)
+
+    def save(self, result, rounds_done):
+        before = os.path.getsize(self.log_path)
+        fsync_ms.clear()
+        t0 = time.perf_counter()
+        orig(self, result, rounds_done)
+        saves.append(((time.perf_counter() - t0) * 1e3, sum(fsync_ms),
+                      os.path.getsize(self.log_path) - before, rounds_done))
+
+    TC.Checkpointer.save, os.fsync = save, fsync
+
+    def restore():
+        TC.Checkpointer.save, os.fsync = orig, orig_fsync
+
+    return restore
+
+
+def phase_resume(dev, smi, genome_perm_s):
+    """Phase 9: checkpoint and resume on the card.  (a) the 20k task on
+    the hist path (bfloat16, 64 permutations at chunks of 16), (b) the
+    same at float32 with the RDP tail forced on (phase 7's set-up), (c)
+    the 20k task through --no-hist (the lattice path, 32 permutations):
+    each run uninterrupted and stopped at 16 rounds, then resumed from
+    its checkpoint (_resume_case), the resumed leg launching the path's
+    kernels; (d) genome1m (phase 5's data and scan), 64 permutations
+    with a checkpoint: each save's milliseconds and record bytes, the
+    log's final size, the saves' share of the permutation wall, the wall
+    against phase 5's without a checkpoint and against runs without one
+    here, in turns; (e) -m with --checkpoint on the first two blocks of
+    headline_ms_sweep.ms at -p 8, then -p 16: one file a block, and the
+    TSV's permute_n at most 16, reached."""
+    import dataclasses
+    import os
+
+    import numpy as np
+
+    from fscl_tpu_torch.engine import permute as TP
+    from fscl_tpu_torch.engine.scan import ScanConfig, scan_genome
+
+    out = {}
+    data, tables, scan_cfg, result = SCANS["20k"]
+    cfg = TP.PermuteConfig(n_permute=64, chunk_replicates=16, seed=1)
+    out["hist"] = _resume_case("hist 20k bf16", (data, tables, scan_cfg,
+                                                 result), cfg, dev, smi,
+                               ("prefix", "window_clr"))
+    saved = TP.RDP_FORCE
+    TP.RDP_FORCE = "on"
+    try:
+        out["rdp"] = _resume_case(
+            "rdp 20k f32, RDP on", (data, tables, scan_cfg, result),
+            dataclasses.replace(cfg, hist_bf16=False), dev, smi,
+            ("row_gather", "window_clr_f32"))
+    finally:
+        TP.RDP_FORCE = saved
+    if out["rdp"]["stats"]["resumed"]["stack_dispatches"]:
+        fail("resume (rdp): the resumed leg took the stacked path")
+    lat_cfg = ScanConfig(small_grid_sp=1000, large_grid_sp=100000,
+                         use_hist=False)
+    lat = scan_genome(data, tables, lat_cfg, device=dev)
+    out["lattice"] = _resume_case(
+        "lattice 20k --no-hist", (data, tables, lat_cfg, lat),
+        dataclasses.replace(cfg, n_permute=32, use_hist=False), dev, smi,
+        ("lattice",))
+
+    # (d) genome1m: what a save costs on the main path
+    g_scanned = SCANS["genome1m"]
+    g_cfg = TP.PermuteConfig(n_permute=64)
+    walls, saves_all = {"with": [], "without": []}, []
+    for turn in ("without", "with", "with", "without"):
+        ck = None
+        if turn == "with":
+            ck = str(OUT / f"resume_genome{len(walls['with'])}.npz")
+        saves = []
+        restore = _save_timer(saves)
+        try:
+            r, wall, _, counts = _permute_run(g_scanned, g_cfg, dev, ck)
+        finally:
+            restore()
+        walls[turn].append(wall)
+        if ck:
+            log_bytes = os.path.getsize(ck + ".log")
+            base_bytes = os.path.getsize(ck)
+            for p in (ck, ck + ".log"):
+                os.unlink(p)
+            saves_all.append(dict(
+                wall_s=wall, saves_ms=[s[0] for s in saves],
+                fsync_ms=[s[1] for s in saves],
+                record_bytes=[s[2] for s in saves],
+                rounds=[s[3] for s in saves], log_bytes=log_bytes,
+                base_bytes=base_bytes,
+                save_share=sum(s[0] for s in saves) / 1e3 / wall))
+            if not saves or saves[-1][3] != int(r.permute_n.max()):
+                fail(f"resume (genome1m): saves {saves} end before the run")
+            _check_result(r, "resume genome1m")
+    for k, s in enumerate(saves_all):
+        log(f"[resume] (genome1m, 64 permutations, checkpoint run {k}) "
+            f"{len(s['saves_ms'])} saves at rounds {s['rounds']}: ms "
+            f"{' '.join(f'{t:.3f}' for t in s['saves_ms'])} (of which "
+            f"fsync {' '.join(f'{t:.3f}' for t in s['fsync_ms'])}); record "
+            "bytes "
+            f"{' '.join(str(b) for b in s['record_bytes'])}; log "
+            f"{s['log_bytes']} bytes, base {s['base_bytes']} bytes; saves "
+            f"{100 * s['save_share']:.2f}% of the {s['wall_s']:.3f}s "
+            f"permutation wall; {smi}")
+    log(f"[resume] (genome1m) permutation walls in turns: without "
+        f"{walls['without'][0]:.3f}s, with {walls['with'][0]:.3f}s, with "
+        f"{walls['with'][1]:.3f}s, without {walls['without'][1]:.3f}s; "
+        f"phase 5's without a checkpoint {genome_perm_s:.3f}s; {smi}")
+    out["genome1m"] = dict(walls_s=walls, phase5_perm_s=genome_perm_s,
+                           checkpoint_runs=saves_all, nvidia_smi=smi)
+
+    # (e) -m with --checkpoint, two blocks, -p 8 then -p 16
+    two = OUT / "resume_ms2.ms"
+    two.write_text("\n//".join(MS_SWEEP.read_text().split("\n//")[:3])
+                   + "\n")
+    ck = OUT / "resume_ms.npz"
+    flags = [*MS_SWEEP_FLAGS[:-2], "--checkpoint", str(ck)]
+    tsv = OUT / "resume_ms.tsv"
+    t_ms = []
+    for p in ("8", "16"):
+        t_ms.append(_ms_run(two, tsv, [*flags, "-p", p], dev)[1])
+        files = sorted(f.name for f in OUT.glob("resume_ms.npz.block*")
+                       if not f.name.endswith(".log"))
+        if files != ["resume_ms.npz.block0", "resume_ms.npz.block1"]:
+            fail(f"resume (ms): checkpoint files {files} after -p {p}")
+    rows = _ms_rows(tsv)
+    pn = [int(r[5]) for r in rows]
+    for f in OUT.glob("resume_ms*"):
+        f.unlink()
+    if max(pn) != 16:
+        fail(f"resume (ms): permute_n reaches {max(pn)}, not 16")
+    log(f"[resume] (ms) two blocks, -p 8 then -p 16 with --checkpoint: "
+        f"files .block0 and .block1; {len(rows)} points, permute_n "
+        f"{min(pn)}..{max(pn)}; walls {t_ms[0]:.3f}s and {t_ms[1]:.3f}s; "
+        f"{smi}")
+    out["ms"] = dict(walls_s=t_ms, points=len(rows), permute_n_max=max(pn))
+    return out
+
+
 def phase_profile(dev):
     import torch
     from torch.autograd import DeviceType
@@ -3608,6 +3920,7 @@ def main():
         fail(f"rdp path ran the kernels at {rr['rowid_shape']} and "
              f"{rr['perm_shape']}, not the shapes phases 3a and 3b checked")
     rms = phase_ms(dev)
+    rres = phase_resume(dev, smi, rg["perm_s"])
 
     gkern = rr["gkernel"] + gkern  # the RDP path's shape first
     okern = (r20["okernel"] + rg["okernel"] + rm["okernel"]
@@ -3622,7 +3935,7 @@ def main():
                   bench_20k=r20, bench_20k_nohist=rl,
                   bench_20k_grid1024=r1024, big_chromosome=rb, genome=rg,
                   mixed100k=rm, cgkernel=cg["cgkernel"], exact=rx,
-                  check=chk, rdp=rr, ms=rms)
+                  check=chk, rdp=rr, ms=rms, resume=rres)
     (OUT / "smoke.json").write_text(json.dumps(detail, indent=1) + "\n")
 
     def entry(name, source, replaces, launches, runs, main=None, note=None,

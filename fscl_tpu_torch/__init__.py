@@ -10,13 +10,15 @@ same scan and block-permutation test on one H100.  Layout mirrors
                  permutation sigma and its runs, and the prefix sums
                  (segmented one-hot counts, weight-channel sums, row-id
                  counts) whose CUDA kernels live in ``csrc/``.
-  - ``engine/``  the hist genome scan, the hist permutation driver with
-                 >=20-exceedance pruning and its run-decomposed pruning
-                 tail, p-values.
-  - ``io/``      the SNP file reader and the result writers.
-  - ``models/``, ``data.py``, ``utils/logging.py``, ``sim/``: host numpy
-                 code copied from the JAX package (sweep-model tables, the
-                 dataset container, logging, the simulator).
+  - ``engine/``  the hist and lattice genome scans, the permutation
+                 drivers with >=20-exceedance pruning, the run-decomposed
+                 pruning tail and checkpoint/resume, p-values.
+  - ``io/``      the SNP file reader, ms input, spectrum files and the
+                 result writers.
+  - ``models/``, ``data.py``, ``utils/``, ``sim/``: host code copied from
+                 the JAX package (sweep-model tables, the dataset
+                 container, logging, phase timers on torch.profiler, the
+                 simulators).
 
 The package stands alone: it imports neither ``jax`` nor anything of
 ``fscl_tpu``.
@@ -33,7 +35,3 @@ __version__ = "0.1.0"
 
 LOG_AD_MIN = -20.0  # sweep-model grid domain in log(alpha*distance)
 LOG_AD_MAX = 4.0
-
-
-class NotPortedError(NotImplementedError):
-    """A flag, input or code path of fscl_tpu that this port lacks yet."""

@@ -12,9 +12,11 @@ run; ``cpu`` runs the plain PyTorch versions of the kernels.
 Mixed-depth data (more than ROWS_MAX distinct table rows, up to
 COMPRESS_ROWS_MAX) runs on the SVD-compressed hist tables.  --no-hist,
 and datasets past the hist gate, run the per-site lattice path; its
-packs are built only when a run takes it.  The one flag that needs a
-path this port lacks, --checkpoint, raises NotPortedError and never falls
-back.
+packs are built only when a run takes it.  --checkpoint saves the
+permutation state after every chunk and resumes from the file when it
+exists (with -m, one file per block: FILE.block0, FILE.block1, ...).
+At -v 4 the phases (tables, scan, permute, and lattice-pack where a run
+builds the packs) log their times (utils/timing.py).
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ from __future__ import annotations
 import argparse
 import sys
 
-from . import NotPortedError, __version__
+from . import __version__
 from .device import parse_device
 from .engine import PermuteConfig, ScanConfig, scan_genome, scan_permute
 from .io import (load_snp_input, load_spectra, scan_output,
@@ -30,6 +32,7 @@ from .io import (load_snp_input, load_spectra, scan_output,
 from .models import background_fsp, build_tables
 from .models.tables import DEFAULT_GRID_POINTS
 from .utils.logging import MSG_ERROR, MSG_STATUS, configure_logmsg, logmsg
+from .utils.timing import phase
 
 
 def build_parser():
@@ -102,7 +105,8 @@ def build_parser():
     a("--no-refine", action="store_true", help="skip bp_resl position refinement")
     a("--no-hist", action="store_true",
       help="per-site lattice kernel everywhere")
-    a("--checkpoint", help="permutation checkpoint file (not yet ported)")
+    a("--checkpoint", help="permutation checkpoint file: saved after every "
+      "chunk, resumed from when it exists")
     a("--compat-mirror-unfolded", action="store_true",
       help="replicate the reference's mirrored accumulation of unfolded sites "
       "in the background spectrum (for parity testing)")
@@ -148,8 +152,6 @@ def validate_args(args):
         for s in stop:
             logmsg(MSG_ERROR, "Error: %s", s)
         raise SystemExit(255)
-    if args.checkpoint:
-        raise NotPortedError("--checkpoint is not yet ported to fscl_tpu_torch")
     return args
 
 
@@ -174,15 +176,16 @@ def model_tables(data, args):
     if args.no_scan:
         return None
     logmsg(MSG_STATUS, "Computing sweep models for all sample depths")
-    return build_tables(
-        fsp,
-        data.sample_depths,
-        grid_points=args.grid_points,
-        asc_depth=args.asc_depth,
-        asc_min_freq=args.asc_minimum_freq,
-        ascbias_background_only=args.ascbias_background_only,
-        include_invariant=args.include_invariant,
-    )
+    with phase("tables"):
+        return build_tables(
+            fsp,
+            data.sample_depths,
+            grid_points=args.grid_points,
+            asc_depth=args.asc_depth,
+            asc_min_freq=args.asc_minimum_freq,
+            ascbias_background_only=args.ascbias_background_only,
+            include_invariant=args.include_invariant,
+        )
 
 
 def scan_configs(args):
@@ -206,6 +209,7 @@ def scan_configs(args):
         chunk_replicates=args.chunk_replicates,
         seed=args.seed,
         alpha_factor=args.alpha_factor,
+        checkpoint_path=args.checkpoint,
         use_hist=not args.no_hist,
     )
 
@@ -217,7 +221,8 @@ def run_pipeline(data, args, device):
         return None
     data.attach_model(tables)
     scan_cfg, perm_cfg = scan_configs(args)
-    result = scan_genome(data, tables, scan_cfg, device=device)
+    with phase("scan", device):
+        result = scan_genome(data, tables, scan_cfg, device=device)
     if perm_cfg is not None:
 
         def dump():
@@ -225,8 +230,9 @@ def run_pipeline(data, args, device):
                         args.n_permute, args.prepend_label)
             write_null_distribution(args.output_file, data, result)
 
-        scan_permute(data, tables, result, scan_cfg, perm_cfg, dump_fn=dump,
-                     device=device)
+        with phase("permute", device):
+            scan_permute(data, tables, result, scan_cfg, perm_cfg,
+                         dump_fn=dump, device=device)
     return result
 
 

@@ -32,8 +32,16 @@ Chunk schedule (_boost) and point order (stacks by segment length, then
 chromosomes, then point ids, on both paths) follow the JAX package, so
 the pruning RNG is consumed in the same order.  ``last_stats`` counts the
 last run's dispatches.  Not ported: speculative dispatch, the
-group-granular statistic, the warm pool, the sigma element cap,
-checkpointing and the device mesh.
+group-granular statistic, the warm pool, the sigma element cap and the
+device mesh.
+
+Checkpoint and resume (engine/checkpoint.py), on both paths: with
+checkpoint_path, the state is saved after every chunk and a run whose
+file exists resumes from it.  Sigma row r is a pure function of (seed,
+start + r), and the pruning RNG is re-seeded from cfg.seed as in the JAX
+package, so a resume from a break on a chunk boundary of the
+uninterrupted run, taken before any point reached PRUNE_THRESHOLD
+exceedances (no pruning draw yet), equals the uninterrupted run.
 
 Lattice path (fscl_tpu/engine/permute.py:460-644), under --no-hist
 (use_hist=False) and for datasets past the hist gate: the statistic is
@@ -46,6 +54,7 @@ group stream as the hist path's, expanded to sites.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 import signal
@@ -62,7 +71,6 @@ from ..utils.logging import (
     logmsg,
 )
 
-from .. import NotPortedError
 from ..device import parse_device
 from ..ops.histclr import (
     _clr_from_windows,
@@ -85,6 +93,7 @@ from ..ops.permute import (
     runs_from_sigma,
 )
 from ..ops.windows import candidate_windows
+from .checkpoint import Checkpointer
 from .scan import (
     get_hist_device_arrays,
     get_lattice_tables,
@@ -124,7 +133,8 @@ class PermuteConfig:
     seed: int = 0xFD821A6  # the reference's hard-coded seed (fscl.c:134-137)
     null_dist_save: int = CLR_NULL_DIST_SAVE
     alpha_factor: float = 1.0  # accepted and unused, like the reference
-    checkpoint_path: str | None = None  # not ported
+    checkpoint_path: str | None = None  # .npz saved after each chunk; a
+    # file that exists resumes the run (engine/checkpoint.py)
     use_hist: bool = True  # False: the lattice statistic
     hist_bf16: bool = True  # bf16 statistic contraction
     hist_positions: int = N_PERM_POS
@@ -143,16 +153,16 @@ class _InterruptState:
         self._last = None
         self._prev = None
 
-    def __enter__(self):
-        def handler(signum, frame):
-            now = time.monotonic()
-            if self._last is not None and now - self._last < 10.0:
-                raise KeyboardInterrupt("second interrupt, aborting permutation")
-            self._last = now
-            self.requested = True
+    def handler(self, signum, frame):
+        now = time.monotonic()
+        if self._last is not None and now - self._last < 10.0:
+            raise KeyboardInterrupt("second interrupt, aborting permutation")
+        self._last = now
+        self.requested = True
 
+    def __enter__(self):
         try:
-            self._prev = signal.signal(signal.SIGINT, handler)
+            self._prev = signal.signal(signal.SIGINT, self.handler)
         except ValueError:  # not main thread
             self._prev = None
         return self
@@ -167,6 +177,24 @@ class _InterruptState:
             self.requested = False
             if self.dump_fn:
                 self.dump_fn()
+
+
+@contextlib.contextmanager
+def _checkpoint(cfg, result):
+    """The run's Checkpointer, resumed where its file exists (None
+    without cfg.checkpoint_path); closed when the run ends, also on an
+    exception."""
+    if not cfg.checkpoint_path:
+        yield None
+        return
+    ckpt = Checkpointer(cfg.checkpoint_path, result, cfg.seed)
+    if ckpt.rounds_done:
+        logmsg(MSG_STATUS, "Resumed permutation checkpoint at %d rounds",
+               ckpt.rounds_done)
+    try:
+        yield ckpt
+    finally:
+        ckpt.close()
 
 
 def stat_positions(cfg: PermuteConfig) -> int:
@@ -596,8 +624,6 @@ def scan_permute(data, tables, result, scan_cfg, cfg: PermuteConfig,
         return result
     if RDP_FORCE not in ("auto", "on", "off"):
         raise ValueError(f"FSCL_RDP={RDP_FORCE!r}: use auto, on or off")
-    if cfg.checkpoint_path:
-        raise NotPortedError("permutation checkpointing is not yet ported")
     use_hist = cfg.use_hist
     if use_hist:
         rows_used = np.unique(np.asarray(data.row))
@@ -655,7 +681,6 @@ def _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
     for i in range(K):
         if result.null_clr[i] is None:
             result.null_clr[i] = []
-    active = ~result.permute_finished.copy()
 
     def _boost(n_act, rounds_done=0):
         """Replicates per chunk grow as pruning leaves few survivors
@@ -672,54 +697,63 @@ def _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
             b = 128
         return b
 
-    # observed thresholds under the identical statistic: sigma = identity
-    threshold = np.zeros(K)
-    obs_sigma = hs.pad_sigma(
-        torch.arange(hs.n_groups, dtype=torch.int32, device=device)[None]
-    )
-    for st in hs.stacks:
-        st.rebuild(result, active_by_chr(result, st, active))
-        if len(st.pts):
-            sub_save, st.sub_rep = st.sub_rep, 1
-            obs = st.stat(hs.table, obs_sigma, cfg)
-            st.sub_rep = sub_save
-            threshold[st.pts] = obs[0].cpu().numpy()
-            _record_thresholds(result, st.pts, threshold)
-    logmsg(MSG_DEBUG1, "hist permutation setup: %.1fs (%d stack groups)",
-           time.monotonic() - t0, len(hs.stacks))
+    # a resume restores the finished flags and every point's threshold
+    # before ``active`` is taken: finished points stay finished, and the
+    # threshold pass recomputes only the points still active
+    with _checkpoint(cfg, result) as ckpt:
+        active = ~result.permute_finished.copy()
+        rounds_done = ckpt.rounds_done if ckpt is not None else 0
+        if rounds_done >= cfg.n_permute:
+            active[:] = False  # a finished run: no chunk, no threshold
+        # observed thresholds under the identical statistic: sigma = identity
+        threshold = np.zeros(K)
+        obs_sigma = hs.pad_sigma(
+            torch.arange(hs.n_groups, dtype=torch.int32, device=device)[None]
+        )
+        for st in hs.stacks:
+            st.rebuild(result, active_by_chr(result, st, active))
+            if len(st.pts):
+                sub_save, st.sub_rep = st.sub_rep, 1
+                obs = st.stat(hs.table, obs_sigma, cfg)
+                st.sub_rep = sub_save
+                threshold[st.pts] = obs[0].cpu().numpy()
+                _record_thresholds(result, st.pts, threshold)
+        logmsg(MSG_DEBUG1, "hist permutation setup: %.1fs (%d stack groups)",
+               time.monotonic() - t0, len(hs.stacks))
 
-    rounds_done = 0
-    with _InterruptState(dump_fn) as intr:
-        while active.any() and rounds_done < cfg.n_permute:
-            tr = time.monotonic()
-            boost = _boost(int(active.sum()), rounds_done)
-            R = min(cfg.chunk_replicates * boost,
-                    cfg.n_permute - rounds_done)
-            if rdp.wanted(active):
-                pts, out = rdp.chunk(active, R, rounds_done)
-                blocks = [(pts, out)]
-                path = "rdp"
-            else:
-                blocks = _stack_chunk(hs, cfg, result, active, R, rounds_done,
-                                      sigma_source)
-                path = "hist"
-            host = torch.cat([o for _, o in blocks], 1).cpu().numpy()
-            off = 0
-            for pts, _ in blocks:
-                _apply_round_updates(
-                    result, active, threshold, rng, cfg, pts,
-                    host[:, off:off + len(pts)], rounds_done, R,
+        with _InterruptState(dump_fn) as intr:
+            while active.any() and rounds_done < cfg.n_permute:
+                tr = time.monotonic()
+                boost = _boost(int(active.sum()), rounds_done)
+                R = min(cfg.chunk_replicates * boost,
+                        cfg.n_permute - rounds_done)
+                if rdp.wanted(active):
+                    pts, out = rdp.chunk(active, R, rounds_done)
+                    blocks = [(pts, out)]
+                    path = "rdp"
+                else:
+                    blocks = _stack_chunk(hs, cfg, result, active, R,
+                                          rounds_done, sigma_source)
+                    path = "hist"
+                host = torch.cat([o for _, o in blocks], 1).cpu().numpy()
+                off = 0
+                for pts, _ in blocks:
+                    _apply_round_updates(
+                        result, active, threshold, rng, cfg, pts,
+                        host[:, off:off + len(pts)], rounds_done, R,
+                    )
+                    off += len(pts)
+                rounds_done += R
+                cr_logmsg(
+                    MSG_STATUS,
+                    "Scanning snp block permutations... %7d (%d scan pts "
+                    "remaining)", rounds_done, int(active.sum()),
                 )
-                off += len(pts)
-            rounds_done += R
-            cr_logmsg(
-                MSG_STATUS,
-                "Scanning snp block permutations... %7d (%d scan pts "
-                "remaining)", rounds_done, int(active.sum()),
-            )
-            logmsg(MSG_DEBUG1, "%s round chunk of %d: %.2fs", path, R,
-                   time.monotonic() - tr)
-            intr.maybe_dump()
+                logmsg(MSG_DEBUG1, "%s round chunk of %d: %.2fs", path, R,
+                       time.monotonic() - tr)
+                if ckpt is not None:
+                    ckpt.save(result, rounds_done)
+                intr.maybe_dump()
     logmsg(
         MSG_STATUS,
         "Scanning snp block permutations... finished (%d rounds).",
@@ -819,9 +853,12 @@ def _scan_permute_lattice(data, tables, result, scan_cfg, cfg, dump_fn,
     logmsg(MSG_DEBUG1, "lattice permutation setup: %.1fs",
            time.monotonic() - t0)
 
-    active = ~result.permute_finished.copy()
-    rounds_done = 0
-    with _InterruptState(dump_fn) as intr:
+    # opened after the thresholds are recorded, as the JAX package does:
+    # a resume's replay overwrites them with the checkpointed values
+    with _checkpoint(cfg, result) as ckpt, \
+            _InterruptState(dump_fn) as intr:
+        active = ~result.permute_finished.copy()
+        rounds_done = ckpt.rounds_done if ckpt is not None else 0
         while active.any() and rounds_done < cfg.n_permute:
             tr = time.monotonic()
             R = min(cfg.chunk_replicates, cfg.n_permute - rounds_done)
@@ -859,6 +896,8 @@ def _scan_permute_lattice(data, tables, result, scan_cfg, cfg, dump_fn,
             )
             logmsg(MSG_DEBUG1, "lattice round chunk of %d: %.2fs", R,
                    time.monotonic() - tr)
+            if ckpt is not None:
+                ckpt.save(result, rounds_done)
             intr.maybe_dump()
     logmsg(
         MSG_STATUS,

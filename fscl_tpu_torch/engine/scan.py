@@ -40,6 +40,7 @@ from ..ops.histclr import (
 from ..ops.lattice import LatticeTables, two_stage_lattice_max
 from ..ops.windows import candidate_windows
 from ..utils.logging import MSG_DEBUG1, MSG_STATUS, cr_logmsg, logmsg
+from ..utils.timing import phase
 
 
 @dataclasses.dataclass
@@ -204,8 +205,9 @@ def get_lattice_tables(tables, device="cuda"):
     if memo is None:
         memo = tables._torch_lattice = {}
     if str(device) not in memo:
-        memo[str(device)] = LatticeTables.from_table(
-            tables.table, tables.grid_points, device=device)
+        with phase("lattice-pack", device):
+            memo[str(device)] = LatticeTables.from_table(
+                tables.table, tables.grid_points, device=device)
     return memo[str(device)]
 
 

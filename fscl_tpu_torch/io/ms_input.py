@@ -20,6 +20,8 @@ the lattice tables only where a block takes the lattice path.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from ..cli import model_tables, scan_configs
@@ -125,21 +127,27 @@ def ms_pipeline(args, device="cuda"):
         args.msfile, args.ms_segment_length, args.ms_folded,
         args.ms_sample_first, args.ms_sample_size,
     )
-    first = True
-    for data in blocks:
+    for block_i, data in enumerate(blocks):
         data.attach_model(tables)
         result = scan_genome(data, tables, scan_cfg, device=device)
         if perm_cfg is not None:
-            scan_permute(data, tables, result, scan_cfg, perm_cfg,
+            # one checkpoint per block: the identity check
+            # (engine/checkpoint.py) ties a file to one scan's
+            # positions/CLRs, and each ms block is its own scan
+            block_cfg = perm_cfg
+            if perm_cfg.checkpoint_path:
+                block_cfg = dataclasses.replace(
+                    perm_cfg,
+                    checkpoint_path=f"{perm_cfg.checkpoint_path}.block{block_i}")
+            scan_permute(data, tables, result, scan_cfg, block_cfg,
                          device=device)
         scan_output(
             args.output_file, data, result,
             maximum_only=args.max_only, n_permute=args.n_permute,
-            prepend_label=args.prepend_label, append=not first,
+            prepend_label=args.prepend_label, append=block_i > 0,
         )
         if args.n_permute > 0:
             write_null_distribution(
-                args.output_file, data, result, append=not first
+                args.output_file, data, result, append=block_i > 0
             )
-        first = False
     return 0

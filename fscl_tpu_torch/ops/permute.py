@@ -31,6 +31,10 @@ import torch
 from ..device import parse_device
 
 PERM_GROUP = 32  # sites per permutation group (fscl_tpu/ops/permute.py:40)
+# the name of this module's sigma stream, written into every permutation
+# checkpoint (engine/checkpoint.py), which refuses a file of another
+# stream; change it with any change to the rows a (seed, index) draws
+SIGMA_STREAM = "fscl_tpu_torch: splitmix64(seed, index) -> torch.Generator, v1"
 
 
 def _group_first_positions(gpos):

@@ -1,5 +1,8 @@
-"""Forward simulator of SNP frequency data (a copy of fscl_tpu/sim/sample.py,
-without its command line), for the tests and chip_smoke.py."""
+"""Simulators (copies of fscl_tpu/sim/): the forward simulator of SNP
+frequency data (sample.py, without its command line), for the tests and
+chip_smoke.py, and the ascertainment-biased ms-format generator
+(ascbias_segments.py, the reference's ascbias-segments binary, runnable
+as ``python -m fscl_tpu_torch.sim.ascbias_segments``)."""
 
 from .sample import (  # noqa: F401
     place_sweeps,

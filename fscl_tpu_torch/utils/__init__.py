@@ -1,1 +1,2 @@
-"""Host utilities: leveled logging (a copy of fscl_tpu/utils/logging.py)."""
+"""Host utilities: leveled logging (a copy of fscl_tpu/utils/logging.py)
+and phase timers (utils/timing.py, on torch.profiler)."""

@@ -46,7 +46,6 @@ import fscl_tpu_torch.io.ms_input as TI
 import fscl_tpu_torch.io.ms_parser as TMP
 import fscl_tpu_torch.io.spectra_io as TS
 from fscl_tpu.ops.permute import block_permutation_groups as jax_sigma
-from fscl_tpu_torch import NotPortedError
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 NEUTRAL = REPO / "bench" / "data" / "headline_ms_neutral.ms"
@@ -297,9 +296,32 @@ def test_cli_output_bs_and_background_spectrum(monkeypatch, tmp_path,
 
 
 def test_cli_checkpoint_with_ms_still_raises(tmp_path):
+    """--checkpoint with -m, refused until the checkpoint was ported, now
+    writes one resumable file per block (the port's version of
+    tests/test_cli_variants.py::test_ms_checkpoint_flag, on a copy of its
+    two-block file): a -p 16 run resumes each block's -p 8 state."""
     from fscl_tpu_torch.cli import main
 
-    with pytest.raises(NotPortedError, match="--checkpoint"):
-        main(["-m", str(NEUTRAL), "--ms-segment-length", "1000000",
-              "-p", "4", "--checkpoint", str(tmp_path / "c.npz"),
-              "-o", str(tmp_path / "x.tsv"), "--device", "cpu", "-v", "0"])
+    rng = np.random.default_rng(7)
+    lines = ["ms 16 2 -s 80", "1 2 3", ""]
+    for _ in range(2):
+        pos = np.sort(rng.random(80))
+        lines += ["//", "segsites: 80",
+                  "positions: " + " ".join(f"{p:.6f}" for p in pos)]
+        lines += ["".join(rng.choice(["0", "1"], 80, p=[0.75, 0.25]))
+                  for _ in range(16)]
+        lines.append("")
+    ms = tmp_path / "sim.ms"
+    ms.write_text("\n".join(lines) + "\n")
+    out, ck = tmp_path / "ms_ck.tsv", tmp_path / "ck.npz"
+    base = ["-m", str(ms), "-o", str(out), "--chunk-replicates", "4",
+            "--checkpoint", str(ck), "--ms-segment-length", "1000000",
+            "-g", "100000", "-G", "1000000", "--grid-points", "256",
+            "--eval-range", "100", "--device", "cpu", "-v", "1"]
+    assert main([*base, "-p", "8"]) == 0
+    assert (tmp_path / "ck.npz.block0").exists()
+    assert (tmp_path / "ck.npz.block1").exists()
+    assert not (tmp_path / "ck.npz.block2").exists()
+    assert main([*base, "-p", "16"]) == 0
+    pn = np.array([int(r[5]) for r in _rows(out)])
+    assert pn.max() == 16

@@ -36,7 +36,6 @@ import fscl_tpu.engine.scan as JS
 from fscl_tpu.data import build_snp_data
 from fscl_tpu.models import background_fsp, build_tables
 from fscl_tpu.sim import simulate_dataset, write_snp_file
-from fscl_tpu_torch import NotPortedError
 from fscl_tpu_torch.engine.scan import ScanConfig, scan_genome
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
@@ -214,18 +213,32 @@ def test_cli_no_hist_matches_jax(snp_file, tmp_path, monkeypatch):
 @pytest.mark.parametrize("flag", [["--checkpoint", "c.npz"],
                                   ["-b", "bs.txt"], ["--output-bs", "o.bs"]])
 def test_cli_unported_flags_raise(snp_file, tmp_path, flag, monkeypatch):
-    """--checkpoint, the one flag the port still lacks, raises
-    NotPortedError.  -b and --output-bs raised until the spectrum files
-    were ported; now they run (tests/test_torch_ms.py holds them to the
-    JAX package)."""
+    """The flags the port once refused now run.  --checkpoint: -p 8, then
+    -p 16 on the same file, resumes to 16 rounds, and its TSV and null
+    rows equal an uninterrupted -p 16 run's (100 points at chunks of 8:
+    the break is a chunk boundary of that run, and it comes before any
+    point reaches the 20 exceedances of the first pruning draw).  -b and
+    --output-bs run (tests/test_torch_ms.py holds them to the JAX
+    package)."""
     from fscl_tpu_torch.cli import main
 
     monkeypatch.chdir(tmp_path)
     args = ["-f", str(snp_file), "-o", str(tmp_path / "x.tsv"),
             "--device", "cpu", "-v", "0", *flag]
     if flag[0] == "--checkpoint":
-        with pytest.raises(NotPortedError):
-            main(args)
+        run = ["-f", str(snp_file), "-g", "10000", "-G", "20000",
+               "--chunk-replicates", "8", "--device", "cpu", "-v", "0"]
+        for p in ("8", "16"):
+            assert main([*run, "-p", p, "-o", "ck.tsv", *flag]) == 0
+        assert (tmp_path / "c.npz").exists()
+        assert (tmp_path / "c.npz.log").stat().st_size > 0
+        assert main([*run, "-p", "16", "-o", "full.tsv"]) == 0
+        rows = _read_tsv(tmp_path / "ck.tsv")
+        assert len(rows) == 100
+        assert max(int(r[5]) for r in rows) == 16
+        for suffix in ("", "-nulldist"):
+            assert (tmp_path / f"ck.tsv{suffix}").read_text() == \
+                (tmp_path / f"full.tsv{suffix}").read_text()
         return
     if flag[0] == "-b":
         assert main([*args[:-2], "--output-bs", "bs.txt", "--no-scan"]) == 0
