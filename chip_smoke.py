@@ -212,6 +212,30 @@ non-zero:
                checkpoint in turns beside phase 5's; (e) -m with
                --checkpoint on two blocks of headline_ms_sweep.ms, -p 8
                then -p 16: one file a block, permute_n reaching 16
+  10. split  - the split over ranks (fscl_tpu_torch/parallel/) through
+               the CLI under torch.distributed.run, every rank on the one
+               card (--device cuda:0), one OpenMP thread a rank: (a)
+               genome1m (phase 5's sites written to a SNP file), scan and
+               64 permutations under two ranks, its TSV and nulldist
+               against phase 5's (bitwise, else positions equal,
+               reported CLRs within 1e-3 and counts equal off listed
+               1e-4 near-ties; which held is printed), 1b and window_clr
+               launched on each rank; then one and two ranks with
+               --max-only (no output tail projection), untraced for the
+               phase walls, split_gather_s and split_gather_bytes, and
+               traced (FSCL_TPU_TRACE_DIR) for each rank's device time
+               and busy share; (b) the 20k task through --no-hist under
+               two ranks against phase 4b's TSV, clr_lattice launched on
+               each rank; (c) the 20k task under two ranks broken at 16
+               rounds (-p 16 with --checkpoint, a chunk boundary before
+               any pruning draw) and resumed to 64 under two ranks and
+               under one: the checkpoints' replayed states, TSVs and
+               nulldist files equal to the unbroken two-rank run's bit
+               for bit; (d) the 20k task in a world of one through
+               torch.distributed.run: TSV and nulldist byte for byte the
+               plain CLI's.  Inputs, checkpoints and traces go under
+               fscl_tpu_torch/build/split/, each launch's stderr to
+               OUT/split_<leg>.log
 Then one JSON line with every kernel's numbers (time, plain time, bound,
 launches on a path of this run, the one-call PyTorch equivalent's time
 where there is one; for the fused window kernels also their largest error
@@ -274,6 +298,12 @@ SCAN_CLR_TOL = 1e-3
 # (data, tables, scan_cfg, result) of the 20k and genome1m scans (phases 4
 # and 5), for phases 3i and 4e
 SCANS = {}
+# phase 10's single-rank references: phase 5's genome1m and phase 4b's
+# 20k --no-hist results after their permutations, and their TSVs
+SPLIT_REF = {}
+# phase 10's inputs, checkpoints and traces: in the checkout (gitignored,
+# not brought back)
+SPLIT_WORK = REPO / "fscl_tpu_torch" / "build" / "split"
 
 
 def log(msg):
@@ -1831,6 +1861,7 @@ def phase_20k_nohist(dev):
     tsv = OUT / "bench_20k_nohist.tsv"
     scan_output(tsv, data, result, n_permute=perm_cfg.n_permute)
     write_null_distribution(tsv, data, result)
+    SPLIT_REF["20k_nohist"] = (data, copy.deepcopy(result), tsv)
     pr = int(result.permute_n.sum())
     log(f"[20k no-hist] {data.n_snps} sites, {result.n_points} points; "
         f"cold run {t_cold:.3f}s; scan {t_scan:.3f}s, permute "
@@ -2187,6 +2218,8 @@ def phase_genome(dev, n_permute=64):
     rdp_auto = dict(TP.last_stats)  # FSCL_RDP as set (auto by default)
     launches = ps.launches - before
     _check_result(result, "genome")
+    SPLIT_REF["genome1m"] = (data, copy.deepcopy(result),
+                             OUT / "genome1m.tsv")
     SCANS["genome1m"] = (data, tables, ScanConfig(), result)
     hs = setup_hist(data, tables, result, ScanConfig(), PermuteConfig(), dev)
     stacks = [(st.w_seg_p, len(st.segs), _sub_rep_for(hs.ht, _ladder_pad(
@@ -3696,6 +3729,326 @@ def phase_resume(dev, smi, genome_perm_s):
     return out
 
 
+
+# ---- phase 10: the split over ranks (fscl_tpu_torch/parallel/) ----------
+
+SPLIT_20K = ["-f", str(REPO / "bench" / "data" / "bench_20k.sf"),
+             "--compat-mirror-unfolded", "-g", "1000", "-G", "100000",
+             "--seed", "1"]
+
+
+def _write_sf(path, ref):
+    """The sites of ``ref``'s data as a SNP file (chr, pos, freq, depth,
+    folded)."""
+    import numpy as np
+
+    data = ref[0]
+    with open(path, "w") as f:
+        for cl in data.chr_limits:
+            sl = slice(cl.start_index, cl.start_index + cl.n_snps)
+            np.savetxt(f, np.column_stack([
+                data.pos[sl], data.obs_freq[sl],
+                np.asarray(data.sample_depths)[data.depth_p[sl]],
+                data.folded[sl].astype(int)]),
+                fmt=cl.name + "\t%d\t%d\t%d\t%d")
+
+
+def _split_cli(label, n, args, trace=False, timeout=300):
+    """``python -m torch.distributed.run --standalone --nproc-per-node n
+    -m fscl_tpu_torch args -v 4`` in SPLIT_WORK, at one OpenMP thread a
+    rank (torch.distributed.run's default for n > 1), traced by
+    utils/timing.py where ``trace``: (process wall s, the ranks' [split]
+    reports in rank order).  Its stderr goes to OUT/split_<label>.log."""
+    import os
+
+    env = dict(os.environ, PYTHONPATH=str(REPO), OMP_NUM_THREADS="1")
+    env.pop("FSCL_TPU_TRACE_DIR", None)
+    if trace:
+        tdir = SPLIT_WORK / f"trace_{label}"
+        tdir.mkdir(parents=True, exist_ok=True)
+        env["FSCL_TPU_TRACE_DIR"] = str(tdir)
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc-per-node", str(n), "-m", "fscl_tpu_torch", *args,
+           "-v", "4"]
+    t0 = time.monotonic()
+    p = subprocess.run(cmd, cwd=SPLIT_WORK, env=env, capture_output=True,
+                       text=True, timeout=timeout)
+    wall = time.monotonic() - t0
+    (OUT / f"split_{label}.log").write_text(p.stdout + p.stderr)
+    if p.returncode != 0:
+        fail(f"split {label}: exit {p.returncode}: {p.stderr[-2000:]}")
+    reps = sorted((json.loads(line[len("[split] "):])
+                   for line in p.stderr.splitlines()
+                   if line.startswith("[split] ")), key=lambda r: r["rank"])
+    if [r["rank"] for r in reps] != list(range(n)):
+        fail(f"split {label}: [split] reports of ranks "
+             f"{[r['rank'] for r in reps]}, not of {n}")
+    return wall, reps
+
+
+def _trace_busy(label, reps):
+    """{rank: {phase: device s}}: the kernel, memcpy and memset time of
+    each rank's scan and permute traces (utils/timing.py, one trace a
+    phase and process)."""
+    tdir = SPLIT_WORK / f"trace_{label}"
+    out = {}
+    for r in reps:
+        out[r["rank"]] = {}
+        for ph in ("scan", "permute"):
+            tot = 0.0
+            for path in tdir.glob(f"{ph}.{r['pid']}.*.pt.trace.json"):
+                events = json.loads(path.read_text()).get("traceEvents", [])
+                tot += sum(e.get("dur", 0) for e in events
+                           if e.get("cat") in ("kernel", "gpu_memcpy",
+                                               "gpu_memset")) / 1e6
+            out[r["rank"]][ph] = tot
+    return out
+
+
+def _tsv_rows(path):
+    with open(path) as f:
+        return [line.rstrip("\n").split("\t") for line in f]
+
+
+def _near_ties(result, band=RESUME_NEAR):
+    """Points with a saved null within ``band`` of the point's threshold
+    (the statistic's bits there decide an exceedance)."""
+    import numpy as np
+
+    return sorted(i for i in range(result.n_points)
+                  if np.any(np.abs(np.asarray(result.null_clr[i] or [])
+                                   - result.stat_threshold[i]) < band))
+
+
+def _against_single(label, tsv, ref):
+    """The split run's TSV and nulldist against the single-rank run's
+    (``ref``: data, result, TSV): bitwise where they are, else positions
+    equal, reported CLRs (the nulldist's, 3 decimals) within 1e-3 plus
+    the print's rounding, and permute_n, permute_p equal off the single
+    run's listed near-ties.  Which held."""
+    import numpy as np
+
+    _, result, ref_tsv = ref
+    same = all(pathlib.Path(f"{tsv}{s}").read_bytes()
+               == pathlib.Path(f"{ref_tsv}{s}").read_bytes()
+               for s in ("", "-nulldist"))
+    if same:
+        log(f"[split] {label}: TSV and nulldist bitwise equal to the "
+            "single-rank run's")
+        return "bitwise"
+    a, b = _tsv_rows(tsv), _tsv_rows(ref_tsv)
+    na = _tsv_rows(f"{tsv}-nulldist")[1:]
+    if len(a) != len(b) or len(na) != result.n_points:
+        fail(f"split {label}: {len(a)} rows against {len(b)}")
+    pos = np.array([int(r[1]) for r in a])
+    if not np.array_equal(pos, result.sweep_pos):
+        fail(f"split {label}: positions differ from the single-rank run")
+    clr = np.array([float(r[2]) for r in na])
+    d = np.abs(clr - result.clr).max()
+    if d > 1e-3 + 5e-4:
+        fail(f"split {label}: reported CLR off by {d:.3g}")
+    near = _near_ties(result)
+    keep = np.setdiff1d(np.arange(result.n_points), near)
+    pn = np.array([[int(r[4]), int(r[5])] for r in a])
+    want = np.stack([result.permute_p, result.permute_n], 1)
+    bad = np.nonzero((pn[keep] != want[keep]).any(1))[0]
+    if len(bad):
+        fail(f"split {label}: permute_p/permute_n differ off near-ties at "
+             f"points {keep[bad][:10].tolist()}")
+    log(f"[split] {label}: not bitwise; positions equal, CLR within "
+        f"{d:.3g}, counts equal off {len(near)} near-tie points {near[:20]}")
+    return "within tolerance"
+
+
+def _replayed(ck):
+    """The permutation state a checkpoint's base and log replay to (the
+    port's Checkpointer, read-only), and the rounds of its records."""
+    from types import SimpleNamespace
+
+    import numpy as np
+
+    from fscl_tpu_torch.engine.checkpoint import Checkpointer, _read_records
+
+    with np.load(ck) as z:
+        sweep_pos, clr, seed = z["sweep_pos"], z["clr"], int(z["seed"])
+    K = len(sweep_pos)
+    r = SimpleNamespace(sweep_pos=sweep_pos, clr=clr, n_points=K,
+                        permute_n=np.zeros(K, np.int64),
+                        permute_p=np.zeros(K, np.int64),
+                        permute_finished=np.zeros(K, bool),
+                        null_clr=[None] * K, stat_threshold=None)
+    Checkpointer(str(ck), r, seed, write=False, resume=True)
+    rounds = [int(z["rounds_done"]) for z in _read_records(f"{ck}.log")]
+    return r, rounds
+
+
+def _same_state(a, b):
+    import numpy as np
+
+    return (all(np.array_equal(getattr(a, f), getattr(b, f))
+                for f in ("permute_n", "permute_p", "permute_finished",
+                          "stat_threshold"))
+            and all((x or []) == (y or [])
+                    for x, y in zip(a.null_clr, b.null_clr)))
+
+
+def phase_split(dev, smi):
+    """Phase 10: the split over ranks through the CLI under
+    torch.distributed.run, every rank on the one card (--device cuda:0).
+    (a) genome1m (phase 5's sites, written to a SNP file), scan and 64
+    permutations under two ranks against phase 5's single-rank run, its
+    walls against one rank's, then both traced for the busy shares; (b)
+    the 20k task through --no-hist under two ranks against phase 4b's
+    run; (c) the 20k task under two ranks broken at 16 rounds and
+    resumed under two and under one, against the unbroken two-rank run,
+    bit for bit; (d) the 20k task in a world of one through
+    torch.distributed.run against the plain CLI, byte for byte."""
+    import shutil
+
+    from fscl_tpu_torch.cli import main as cli_main
+
+    shutil.rmtree(SPLIT_WORK, ignore_errors=True)
+    SPLIT_WORK.mkdir(parents=True)
+    out = {}
+    card = ["--device", str(dev)]  # cuda:0: every rank on the one card
+
+    # (a) genome1m under two ranks, against phase 5; then one and two
+    # ranks with --max-only (no tail projection of 10,010 points in the
+    # output), untraced for the walls and traced for the busy shares
+    ref = SPLIT_REF["genome1m"]
+    _write_sf(SPLIT_WORK / "genome1m.sf", ref)
+    gargs = ["-f", "genome1m.sf", "-p", "64", *card]
+    w2, rep2 = _split_cli("genome_2", 2, [*gargs, "-o", "genome_2.tsv"])
+    for r in rep2:
+        la = r["launches"]
+        if la["onehot_prefix_sums"] <= 0 or la["window_clr"] <= 0:
+            fail(f"split genome: rank {r['rank']} launched 1b "
+                 f"{la['onehot_prefix_sums']} and window_clr "
+                 f"{la['window_clr']} times")
+    held_a = _against_single("genome1m, 2 ranks",
+                             SPLIT_WORK / "genome_2.tsv", ref)
+    mo = [*gargs, "--max-only"]
+    w1, rep1 = _split_cli("genome_1", 1, [*mo, "-o", "genome_1.tsv"])
+    wt1, rept1 = _split_cli("genome_1_traced", 1, [*mo, "-o", "g1t.tsv"],
+                            trace=True)
+    wt2, rept2 = _split_cli("genome_2_traced", 2, [*mo, "-o", "g2t.tsv"],
+                            trace=True)
+    dev1, dev2 = (_trace_busy("genome_1_traced", rept1),
+                  _trace_busy("genome_2_traced", rept2))
+
+    def walls(reps):
+        return [{k: r["phases"].get(k, 0.0) for k in (
+            "load", "tables", "scan", "permute", "output", "gather")}
+            for r in reps]
+
+    def shares(reps, devs):
+        out = {f"rank{r['rank']}": {
+            ph: devs[r["rank"]][ph] / max(r["phases"].get(ph, 0), 1e-9)
+            for ph in ("scan", "permute")} for r in reps}
+        # the card: every rank's device time (the card time-slices the
+        # two processes' contexts: without MPS their kernels do not
+        # overlap) over the longest wall
+        out["card"] = {ph: sum(devs[r["rank"]][ph] for r in reps)
+                       / max(max(r["phases"].get(ph, 0) for r in reps), 1e-9)
+                       for ph in ("scan", "permute")}
+        return out
+
+    g = dict(
+        held=held_a, process_wall_s={"1": w1, "2": w2},
+        phase_walls={"1": walls(rep1), "2": walls(rep2)},
+        split_gather_s=[r["split_gather_s"] for r in rep2],
+        split_gather_bytes=[r["split_gather_bytes"] for r in rep2],
+        split_gathers=[r["split_gathers"] for r in rep2],
+        launches={"1": [r["launches"] for r in rep1],
+                  "2": [r["launches"] for r in rep2]},
+        traced_process_wall_s={"1": wt1, "2": wt2},
+        traced_walls={"1": walls(rept1), "2": walls(rept2)},
+        device_s={"1": dev1, "2": dev2},
+        busy_share={"1": shares(rept1, dev1), "2": shares(rept2, dev2)})
+    out["genome"] = g
+    per_rank = [(r["launches"]["onehot_prefix_sums"],
+                 r["launches"]["window_clr"]) for r in rep2]
+    log(f"[split] (a) genome1m, {smi}: process walls 1 rank {w1:.3f}s "
+        f"(--max-only), 2 ranks {w2:.3f}s; phase walls 1 rank "
+        f"{walls(rep1)}, 2 ranks {walls(rep2)}; split_gather_s "
+        f"{g['split_gather_s']}, split_gather_bytes "
+        f"{g['split_gather_bytes']} in {g['split_gathers']} gathers; "
+        f"launches a rank (1b, window_clr): {per_rank}")
+    log(f"[split] (a) traced (--max-only): process walls 1 rank {wt1:.3f}s,"
+        f" 2 ranks {wt2:.3f}s; phase walls 1 rank {walls(rept1)}, 2 ranks "
+        f"{walls(rept2)}; device s 1 rank {dev1}, 2 ranks {dev2}; busy "
+        f"shares {json.dumps(g['busy_share'])}")
+
+    # (d) a world of one through torch.distributed.run against the plain
+    # CLI in this process: the 20k task, 50 permutations
+    args_d = [*SPLIT_20K, "-p", "50", "--chunk-replicates", "32", *card]
+    _split_cli("20k_world1", 1, [*args_d, "-o", "w1.tsv"])
+    cli_main([*args_d, "-o", str(SPLIT_WORK / "plain.tsv"), "-v", "1"])
+    for s_ in ("", "-nulldist"):
+        if (SPLIT_WORK / f"w1.tsv{s_}").read_bytes() != (
+                SPLIT_WORK / f"plain.tsv{s_}").read_bytes():
+            fail(f"split (d): a world of one's {s_ or 'TSV'} differs from "
+                 "the plain CLI's")
+    log("[split] (d) the 20k task in a world of one through "
+        "torch.distributed.run: TSV and nulldist byte for byte the plain "
+        "CLI's")
+
+    # (b) 20k --no-hist under two ranks against phase 4b
+    wb, repb = _split_cli("20k_nohist_2", 2, [
+        *SPLIT_20K, "--no-hist", "-p", "50", "--chunk-replicates", "32",
+        *card, "-o", "nohist_2.tsv"])
+    for r in repb:
+        if r["launches"]["clr_lattice"] <= 0:
+            fail(f"split 20k no-hist: rank {r['rank']} launched clr_lattice "
+                 f"{r['launches']['clr_lattice']} times")
+    held_b = _against_single("20k no-hist, 2 ranks",
+                             SPLIT_WORK / "nohist_2.tsv",
+                             SPLIT_REF["20k_nohist"])
+    out["nohist"] = dict(held=held_b, process_wall_s=wb,
+                         phase_walls=walls(repb),
+                         launches=[r["launches"] for r in repb],
+                         split_gather_s=[r["split_gather_s"] for r in repb],
+                         split_gather_bytes=[r["split_gather_bytes"]
+                                             for r in repb])
+    log(f"[split] (b) 20k no-hist, 2 ranks: process wall {wb:.3f}s, phase "
+        f"walls {walls(repb)}, clr_lattice launches a rank "
+        f"{[r['launches']['clr_lattice'] for r in repb]}")
+
+    # (c) a break under two ranks, resumed under two and under one
+    rargs = [*SPLIT_20K, "--chunk-replicates", "16", *card]
+    _split_cli("20k_unbroken_2", 2, [*rargs, "-p", "64", "--checkpoint",
+                                      "full.npz", "-o", "full.tsv"])
+    _split_cli("20k_break_2", 2, [*rargs, "-p", str(RESUME_BREAK),
+                                   "--checkpoint", "brk.npz", "-o",
+                                   "brk.tsv"])
+    at_break, _ = _replayed(SPLIT_WORK / "brk.npz")
+    for f in ("brk.npz", "brk.npz.log"):
+        shutil.copy(SPLIT_WORK / f, SPLIT_WORK / f.replace("brk", "one"))
+    _split_cli("20k_resume_2", 2, [*rargs, "-p", "64", "--checkpoint",
+                                    "brk.npz", "-o", "res2.tsv"])
+    cli_main([*rargs, "-p", "64", "--checkpoint",
+              str(SPLIT_WORK / "one.npz"), "-o",
+              str(SPLIT_WORK / "res1.tsv"), "-v", "1"])
+    full, rounds = _replayed(SPLIT_WORK / "full.npz")
+    if RESUME_BREAK not in rounds or at_break.permute_p.max() >= 20:
+        fail(f"split (c): the break at {RESUME_BREAK} is no chunk boundary "
+             f"of the unbroken run ({rounds}) or follows a pruning draw")
+    for leg in ("brk", "one"):
+        got, _ = _replayed(SPLIT_WORK / f"{leg}.npz")
+        tsv = "res2.tsv" if leg == "brk" else "res1.tsv"
+        if not _same_state(got, full) or any(
+                (SPLIT_WORK / f"{tsv}{s}").read_bytes()
+                != (SPLIT_WORK / f"full.tsv{s}").read_bytes()
+                for s in ("", "-nulldist")):
+            fail(f"split (c): the break under 2 ranks resumed under "
+                 f"{2 if leg == 'brk' else 1} differs from the unbroken run")
+    log(f"[split] (c) 20k broken at {RESUME_BREAK} under 2 ranks, resumed "
+        f"under 2 and under 1: bit for bit the unbroken two-rank run "
+        f"(records at {rounds})")
+    out["resume"] = dict(records=rounds, bitwise=True)
+    return out
+
+
 def phase_profile(dev):
     import torch
     from torch.autograd import DeviceType
@@ -3921,6 +4274,7 @@ def main():
              f"{rr['perm_shape']}, not the shapes phases 3a and 3b checked")
     rms = phase_ms(dev)
     rres = phase_resume(dev, smi, rg["perm_s"])
+    rsplit = phase_split(dev, smi)
 
     gkern = rr["gkernel"] + gkern  # the RDP path's shape first
     okern = (r20["okernel"] + rg["okernel"] + rm["okernel"]
@@ -3935,7 +4289,7 @@ def main():
                   bench_20k=r20, bench_20k_nohist=rl,
                   bench_20k_grid1024=r1024, big_chromosome=rb, genome=rg,
                   mixed100k=rm, cgkernel=cg["cgkernel"], exact=rx,
-                  check=chk, rdp=rr, ms=rms, resume=rres)
+                  check=chk, rdp=rr, ms=rms, resume=rres, split=rsplit)
     (OUT / "smoke.json").write_text(json.dumps(detail, indent=1) + "\n")
 
     def entry(name, source, replaces, launches, runs, main=None, note=None,

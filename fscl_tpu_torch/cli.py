@@ -15,24 +15,38 @@ and datasets past the hist gate, run the per-site lattice path; its
 packs are built only when a run takes it.  --checkpoint saves the
 permutation state after every chunk and resumes from the file when it
 exists (with -m, one file per block: FILE.block0, FILE.block1, ...).
-At -v 4 the phases (tables, scan, permute, and lattice-pack where a run
-builds the packs) log their times (utils/timing.py).
+At -v 4 the phases (load, tables, scan, permute, output, and
+lattice-pack where a run builds the packs) log their times
+(utils/timing.py), and the run ends with one ``[split]`` line a rank:
+its phase times, its gathers' wall and bytes, and its kernel launches.
+
+``python -m torch.distributed.run --standalone --nproc-per-node N -m
+fscl_tpu_torch ...`` splits the scan's candidates and the permutations'
+replicates over N ranks (parallel/; ``--device cuda`` puts rank r on
+card r, ``--device cuda:0`` puts every rank on card 0).  Every rank
+reads the input and reaches the same result; rank 0 alone writes the
+output, ``--output-bs``, the checkpoint and the status lines, and the
+other ranks log warnings and errors only.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 import sys
 
 from . import __version__
-from .device import parse_device
 from .engine import PermuteConfig, ScanConfig, scan_genome, scan_permute
 from .io import (load_snp_input, load_spectra, scan_output,
                  write_null_distribution, write_spectra)
 from .models import background_fsp, build_tables
 from .models.tables import DEFAULT_GRID_POINTS
-from .utils.logging import MSG_ERROR, MSG_STATUS, configure_logmsg, logmsg
-from .utils.timing import phase
+from .parallel import close_split, init_split
+from .parallel.mesh import SOLO
+from .utils.logging import (MSG_DEBUG1, MSG_ERROR, MSG_STATUS,
+                            configure_logmsg, logmsg)
+from .utils.timing import phase, phase_report
 
 
 def build_parser():
@@ -111,7 +125,9 @@ def build_parser():
       help="replicate the reference's mirrored accumulation of unfolded sites "
       "in the background spectrum (for parity testing)")
     a("--device", default="cuda",
-      help="cuda (a Hopper card, default) or cpu (plain PyTorch versions)")
+      help="cuda (a Hopper card, default; under torch.distributed.run, "
+      "card LOCAL_RANK), cuda:N (card N, for every rank) or cpu (plain "
+      "PyTorch versions)")
     a("--version", action="version", version=f"fscl-tpu-torch {__version__}")
     return p
 
@@ -155,10 +171,10 @@ def validate_args(args):
     return args
 
 
-def model_tables(data, args):
+def model_tables(data, args, split=SOLO):
     """The background spectrum of ``data`` (loaded with -b, written with
-    --output-bs) and the sweep-model tables built on it; None with
-    --no-scan.  The -f and -m pipelines both start here."""
+    --output-bs by the writing rank) and the sweep-model tables built on
+    it; None with --no-scan.  The -f and -m pipelines both start here."""
     loaded = (load_spectra(args.background_spectrum)
               if args.background_spectrum else None)
     fsp = background_fsp(
@@ -171,7 +187,7 @@ def model_tables(data, args):
         include_invariant=args.include_invariant,
         compat_mirror_unfolded=args.compat_mirror_unfolded,
     )
-    if args.output_bs:
+    if args.output_bs and split.writer:
         write_spectra(args.output_bs, data.sample_depths, fsp)
     if args.no_scan:
         return None
@@ -214,53 +230,87 @@ def scan_configs(args):
     )
 
 
-def run_pipeline(data, args, device):
-    """background -> tables -> scan -> permute for one dataset."""
-    tables = model_tables(data, args)
+def run_pipeline(data, args, device, split=SOLO):
+    """background -> tables -> scan -> permute for one dataset (this
+    rank's share of it under a split)."""
+    tables = model_tables(data, args, split)
     if tables is None:
         return None
     data.attach_model(tables)
     scan_cfg, perm_cfg = scan_configs(args)
     with phase("scan", device):
-        result = scan_genome(data, tables, scan_cfg, device=device)
+        result = scan_genome(data, tables, scan_cfg, device=device,
+                             split=split)
     if perm_cfg is not None:
 
         def dump():
-            scan_output(args.output_file, data, result, False,
-                        args.n_permute, args.prepend_label)
-            write_null_distribution(args.output_file, data, result)
+            if split.writer:
+                scan_output(args.output_file, data, result, False,
+                            args.n_permute, args.prepend_label)
+                write_null_distribution(args.output_file, data, result)
 
         with phase("permute", device):
             scan_permute(data, tables, result, scan_cfg, perm_cfg,
-                         dump_fn=dump, device=device)
+                         dump_fn=dump, device=device, split=split)
     return result
+
+
+def split_report(split):
+    """One ``[split]`` line a rank at -v 4, logged by rank 0: the rank's
+    device, phase times (utils/timing.py, the gathers under ``gather``),
+    split_gather_s and split_gather_bytes over the run, and its kernel
+    launches (kernels.launch_counts)."""
+    from . import kernels
+    from .parallel import shard
+
+    mine = dict(rank=split.rank, world=split.world, pid=os.getpid(),
+                device=str(split.device), phases=phase_report(),
+                split_gather_s=shard.stats["gather_s"],
+                split_gather_bytes=shard.stats["gather_bytes"],
+                split_gathers=shard.stats["gathers"],
+                launches=kernels.launch_counts())
+    for rep in shard.gather_objects(mine, split):
+        logmsg(MSG_DEBUG1, "[split] %s", json.dumps(rep, sort_keys=True))
 
 
 def main(argv=None):
     args = validate_args(build_parser().parse_args(argv))
-    device = parse_device(args.device)
+    split = init_split(args.device)
+    try:
+        configure_logmsg(max(args.verbosity, 0), split.rank)
+        _run(args, split)
+        if args.verbosity >= MSG_DEBUG1:
+            split_report(split)
+    finally:
+        close_split(split)
+    return 0
+
+
+def _run(args, split):
+    device = split.device
     if args.msfile:
         from .io.ms_input import ms_pipeline
 
-        return ms_pipeline(args, device)
-    data = load_snp_input(
-        args.snpfile,
-        include_invariant=args.include_invariant,
-        minimum_obs_depth=args.minimum_depth,
-    )
-    result = run_pipeline(data, args, device)
-    if result is not None:
-        scan_output(
-            args.output_file,
-            data,
-            result,
-            maximum_only=args.max_only,
-            n_permute=args.n_permute,
-            prepend_label=args.prepend_label,
+        return ms_pipeline(args, device, split)
+    with phase("load"):
+        data = load_snp_input(
+            args.snpfile,
+            include_invariant=args.include_invariant,
+            minimum_obs_depth=args.minimum_depth,
         )
-        if args.n_permute > 0:
-            write_null_distribution(args.output_file, data, result)
-    return 0
+    result = run_pipeline(data, args, device, split)
+    if result is not None and split.writer:
+        with phase("output"):
+            scan_output(
+                args.output_file,
+                data,
+                result,
+                maximum_only=args.max_only,
+                n_permute=args.n_permute,
+                prepend_label=args.prepend_label,
+            )
+            if args.n_permute > 0:
+                write_null_distribution(args.output_file, data, result)
 
 
 if __name__ == "__main__":

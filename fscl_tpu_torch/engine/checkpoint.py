@@ -31,6 +31,12 @@ would continue another package's run on this package's stream, a result
 equal to no uninterrupted run of either.  Every other entry and the delta
 records are byte-compatible with fscl_tpu's, which checks only positions
 and CLRs and so accepts this package's files.
+
+Under a split over ranks (parallel/) every rank holds the same state, so
+one file serves every world: rank 0 writes it (``write=True``), the
+other ranks only replay it on a resume (``write=False``), and the
+driver says whether to resume (``resume``: rank 0's view of the file,
+broadcast), so that no rank reads a base file rank 0 has just created.
 """
 
 from __future__ import annotations
@@ -181,14 +187,17 @@ class Checkpointer:
     in incremental form on top of it.
     """
 
-    def __init__(self, path, result, seed):
+    def __init__(self, path, result, seed, write=True, resume=None):
         self.path = path
         self.log_path = path + ".log"
         self.rounds_done = 0
         self._fh = None
         self._lens = np.zeros(result.n_points, dtype=np.int64)
+        self._write = write
 
-        if os.path.exists(path):
+        if resume is None:
+            resume = os.path.exists(path)
+        if resume:
             with np.load(path) as z:
                 _check_stream(z, path)
                 if "null_flat" in z.files:  # legacy full snapshot
@@ -198,8 +207,9 @@ class Checkpointer:
             if os.path.exists(self.log_path):
                 self._replay(result)
             self._lens[:] = [len(r or []) for r in result.null_clr]
-            self._fh = open(self.log_path, "ab")
-        else:
+            if write:
+                self._fh = open(self.log_path, "ab")
+        elif write:
             tmp = f"{path}.tmp"
             np.savez(
                 tmp, sweep_pos=result.sweep_pos, clr=result.clr, seed=seed,
@@ -228,7 +238,11 @@ class Checkpointer:
             self.rounds_done = int(z["rounds_done"])
 
     def save(self, result, rounds_done):
-        """Append one delta: counters + null values added since last save."""
+        """Append one delta: counters + null values added since last save
+        (a rank that does not write only advances rounds_done)."""
+        if not self._write:
+            self.rounds_done = rounds_done
+            return
         idx, lens, chunks = [], [], []
         for i, res in enumerate(result.null_clr):
             n_now = len(res or [])

@@ -43,6 +43,18 @@ package, so a resume from a break on a chunk boundary of the
 uninterrupted run, taken before any point reached PRUNE_THRESHOLD
 exceedances (no pruning draw yet), equals the uninterrupted run.
 
+Under a split over ranks (parallel/): each chunk's replicates are
+split, rank r drawing and evaluating rows [r0, r1) of the chunk
+(sigma_source(r1 - r0, start + r0)), and the chunk's [R, n_pts] maxima
+are gathered to every rank before the pruning updates, which then run
+identically everywhere from the same host RNG; the chunk schedule does
+not depend on the world, so every rank, and a world of one, reach the
+same result.  The thresholds (one identity replicate) are computed
+unsplit on every rank.  The RDP tail stays off under a split (fscl_tpu
+keeps it on one device, fscl_tpu/engine/permute.py:1815-1820).  Only
+rank 0 writes the checkpoint; every rank replays it on a resume, so a
+file written under one world resumes under any other.
+
 Lattice path (fscl_tpu/engine/permute.py:460-644), under --no-hist
 (use_hist=False) and for datasets past the hist gate: the statistic is
 the per-interval max over the same Jf-point position grid of the coarse
@@ -93,6 +105,8 @@ from ..ops.permute import (
     runs_from_sigma,
 )
 from ..ops.windows import candidate_windows
+from ..parallel import shard
+from ..parallel.mesh import SOLO
 from .checkpoint import Checkpointer
 from .scan import (
     get_hist_device_arrays,
@@ -118,7 +132,8 @@ POINT_BUCKET = 64  # scan points per lattice statistic call
 
 # dispatch counts of the last scan_permute call: chunks through the RDP
 # path, stacked statistic dispatches of the chunk loop, and lattice
-# statistic calls (thresholds and chunks)
+# statistic calls (thresholds and chunks); and its split: the world, the
+# gathers' wall and received bytes (parallel/shard.py)
 last_stats: dict = {}
 
 
@@ -180,14 +195,18 @@ class _InterruptState:
 
 
 @contextlib.contextmanager
-def _checkpoint(cfg, result):
+def _checkpoint(cfg, result, split):
     """The run's Checkpointer, resumed where its file exists (None
     without cfg.checkpoint_path); closed when the run ends, also on an
-    exception."""
+    exception.  Under a split, rank 0's view of the file decides (the
+    broadcast is the barrier before any rank reads), and only rank 0
+    writes."""
     if not cfg.checkpoint_path:
         yield None
         return
-    ckpt = Checkpointer(cfg.checkpoint_path, result, cfg.seed)
+    found = shard.broadcast_flag(os.path.exists(cfg.checkpoint_path), split)
+    ckpt = Checkpointer(cfg.checkpoint_path, result, cfg.seed,
+                        write=split.writer, resume=found)
     if ckpt.rounds_done:
         logmsg(MSG_STATUS, "Resumed permutation checkpoint at %d rounds",
                ckpt.rounds_done)
@@ -293,7 +312,8 @@ def _stack_stat(table, sigma, seg_g0, bounds, fbar, t3, *, w_seg_p, n_rows,
                 clr_fn=_clr_from_windows):
     """Statistic maxima for stacked chromosome segments; [rows, n_pts].
 
-    sigma: [n_slices*sub_rep, n_sig] sentinel-padded group sigma;
+    sigma: [rows, n_sig] sentinel-padded group sigma, taken sub_rep rows
+    a slice (the last slice short where sub_rep does not divide rows);
     weights: the compressed tables' [R_used+1, R] weight channels, or
     None in one-hot mode.  Per replicate slice: segmented prefix sums of
     the permuted stream (prefix_fn; the slab of segment s starts one
@@ -605,7 +625,7 @@ class _RdpTail:
 
 def scan_permute(data, tables, result, scan_cfg, cfg: PermuteConfig,
                  dump_fn=None, device="cuda", sigma_source=None,
-                 runs_source=None):
+                 runs_source=None, split=None):
     """Run up to cfg.n_permute block-permutation rounds with pruning.
 
     Mutates ``result`` in place: permute_n / permute_p / permute_finished,
@@ -617,9 +637,11 @@ def scan_permute(data, tables, result, scan_cfg, cfg: PermuteConfig,
     injected sigma_source without runs_source gets the runs of its own
     sigma (runs_from_sigma), so both paths see one stream.  The lattice
     path (use_hist=False, or a dataset past the hist gate) expands the
-    same group sigma to sites.
+    same group sigma to sites.  ``split``: this process's parallel.Split
+    (None: a world of one); see the module doc.
     """
     device = parse_device(device)
+    split = split or SOLO
     if cfg.n_permute <= 0:
         return result
     if RDP_FORCE not in ("auto", "on", "off"):
@@ -658,12 +680,14 @@ def scan_permute(data, tables, result, scan_cfg, cfg: PermuteConfig,
     last_stats.clear()
     last_stats.update(rdp_dispatches=0, stack_dispatches=0,
                       lattice_dispatches=0)
+    g0 = dict(shard.stats)
     if use_hist:
         _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn,
-                           device, sigma_source, runs_source)
+                           device, sigma_source, runs_source, split)
     else:
         _scan_permute_lattice(data, tables, result, scan_cfg, cfg, dump_fn,
-                              device, sigma_source)
+                              device, sigma_source, split)
+    last_stats.update(shard.split_stats(g0, split))
     bad = ~np.isfinite(result.clr)
     if bad.any():
         logmsg(MSG_WARN, "%d scan points with non-finite CLR", int(bad.sum()))
@@ -671,12 +695,16 @@ def scan_permute(data, tables, result, scan_cfg, cfg: PermuteConfig,
 
 
 def _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
-                       sigma_source, runs_source):
+                       sigma_source, runs_source, split):
     rng = np.random.default_rng(cfg.seed)
     t0 = time.monotonic()
     hs = setup_hist(data, tables, result, scan_cfg, cfg, device)
     rdp = _RdpTail(hs, result, scan_cfg.eval_range, stat_positions(cfg),
                    runs_source, cfg.hist_bf16)
+    if split.world > 1:
+        rdp = None
+        logmsg(MSG_STATUS, "Permutation replicates split over %d ranks "
+               "(the RDP tail is off under a split)", split.world)
     K = result.n_points
     for i in range(K):
         if result.null_clr[i] is None:
@@ -700,7 +728,7 @@ def _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
     # a resume restores the finished flags and every point's threshold
     # before ``active`` is taken: finished points stay finished, and the
     # threshold pass recomputes only the points still active
-    with _checkpoint(cfg, result) as ckpt:
+    with _checkpoint(cfg, result, split) as ckpt:
         active = ~result.permute_finished.copy()
         rounds_done = ckpt.rounds_done if ckpt is not None else 0
         if rounds_done >= cfg.n_permute:
@@ -727,15 +755,19 @@ def _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
                 boost = _boost(int(active.sum()), rounds_done)
                 R = min(cfg.chunk_replicates * boost,
                         cfg.n_permute - rounds_done)
-                if rdp.wanted(active):
+                if rdp is not None and rdp.wanted(active):
                     pts, out = rdp.chunk(active, R, rounds_done)
                     blocks = [(pts, out)]
                     path = "rdp"
+                    host = out.cpu().numpy()
                 else:
-                    blocks = _stack_chunk(hs, cfg, result, active, R,
-                                          rounds_done, sigma_source)
+                    r0, r1 = shard.split_range(R, split)
+                    blocks = _stack_chunk(hs, cfg, result, active, r1 - r0,
+                                          rounds_done + r0, sigma_source)
                     path = "hist"
-                host = torch.cat([o for _, o in blocks], 1).cpu().numpy()
+                    host = shard.gather_rows(
+                        torch.cat([o for _, o in blocks], 1).cpu().numpy(),
+                        R, split)
                 off = 0
                 for pts, _ in blocks:
                     _apply_round_updates(
@@ -763,19 +795,23 @@ def _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
 
 
 def _stack_chunk(hs, cfg, result, active, R, start, sigma_source):
-    """[(pts, [R, len(pts)] statistic maxima)] of one chunk on the stacked
-    path, one entry per live stack (compacted first where due)."""
+    """[(pts, [R, len(pts)] statistic maxima)] of replicates start ..
+    start + R - 1 on the stacked path, one entry per live stack
+    (compacted first where due; R = 0, a rank without a share of the
+    chunk, compacts and launches nothing)."""
     live = [st for st in hs.stacks
             if st.pts is not None and active[st.pts].any()]
     for st in live:
         if st.due(result, active):
             st.rebuild(result, active_by_chr(result, st, active))
-    n_rows_needed = max(-(-R // st.sub_rep) * st.sub_rep for st in live)
-    sigma = hs.pad_sigma(sigma_source(n_rows_needed, start))
+    if R == 0:
+        return [(st.pts, torch.zeros((0, len(st.pts)))) for st in live]
+    # exactly the chunk's rows, in slices of sub_rep (the last one
+    # short): a rank of a split draws and evaluates its own rows only
+    sigma = hs.pad_sigma(sigma_source(R, start))
     blocks = []
     for st in live:
-        rp = -(-R // st.sub_rep) * st.sub_rep
-        blocks.append((st.pts, st.stat(hs.table, sigma[:rp], cfg)[:R]))
+        blocks.append((st.pts, st.stat(hs.table, sigma, cfg)))
         last_stats["stack_dispatches"] += 1
     return blocks
 
@@ -816,7 +852,7 @@ def _stat_max(lt, row, null, pos, cand, lo, hi, *, n_pts, Jf):
 
 
 def _scan_permute_lattice(data, tables, result, scan_cfg, cfg, dump_fn,
-                          device, sigma_source):
+                          device, sigma_source, split):
     """The lattice branch of fscl_tpu/engine/permute.py:scan_permute
     (:460-644): thresholds per POINT_BUCKET points of each chromosome,
     then chunks of chunk_replicates replicates, pruned between chunks."""
@@ -855,34 +891,40 @@ def _scan_permute_lattice(data, tables, result, scan_cfg, cfg, dump_fn,
 
     # opened after the thresholds are recorded, as the JAX package does:
     # a resume's replay overwrites them with the checkpointed values
-    with _checkpoint(cfg, result) as ckpt, \
+    with _checkpoint(cfg, result, split) as ckpt, \
             _InterruptState(dump_fn) as intr:
         active = ~result.permute_finished.copy()
         rounds_done = ckpt.rounds_done if ckpt is not None else 0
         while active.any() and rounds_done < cfg.n_permute:
             tr = time.monotonic()
             R = min(cfg.chunk_replicates, cfg.n_permute - rounds_done)
-            sig8 = sigma_source(R, rounds_done)
-            if not isinstance(sig8, torch.Tensor):
-                sig8 = torch.from_numpy(np.array(sig8, dtype=np.int32))
-            sigma = expand_group_sigma(
-                sig8.to(device=device, dtype=torch.int64), W)
+            r0, r1 = shard.split_range(R, split)
+            sigma = None
+            if r1 > r0:
+                sig8 = sigma_source(r1 - r0, rounds_done + r0)
+                if not isinstance(sig8, torch.Tensor):
+                    sig8 = torch.from_numpy(np.array(sig8, dtype=np.int32))
+                sigma = expand_group_sigma(
+                    sig8.to(device=device, dtype=torch.int64), W)
             for ctx in chr_ctx:
                 act_all = ctx.point_ids[active[ctx.point_ids]]
                 if len(act_all) == 0:
                     continue
-                idx = sigma[:, ctx.start:ctx.start + ctx.n]
-                row, null = row_gen[idx], null_gen[idx]  # [R, n]
-                groups = []
-                for g0 in range(0, len(act_all), POINT_BUCKET):
-                    act = act_all[g0:g0 + POINT_BUCKET]
-                    groups.append((act, _stat_max(
-                        lt, row, null, ctx.pos,
-                        *ctx.build_batch(result, act), n_pts=len(act),
-                        Jf=Jf)))
-                host = torch.cat([o for _, o in groups], 1).cpu().numpy()
+                groups = [act_all[g0:g0 + POINT_BUCKET]
+                          for g0 in range(0, len(act_all), POINT_BUCKET)]
+                if sigma is not None:
+                    idx = sigma[:, ctx.start:ctx.start + ctx.n]
+                    row, null = row_gen[idx], null_gen[idx]  # [Rr, n]
+                    mine = torch.cat([
+                        _stat_max(lt, row, null, ctx.pos,
+                                  *ctx.build_batch(result, act),
+                                  n_pts=len(act), Jf=Jf)
+                        for act in groups], 1).cpu().numpy()
+                else:  # no replicate of this chunk is this rank's
+                    mine = np.zeros((0, len(act_all)), np.float32)
+                host = shard.gather_rows(mine, R, split)
                 off = 0
-                for act, _ in groups:
+                for act in groups:
                     _apply_round_updates(
                         result, active, threshold, rng, cfg, act,
                         host[:, off:off + len(act)], rounds_done, R,

@@ -17,6 +17,15 @@ _ChromosomeBlock) runs every stage with the per-site kernel and its
 three-stage alpha search: under --no-hist (use_hist=False) and for
 datasets the hist engine does not cover (make_scan_hist_tables returns
 None).
+
+Under a split over ranks (parallel/), every dense, refine and decimate
+stage meets in eval_stage: each rank evaluates its contiguous share of
+the stage's candidates (all chromosomes' flats end to end), and the
+stage's [2, C] is gathered to every rank, so that every rank makes the
+same selections and holds the same ScanResult.  The tie stage is split
+the same way (_eval_flats), so that a rank builds the tie table's
+prefix sums only for the chromosomes of its share.  ``last_stats`` holds
+the last scan's split_world, split_gather_s and split_gather_bytes.
 """
 
 from __future__ import annotations
@@ -39,8 +48,14 @@ from ..ops.histclr import (
 )
 from ..ops.lattice import LatticeTables, two_stage_lattice_max
 from ..ops.windows import candidate_windows
+from ..parallel import shard
+from ..parallel.mesh import SOLO
 from ..utils.logging import MSG_DEBUG1, MSG_STATUS, cr_logmsg, logmsg
 from ..utils.timing import phase
+
+# the last scan_genome call's split: its world and its gathers' wall and
+# received bytes (parallel/shard.py)
+last_stats: dict = {}
 
 
 @dataclasses.dataclass
@@ -246,14 +261,26 @@ class _ChromosomeBlock:
         return torch.stack([clr[0], la[0]])
 
 
-def _drain(pend, flats):
-    """One readback of per-chromosome [2, n] device results; [(clr, la)]."""
-    host = torch.cat(pend, 1).cpu().numpy() if pend else None
+def _eval_flats(evaluate, states, flats, split):
+    """[(clr, la)] of every chromosome's flat, one readback:
+    evaluate(st, piece) -> [2, len(piece)] on the device for this rank's
+    share of the flats end to end (all of them in a world of one), the
+    whole gathered to every rank."""
+    n = sum(len(f) for f in flats)
+    r0, r1 = shard.split_range(n, split)
+    pend, off = [], 0
+    for st, f in zip(states, flats):
+        a, b = max(r0 - off, 0), min(r1 - off, len(f))
+        if a < b:
+            pend.append(evaluate(st, f[a:b]))
+        off += len(f)
+    mine = (torch.cat(pend, 1).cpu().numpy() if pend
+            else np.zeros((2, 0), np.float32))
+    host = shard.gather_cols(mine, n, split)
     outs, off = [], 0
     for f in flats:
-        n = len(f)
-        outs.append((host[0, off:off + n], host[1, off:off + n]))
-        off += n
+        outs.append((host[0, off:off + len(f)], host[1, off:off + len(f)]))
+        off += len(f)
     return outs
 
 
@@ -348,8 +375,9 @@ def _fused_max(t3, bounds, fbar, ps, lalpha, *, n_cells, n_rows, n_alpha,
 
 
 class _FusedHistEval:
-    """Hist evaluation for the scan's stages: one evaluation per
-    chromosome per stage, all drained to the host together."""
+    """Hist evaluation for the scan's stages: ``evaluate`` one
+    chromosome's candidates (_eval_flats drains every chromosome's
+    together)."""
 
     def __init__(self, ht, data, cfg, mm_bf16=False):
         self.ht = ht
@@ -359,7 +387,9 @@ class _FusedHistEval:
         self.mod16 = _dataset_mod16(data, ht)
         self.lalpha_dev = torch.as_tensor(ht.lalpha, device=ht.t3.device)
 
-    def _dispatch(self, st, flat):
+    def evaluate(self, st, flat):
+        """[2, len(flat)] device (max CLR, lalpha) at one chromosome's
+        candidates."""
         ht = self.ht
         dev = get_hist_device_arrays(self.data, ht, st.pos_np,
                                      st.cl.start_index)
@@ -373,11 +403,6 @@ class _FusedHistEval:
             n_cells=ht.n_cells, n_rows=ht.n_rows, n_alpha=ht.n_alpha,
             mm_bf16=self.mm_bf16,
         )[:, : len(flat)]
-
-    def eval_states(self, states, flats):
-        """Evaluate every chromosome's flat; one readback; [(clr, la)]."""
-        return _drain([self._dispatch(st, f) for st, f in zip(states, flats)],
-                      flats)
 
 
 def _snp_probe_positions(data, tables, st, cfg, row_gain=None):
@@ -463,13 +488,14 @@ class _ChrScanState:
         self.cand_x = self.owner_x = None
 
 
-def _tie_stage(data, tables, cfg, states, hist_ht, device):
+def _tie_stage(data, tables, cfg, states, hist_ht, device, split):
     """Tie pool: every probed position within hist_tie_margin of the
     selection winner, re-ranked on the (nearly) undecimated hist lattice,
     or, when even that table's step exceeds exact_step_max, re-evaluated
     with the per-site lattice kernel; its winner is reported.  Without a
     finer tie table (the selection table is already at tie_decimate) the
-    refine winners stand."""
+    refine winners stand.  Under a split, each rank evaluates its share
+    of the pool, as in every other stage (_eval_flats)."""
     for st in states:
         st.cand_x, st.owner_x = _tie_candidates(st, cfg)
     ht1 = (
@@ -488,26 +514,32 @@ def _tie_stage(data, tables, cfg, states, hist_ht, device):
             if st.blk is None:
                 st.blk = _ChromosomeBlock(data, st.cl,
                                           get_lattice_tables(tables, device))
-        outs = _drain([st.blk.eval_device(f, cfg)
-                       for st, f in zip(states, flats)], flats)
+
+        def evaluate(st, f):
+            return st.blk.eval_device(f, cfg)
     elif ht1 is not None:
-        outs = _FusedHistEval(ht1, data, cfg).eval_states(states, flats)
+        evaluate = _FusedHistEval(ht1, data, cfg).evaluate
     else:
         return
+    outs = _eval_flats(evaluate, states, flats, split)
     for st, (clr, la) in zip(states, outs):
         _report_pool_max(st, st.cand_x, clr, la)
 
 
-def scan_genome(data, tables, cfg: ScanConfig, device="cuda") -> ScanResult:
+def scan_genome(data, tables, cfg: ScanConfig, device="cuda",
+                split=None) -> ScanResult:
     """Scan all chromosomes; returns one scan point per coarse interval.
 
     All chromosomes advance through each stage (dense grid, refine
     rounds, tie resolution) together, with one host readback per stage.
     The lattice tables are built (get_lattice_tables) only when the run
-    takes the lattice path or its exact tie stage.
+    takes the lattice path or its exact tie stage.  ``split``: this
+    process's parallel.Split (None: a world of one); see the module doc.
     """
     t0 = time.monotonic()
     device = parse_device(device)
+    split = split or SOLO
+    g0 = dict(shard.stats)
     hist_ht = (
         make_scan_hist_tables(
             data, tables, cfg.hist_alphas, decimate=cfg.hist_decimate,
@@ -539,12 +571,12 @@ def scan_genome(data, tables, cfg: ScanConfig, device="cuda") -> ScanResult:
 
     def eval_stage(get_cand):
         """get_cand(st) for every chromosome, one readback: the hist
-        statistic, or the lattice search on the lattice path."""
-        flats = [get_cand(st) for st in states]
-        if fused is not None:
-            return fused.eval_states(states, flats)
-        return _drain([st.blk.eval_device(f, cfg)
-                       for st, f in zip(states, flats)], flats)
+        statistic, or the lattice search on the lattice path; under a
+        split, this rank's share, gathered (_eval_flats)."""
+        return _eval_flats(
+            fused.evaluate if fused is not None
+            else lambda st, f: st.blk.eval_device(f, cfg),
+            states, [get_cand(st) for st in states], split)
 
     if hist_ht is not None and cfg.snp_probes:
         row_all = np.asarray(data.row)
@@ -659,7 +691,7 @@ def scan_genome(data, tables, cfg: ScanConfig, device="cuda") -> ScanResult:
     t0 = time.monotonic()
 
     if hist_ht is not None:
-        _tie_stage(data, tables, cfg, states, hist_ht, device)
+        _tie_stage(data, tables, cfg, states, hist_ht, device, split)
         logmsg(MSG_DEBUG1, "scan tie stage: %.2fs (%d candidates)",
                time.monotonic() - t0,
                sum(len(st.cand_x) for st in states))
@@ -682,6 +714,8 @@ def scan_genome(data, tables, cfg: ScanConfig, device="cuda") -> ScanResult:
         out["interval_end"].append(st.iend)
     cat = {k: np.concatenate(v) for k, v in out.items()}
     K = len(cat["sweep_pos"])
+    last_stats.clear()
+    last_stats.update(shard.split_stats(g0, split))
     return ScanResult(
         chr_id=cat["chr_id"],
         sweep_pos=cat["sweep_pos"],

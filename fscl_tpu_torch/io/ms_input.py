@@ -15,7 +15,9 @@ Reference quirks NOT replicated (both are bugs there), as in fscl_tpu:
     block's rows survive; we append.
 
 The port has no compile step, so nothing is prewarmed; scan_genome builds
-the lattice tables only where a block takes the lattice path.
+the lattice tables only where a block takes the lattice path.  Under a
+split over ranks (parallel/) every rank parses the file and runs each
+block's scan and permutations on its share; rank 0 alone writes.
 """
 
 from __future__ import annotations
@@ -28,6 +30,7 @@ from ..cli import model_tables, scan_configs
 from ..data import SNPData, build_snp_data
 from ..device import parse_device
 from ..engine import scan_genome, scan_permute
+from ..parallel.mesh import SOLO
 from ..utils.logging import MSG_STATUS, cr_logmsg, logmsg
 from .ms_parser import MsParser
 from .output import scan_output, write_null_distribution
@@ -102,9 +105,10 @@ def iter_ms_blocks(path, seg_len, folded, first, size):
             yield build_snp_data(chroms, pos, freq, depth, fold)
 
 
-def ms_pipeline(args, device="cuda"):
+def ms_pipeline(args, device="cuda", split=SOLO):
     """Two-pass ms scan (fscl.c:281-314) on ``device`` (``cuda`` unless
-    the caller asks for ``cpu``)."""
+    the caller asks for ``cpu``), this rank's share of it under
+    ``split``."""
     if args.ms_segment_length <= 0:
         logmsg(
             2,
@@ -118,7 +122,7 @@ def ms_pipeline(args, device="cuda"):
         args.msfile, args.ms_segment_length, args.ms_folded,
         args.ms_sample_first, args.ms_sample_size,
     )
-    tables = model_tables(bg_data, args)
+    tables = model_tables(bg_data, args, split)
     if tables is None:
         return 0
     scan_cfg, perm_cfg = scan_configs(args)
@@ -129,7 +133,8 @@ def ms_pipeline(args, device="cuda"):
     )
     for block_i, data in enumerate(blocks):
         data.attach_model(tables)
-        result = scan_genome(data, tables, scan_cfg, device=device)
+        result = scan_genome(data, tables, scan_cfg, device=device,
+                             split=split)
         if perm_cfg is not None:
             # one checkpoint per block: the identity check
             # (engine/checkpoint.py) ties a file to one scan's
@@ -140,7 +145,9 @@ def ms_pipeline(args, device="cuda"):
                     perm_cfg,
                     checkpoint_path=f"{perm_cfg.checkpoint_path}.block{block_i}")
             scan_permute(data, tables, result, scan_cfg, block_cfg,
-                         device=device)
+                         device=device, split=split)
+        if not split.writer:
+            continue
         scan_output(
             args.output_file, data, result,
             maximum_only=args.max_only, n_permute=args.n_permute,

@@ -157,6 +157,27 @@ def load():
     return lib
 
 
+def launch_counts() -> dict:
+    """Every wrapper's count of its kernel's launches in this process,
+    by kernel (each wrapper adds one where it launches, and nowhere
+    else)."""
+    from .ops import clr, gather, lattice, prefix_sums, window_clr
+
+    return dict(
+        onehot_prefix_sums=prefix_sums.launches,
+        weighted_prefix_sums=prefix_sums.weighted_launches,
+        rowid_prefix_sums=prefix_sums.rowid_launches,
+        perm_prefix_sums=prefix_sums.perm_launches,
+        row_gather=gather.gather_launches,
+        window_operand=gather.window_launches,
+        window_clr=window_clr.window_clr_launches,
+        window_clr_f32=window_clr.window_clr_f32_launches,
+        window_clr_f32_reduce=window_clr.window_clr_f32_reduce_launches,
+        clr_lattice=lattice.lattice_clr_launches,
+        clr_grid=clr.clr_grid_launches,
+    )
+
+
 def check(lib, code: int, what: str) -> None:
     """Raise if a kernel's C entry point returned a CUDA error."""
     if code != 0:

@@ -47,6 +47,7 @@ from .. import LOG_AD_MAX, LOG_AD_MIN
 from ..device import parse_device
 from .gather import _device
 from .lattice import lattice_inv_step  # also clr_grid's inv_step
+from .lattice import log_distance
 
 # C alpha grid: step (MAX-MIN)/10, loop lalpha = MIN; lalpha <= MAX
 # (sm-search.c:276-282) -> 11 coarse values.
@@ -181,8 +182,7 @@ def clr_grid_plain(table_flat, row, pos, null, cand_pos, lo, hi, lalpha, *,
         w = lo[idx, None] + k  # [C, L]
         in_win = w <= hi[idx, None]
         w = torch.where(in_win, w, lo[idx, None]).long()
-        dist = (pos[w] - cand_pos[idx, None]).abs()
-        logd = torch.log(dist.clamp_min(1).to(torch.float32))
+        logd = log_distance((pos[w] - cand_pos[idx, None]).abs())
         x = logd[..., None] + la[idx, None, :]  # [C, L, A]
         u = (x - LOG_AD_MIN) * inv_step
         i = u.to(torch.int32).clamp(0, G - 2)

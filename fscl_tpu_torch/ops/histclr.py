@@ -47,6 +47,7 @@ import torch
 from .. import LOG_AD_MAX, LOG_AD_MIN
 from ..device import parse_device
 from .gather import row_gather
+from .lattice import log_distance
 from .permute import PERM_GROUP, sigma_from_runs
 from .prefix_sums import (
     onehot_prefix_sums,
@@ -399,7 +400,7 @@ def build_hist_points(ht: HistTables, pos_np, cand_pos, eval_range,
         *device_arrays[:-1], up(cand_p), up(lo_p), up(hi_p), up(sp_p),
         qbits=device_arrays[-1],
     )
-    logd = torch.log(torch.clamp(dbar, min=1.0))
+    logd = log_distance(dbar)
     icell = torch.arange(NC, dtype=torch.float32, device=dev)[None, None, :]
     fbar = torch.clamp(logd * inv_step - icell, 0.0, 1.0)
     fbar = torch.where(h > 0, fbar, 0.5).to(torch.float32)

@@ -76,6 +76,20 @@ def lattice_inv_step(grid_points):
     return float(np.float32((grid_points - 1) / (LOG_AD_MAX - LOG_AD_MIN)))
 
 
+def log_distance(dist):
+    """float32 log(max(dist, 1)) of a distance tensor on its device; on
+    the CPU rounded once from numpy's float64 log.  torch's float32 CPU
+    log (MKL's vector log, each OpenMP thread on its share of the call)
+    has returned one thread's share up to 4e-5 (about 40 ulps) off in
+    some processes and not in others, which made the plain versions'
+    results, and the tests that hold them to fscl_tpu, unsteady."""
+    d = dist.clamp_min(1)
+    if d.device.type == "cpu":
+        return torch.from_numpy(
+            np.log(d.numpy().astype(np.float64)).astype(np.float32))
+    return torch.log(d.to(torch.float32))
+
+
 def coarse_lattice_offsets(grid_points):
     """Integer lattice offsets approximating the C coarse alpha grid."""
     step = lattice_step(grid_points)
@@ -202,8 +216,7 @@ def clr_lattice_plain(pack, row, pos, null, cand, lo, hi, m_base, m_rel, *,
         w = lo[idx, None] + k  # [C, L]
         in_win = w <= hi[idx, None]
         w = torch.where(in_win, w, lo[idx, None]).long()
-        dist = (pos[w] - cand[idx, None]).abs()
-        logd = torch.log(dist.clamp_min(1).to(torch.float32))
+        logd = log_distance((pos[w] - cand[idx, None]).abs())
         u = (logd[None].double() * inv_step
              + m_base[:, idx, None].double()).float()  # fmaf
         i0 = u.to(torch.int32).clamp(0, G - 1)  # [Rr, C, L]

@@ -5,6 +5,10 @@ stderr, ``logmsg`` newline style vs ``cr_logmsg`` carriage-return progress
 style; MSG_FATAL exits).  Re-designed on top of Python's threading lock; the
 carriage-return progress style is kept because long scans want in-place
 progress lines on a TTY.
+
+Under a split over ranks (parallel/), rank 0 logs at the configured
+level and every other rank logs warnings and errors only, each line
+prefixed with its rank.
 """
 
 from __future__ import annotations
@@ -20,6 +24,7 @@ MSG_DEBUG1 = 4
 MSG_DEBUG2 = 5
 
 _level = MSG_STATUS
+_prefix = ""  # "[rank r] " on ranks other than 0
 _lock = threading.Lock()
 _cr_active = False  # last write was a carriage-return progress line
 
@@ -28,9 +33,14 @@ class FatalError(SystemExit):
     """Raised (and exits) on MSG_FATAL, like logmsg.c:34."""
 
 
-def configure_logmsg(level: int) -> None:
-    global _level
+def configure_logmsg(level: int, rank: int = 0) -> None:
+    """Log up to ``level``; a rank other than 0 only to MSG_WARN."""
+    global _level, _prefix
     _level = max(int(level), 0)
+    _prefix = ""
+    if rank:
+        _level = min(_level, MSG_WARN)
+        _prefix = f"[rank {rank}] "
 
 
 def _emit(text: str, cr: bool) -> None:
@@ -50,7 +60,7 @@ def _emit(text: str, cr: bool) -> None:
 
 def logmsg(priority: int, fmt: str, *args) -> None:
     """Leveled message; priority MSG_FATAL exits the process."""
-    text = (fmt % args) if args else fmt
+    text = _prefix + ((fmt % args) if args else fmt)
     if priority <= _level:
         _emit(text, cr=False)
     if priority == MSG_FATAL:
@@ -61,5 +71,5 @@ def cr_logmsg(priority: int, fmt: str, *args) -> None:
     """In-place progress message (carriage-return style on a TTY)."""
     if priority > _level:
         return
-    text = (fmt % args) if args else fmt
+    text = _prefix + ((fmt % args) if args else fmt)
     _emit(text, cr=True)

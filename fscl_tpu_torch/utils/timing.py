@@ -9,7 +9,9 @@ trace per phase, CPU and CUDA activity, into that directory).
 A phase on a CUDA device ends with torch.cuda.synchronize(), so that its
 time holds the card's work and not only its enqueue.  A phase inside
 another is timed, and traced within the outer phase's trace (the
-profiler does not nest).
+profiler does not nest).  add_time adds to the table without a log
+line or a trace: the ``gather`` phase of a split run, one entry for each
+of its many exchanges (parallel/shard.py).
 """
 
 from __future__ import annotations
@@ -66,8 +68,13 @@ def phase(name: str, device=None):
         if sync:
             torch.cuda.synchronize(device)
     dt = time.monotonic() - t0
-    _phases[name] = _phases.get(name, 0.0) + dt
+    add_time(name, dt)
     logmsg(MSG_DEBUG1, "[timing] %s: %.2fs (cum %.2fs)", name, dt, _phases[name])
+
+
+def add_time(name: str, seconds: float) -> None:
+    """Add ``seconds`` to phase ``name`` in the table."""
+    _phases[name] = _phases.get(name, 0.0) + seconds
 
 
 def phase_report() -> dict:

@@ -9,8 +9,8 @@ Stated tolerances:
   * the generator's command line writes a file that the port's CLI scans
     with -m (a subprocess that imports no jax);
   * phase: logs "[timing] <name>" at -v 4 (MSG_DEBUG1) and not at -v 3,
-    accumulates every phase of a CLI run (tables, scan, permute; and
-    lattice-pack on the lattice path) into phase_report(); with
+    accumulates every phase of a CLI run (load, tables, scan, permute,
+    output; and lattice-pack on the lattice path) into phase_report(); with
     FSCL_TPU_TRACE_DIR set, one Chrome trace per outermost phase, read
     back as JSON with its events.
 
@@ -144,7 +144,7 @@ def test_cli_phases_log_and_accumulate(snp_file, tmp_path, monkeypatch,
     assert main(["-f", str(snp_file), "-o", str(tmp_path / "o.tsv"),
                  "-g", "20000", "-G", "200000", "-p", "8", "--device",
                  "cpu", "-v", verbosity, *extra]) == 0
-    names = {"tables", "scan", "permute"} | (
+    names = {"load", "tables", "scan", "permute", "output"} | (
         {"lattice-pack"} if extra else set())
     report = TT.phase_report()
     assert set(report) == names
