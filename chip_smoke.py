@@ -5,7 +5,9 @@ Phases, each printing its own lines; any failure raises and exits
 non-zero:
   1. device  - a CUDA card of capability (9, 0); its name and power limit
   2. build   - nvcc builds the kernels from csrc/, one process per source
-               (ptxas report printed)
+               (ptxas report printed); the host's C compiler builds the
+               SNP reader's parser (native/fastio.c), its time printed;
+               no C compiler fails the run
   3. kernel  - the segmented one-hot prefix-sum kernel (one chained
                scan) against its plain PyTorch version, bitwise, at the
                main path's shapes and at five that stress the chained
@@ -236,6 +238,15 @@ non-zero:
                plain CLI's.  Inputs, checkpoints and traces go under
                fscl_tpu_torch/build/split/, each launch's stderr to
                OUT/split_<leg>.log
+  11. load   - the SNP reader's parsers on phase 10's genome1m.sf
+               (777,727 lines) and on phase 4d's chromosome written to a
+               file: the C parser (median of 3) and the Python loop
+               (once), their chromosome lists and arrays equal, and
+               load_snp_input's wall, its sites equal to the phase's
+               data; every CLI run of phase 10 logged the C parser (a
+               silent fall back to the Python loop fails); the CLI's load
+               phase from phase 10's [split] lines; the numbers also as
+               one {"host_native": ...} line
 Then one JSON line with every kernel's numbers (time, plain time, bound,
 launches on a path of this run, the one-call PyTorch equivalent's time
 where there is one; for the fused window kernels also their largest error
@@ -304,6 +315,11 @@ SPLIT_REF = {}
 # phase 10's inputs, checkpoints and traces: in the checkout (gitignored,
 # not brought back)
 SPLIT_WORK = REPO / "fscl_tpu_torch" / "build" / "split"
+# phase 11's second input: phase 4d's chromosome
+LOAD_INPUTS = {}
+# genome1m's CLI load phase with the Python loop, rank 0 of two ranks on
+# one NVIDIA H100 80GB HBM3 at 700 W (phase 10; PERF.md, section 5)
+LOAD_PYTHON_LOOP_S = 2.23
 
 
 def log(msg):
@@ -385,7 +401,9 @@ def phase_device():
 
 
 def phase_build():
+    """Build the kernels and the SNP parser: the parser's build seconds."""
     from fscl_tpu_torch import kernels
+    from fscl_tpu_torch.native import fastio
 
     t0 = time.monotonic()
     kernels.load()
@@ -394,6 +412,15 @@ def phase_build():
     for line in kernels.build_log.splitlines():
         if line.strip():
             log(f"[build] {line}")
+    t0 = time.monotonic()
+    lib = fastio.load()
+    if lib is None:
+        fail("no C compiler (cc, gcc) on PATH to build the SNP parser "
+             "(fscl_tpu_torch/native/fastio.c)")
+    parser_s = time.monotonic() - t0
+    log(f"[build] {lib.path.name} (the SNP parser, {fastio._compiler()} "
+        f"{' '.join(fastio.CC_FLAGS)}) in {parser_s:.2f}s")
+    return parser_s
 
 
 def _prefix_inputs(rng, S, w, P, R):
@@ -2089,6 +2116,7 @@ def phase_big_chromosome(dev, n_permute=16):
 
     t0 = time.monotonic()
     data, sweep_pos = big_chromosome_data()
+    LOAD_INPUTS["big_chromosome"] = data
     tables = _load_model(data, compat=False)
     t_setup = time.monotonic() - t0
     if data.n_snps <= SITES_MAX:
@@ -4049,6 +4077,90 @@ def phase_split(dev, smi):
     return out
 
 
+# ---- phase 11: the SNP reader's C parser (fscl_tpu_torch/native/) ---------
+
+def _parse_case(label, path, ref, smi):
+    """The C parser (median of 3) and the Python loop (once) on the SNP
+    file at ``path``, their outputs equal, and load_snp_input's wall, its
+    sites those of ``ref`` (the data the file was written from)."""
+    import numpy as np
+
+    from fscl_tpu_torch.io import load_snp_input, snp_reader
+    from fscl_tpu_torch.native import fastio
+
+    with open(path, "rb") as f:
+        lines = sum(1 for _ in f)
+    c_s = []
+    for _ in range(3):
+        t0 = time.monotonic()
+        got = fastio.parse_snp_file(path)
+        c_s.append(time.monotonic() - t0)
+    t0 = time.monotonic()
+    want = snp_reader._parse_python(path)
+    py_s = time.monotonic() - t0
+    if got[0] != want[0] or not all(
+            a.dtype == b.dtype and np.array_equal(a, b)
+            for a, b in zip(got[1:], want[1:])):
+        fail(f"load {label}: the C parser and the Python loop differ")
+    t0 = time.monotonic()
+    data = load_snp_input(path)
+    load_s = time.monotonic() - t0
+    if not (np.array_equal(data.pos, ref.pos)
+            and np.array_equal(data.obs_freq, ref.obs_freq)
+            and np.array_equal(data.folded, ref.folded)
+            and np.array_equal(np.asarray(data.sample_depths)[data.depth_p],
+                               np.asarray(ref.sample_depths)[ref.depth_p])
+            and [c.name for c in data.chr_limits]
+            == [c.name for c in ref.chr_limits]):
+        fail(f"load {label}: load_snp_input's sites differ from the data "
+             "the file was written from")
+    c_med = sorted(c_s)[1]
+    log(f"[load] {label} ({lines} lines, {len(got[0])} rows), {smi}: C "
+        f"parser {c_med:.3f}s (median of {[round(t, 3) for t in c_s]}), "
+        f"Python loop {py_s:.3f}s ({py_s / c_med:.1f}x), load_snp_input "
+        f"{load_s:.3f}s")
+    return dict(lines=lines, rows=len(got[0]), c_parser_s=c_s,
+                c_parser_median_s=c_med, python_loop_s=py_s,
+                load_snp_input_s=load_s)
+
+
+def phase_load(smi, split, build_s):
+    """Phase 11: the SNP reader's parsers on phase 10's genome1m.sf and on
+    phase 4d's chromosome written to a file; phase 10's CLI runs logged
+    the C parser; their load phases against the Python loop's;
+    ``build_s``, the parser's build in phase 2, printed beside them."""
+    t0 = time.monotonic()
+    out = {"genome1m": _parse_case("genome1m.sf", SPLIT_WORK / "genome1m.sf",
+                                   SPLIT_REF["genome1m"][0], smi)}
+    big = SPLIT_WORK / "big_chromosome.sf"
+    _write_sf(big, (LOAD_INPUTS["big_chromosome"],))
+    out["big_chromosome"] = _parse_case("phase 4d's chromosome", big,
+                                        LOAD_INPUTS["big_chromosome"], smi)
+    big.unlink()
+
+    logs = sorted(OUT.glob("split_*.log"))
+    missing = [p.name for p in logs
+               if "Parsing SNP input with the C parser" not in p.read_text()]
+    if not logs or missing:
+        fail(f"load: phase 10's CLI runs {missing or logs} did not log the "
+             "C parser")
+    g = split["genome"]
+    cli = {k: [w["load"] for w in g["phase_walls"][k]] for k in ("1", "2")}
+    traced = {k: [w["load"] for w in g["traced_walls"][k]]
+              for k in ("1", "2")}
+    out.update(cli_logs_c_parser=[p.name for p in logs], cli_load_s=cli,
+               cli_load_traced_s=traced,
+               cli_load_python_loop_s=LOAD_PYTHON_LOOP_S,
+               parser_build_s=build_s, phase_s=time.monotonic() - t0)
+    log(f"[load] the CLI's load phase (phase 10's [split] lines; {smi}): "
+        f"genome1m 1 rank {cli['1']} s (--max-only), 2 ranks {cli['2']} s; "
+        f"traced 1 rank {traced['1']}, 2 ranks {traced['2']}; earlier "
+        f"with the Python loop {LOAD_PYTHON_LOOP_S} s; {len(logs)} CLI runs "
+        f"logged the C parser; its build {build_s:.2f}s (phase 2)")
+    log(json.dumps({"host_native": dict(out, nvidia_smi=smi)}))
+    return out
+
+
 def phase_profile(dev):
     import torch
     from torch.autograd import DeviceType
@@ -4171,7 +4283,7 @@ def main():
         fail(f"the port is not importable from {REPO}: {e}")
     dev, name, smi = phase_device()
     OUT.mkdir(parents=True, exist_ok=True)
-    phase_build()
+    parser_build_s = phase_build()
     if sys.argv[1:] == ["--profile"]:
         phase_profile(dev)
         return 0
@@ -4275,6 +4387,7 @@ def main():
     rms = phase_ms(dev)
     rres = phase_resume(dev, smi, rg["perm_s"])
     rsplit = phase_split(dev, smi)
+    rload = phase_load(smi, rsplit, parser_build_s)
 
     gkern = rr["gkernel"] + gkern  # the RDP path's shape first
     okern = (r20["okernel"] + rg["okernel"] + rm["okernel"]
@@ -4289,7 +4402,8 @@ def main():
                   bench_20k=r20, bench_20k_nohist=rl,
                   bench_20k_grid1024=r1024, big_chromosome=rb, genome=rg,
                   mixed100k=rm, cgkernel=cg["cgkernel"], exact=rx,
-                  check=chk, rdp=rr, ms=rms, resume=rres, split=rsplit)
+                  check=chk, rdp=rr, ms=rms, resume=rres, split=rsplit,
+                  load=rload)
     (OUT / "smoke.json").write_text(json.dumps(detail, indent=1) + "\n")
 
     def entry(name, source, replaces, launches, runs, main=None, note=None,

@@ -32,8 +32,7 @@ Chunk schedule (_boost) and point order (stacks by segment length, then
 chromosomes, then point ids, on both paths) follow the JAX package, so
 the pruning RNG is consumed in the same order.  ``last_stats`` counts the
 last run's dispatches.  Not ported: speculative dispatch, the
-group-granular statistic, the warm pool, the sigma element cap and the
-device mesh.
+group-granular statistic, the warm pool and the sigma element cap.
 
 Checkpoint and resume (engine/checkpoint.py), on both paths: with
 checkpoint_path, the state is saved after every chunk and a run whose

@@ -6,7 +6,15 @@ with '#' comments and blank lines skipped, unparseable rows warned about
 (except a literal "chromosome" header token), rows filtered when
 sample_size < minimum_obs_depth or (unless include_invariant) the site is
 invariant, and folded frequencies folded to the minor allele
-(snp-input.c:64-66, 89-90).  Python parser only.
+(snp-input.c:64-66, 89-90).
+
+The lines are parsed by the C parser (native/fastio.c, built with the
+host's C compiler at first use) as fscl_tpu's reader does with its
+built extension, and by the Python loop where no C compiler is on PATH;
+the reader logs which one ran.  The two read well-formed files alike but
+some malformed lines differently, as fscl_tpu's two parsers do: the C
+parser takes "4x" as 4, skips "1_3" and saturates an overflow, and skips
+unparseable rows without a word.
 """
 
 from __future__ import annotations
@@ -14,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..data import SNPData, build_snp_data
+from ..native import fastio
 from ..utils.logging import MSG_ERROR, MSG_STATUS, cr_logmsg, logmsg
 
 
@@ -61,8 +70,19 @@ def _parse_python(path):
     )
 
 
+def _parse(path):
+    lib = fastio.load()
+    if lib is None:
+        logmsg(MSG_STATUS, "Parsing SNP input with the Python loop (no C "
+               "compiler on PATH)")
+        return _parse_python(path)
+    logmsg(MSG_STATUS, "Parsing SNP input with the C parser (%s)",
+           lib.path.name)
+    return fastio.parse_snp_file(path)
+
+
 def load_snp_input(path, include_invariant=False, minimum_obs_depth=5) -> SNPData:
-    chrs, pos, freq, size, fold = _parse_python(path)
+    chrs, pos, freq, size, fold = _parse(path)
 
     keep = size >= minimum_obs_depth
     if not include_invariant:
