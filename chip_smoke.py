@@ -247,6 +247,26 @@ non-zero:
                silent fall back to the Python loop fails); the CLI's load
                phase from phase 10's [split] lines; the numbers also as
                one {"host_native": ...} line
+  12. stream - the block-permutation stream's kernel (replicate_runs,
+               csrc/replicate_runs.cu: fscl_tpu's threefry draw of a
+               chunk's runs and sigma) against its plain version, bit for
+               bit, in its two forms (sigma, runs), at the 20k chunk
+               (32 replicates), genome1m's deep-tail chunk (2,048 of
+               24,304 groups) and phase 4d's chromosome (16 of 131,060):
+               a second launch bitwise, kernel and plain timed, the bound
+               on the work these inputs need (bytes written, or threefry
+               hashes, sort compares and block ids, the redraws this
+               chunk takes counted); genome1m's 64 permutations (phase
+               5's scan) and its deep tail (bench/run_tail.py's 22
+               immortal points, 1,024 rounds at chunks of 256 and 512,
+               RDP off) each with FSCL_STAT_SPEC 0 and 1: results bit for
+               bit equal, the kernel's launches counted over the spec-on
+               genome1m run, speculative chunks taken and dropped,
+               permutation walls, and from traced runs the busy share and,
+               at each speculative chunk boundary, when the next chunk's
+               first kernel started against when the drain returned (the
+               deep tail must take speculative chunks and show one start
+               before its drain returned)
 Then one JSON line with every kernel's numbers (time, plain time, bound,
 launches on a path of this run, the one-call PyTorch equivalent's time
 where there is one; for the fused window kernels also their largest error
@@ -258,8 +278,10 @@ launches.  Run from the repo root: python3 chip_smoke.py
 ``--profile`` instead runs phases 1-2 and then torch.profiler over the
 scan and the permutations of the 20k task (hist and --no-hist), of the
 genome (16 permutations), of mixed100k (16 permutations) and of phase
-4d's chromosome (16 permutations), and over phase 7's
-permutations of the 20k task with RDP forced on and off: device time by
+4d's chromosome (16 permutations), over phase 7's
+permutations of the 20k task with RDP forced on and off, and over phase
+12's deep tail with speculation on (its chunk boundaries: the next
+chunk's first kernel start against the drain's return): device time by
 kernel (the prefix-sum kernels, the two fused window kernels, the window
 operand, the matmuls, the row gather) and the device's busy share, with
 the tables written under OUT, and the one-hot body's launches by id
@@ -4161,6 +4183,285 @@ def phase_load(smi, split, build_s):
     return out
 
 
+# phase 12: the stream's chunks (label, scan, replicates, start, seed): the
+# 20k task's chunk (chunk_replicates 32, seed 1), genome1m's deep-tail
+# chunk (2,048 replicates at the CLI's seed) and phase 4d's (16)
+STREAM_SHAPES = (("20k chunk", "20k", 32, 0, 1),
+                 ("genome1m chunk", "genome1m", 2048, 2048, 0xFD821A6),
+                 ("4d chromosome chunk", "big_chromosome", 16, 0, 0xFD821A6))
+# lane operations of one threefry2x32 hash: 20 rounds of add, rotate and
+# xor, 5 key injections of three adds
+STREAM_OPS_HASH = 75
+# the deep tail of bench/run_tail.py cut to 1,024 rounds: at chunks of 4
+# replicates the tiers 64 and 128 give chunks of 256, 512 and 256
+STREAM_TAIL = dict(n_permute=1024, chunk_replicates=4, seed=1)
+
+
+def _stream_redraws(seed, start, n, B):
+    """Redraws of an identity block order among replicates start ..
+    start + n - 1 (plain version's arithmetic, on the host)."""
+    import torch
+
+    from fscl_tpu_torch.ops import permute as TO
+
+    k0, k1 = TO.seed_key(seed)
+    idx = (start + torch.arange(n, dtype=torch.int64)) & 0xFFFFFFFF
+    kp = TO._split(torch.stack(TO.threefry2x32(k0, k1, 0, idx), 1))[1]
+    rounds, ident = TO.shuffle_rounds(B), torch.arange(B)
+    rows, redraws = torch.arange(n), 0
+    while len(rows) and B > 1:
+        rows = rows[(TO._permutation(kp[rows], B, rounds) == ident).all(1)]
+        redraws += len(rows)
+        kp[rows] = TO._fold_in(kp[rows], 1)
+    return redraws
+
+
+def _stream_ops(n, G, nb, redraws, sigma):
+    """Lane operations of a chunk's draw: the threefry hashes (a
+    replicate's key, phase key, phase bits and permutation key; a draw's
+    split and B sort keys a round; a redraw's fold_in), the compares of a
+    comparison sort of B keys a round, each group's block id (add,
+    multiply, convert, clamp) and, for the sigma, one operation an
+    entry."""
+    import math
+
+    from fscl_tpu_torch.ops.permute import shuffle_rounds
+
+    B = nb - 1
+    rounds = shuffle_rounds(B)
+    draws = n + redraws
+    hashes = 4 * n + draws * rounds * (2 + B) + redraws
+    compares = draws * rounds * B * max(1, math.ceil(math.log2(max(B, 2))))
+    return (hashes * STREAM_OPS_HASH + compares + 4 * n * G
+            + (n * G if sigma else 0))
+
+
+def _stream_case(label, gpos, n, start, seed, dev):
+    """Phase 12's kernel check at one chunk: both forms bitwise against
+    the plain version and repeatable, kernel and plain timed, the
+    bound."""
+    import torch
+
+    from fscl_tpu_torch.ops import permute as TO
+
+    g0f, span = TO._g0_device(gpos, dev)
+    nb = TO.n_blocks_for(span, 1e6)
+    w = TO.effective_block_width(span, 1e6)
+    G = g0f.shape[0]
+    redraws = _stream_redraws(seed, start, n, nb - 1)
+    out = []
+    for form in ("sigma", "runs"):
+        sigma = form == "sigma"
+
+        def kern():
+            runs, sig = TO.replicate_runs(seed, start, g0f, nb, w, n,
+                                          with_runs=not sigma,
+                                          with_sigma=sigma)
+            return sig if sigma else torch.cat(runs, 1)
+
+        def plain():
+            src, dst, sz, sig = TO.replicate_runs_plain(
+                seed, start, g0f, nb, w, n, with_sigma=sigma)
+            return sig if sigma else torch.cat((src, dst, sz), 1)
+
+        got, want = kern(), plain()
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).any(1).sum())
+            fail(f"stream kernel at {label} ({form}): {bad} of {n} rows "
+                 "differ from the plain version")
+        ms = _repeat_checks("stream", f"{label} ({form})", kern, got)
+        plain_ms = cuda_time_ms(plain, 1, readings=3)
+        nbytes = G * 4 + got.numel() * got.element_size()
+        bd, by = bound_ms(nbytes, _stream_ops(n, G, nb, redraws, sigma))
+        out.append(dict(label=f"{label} ({form})", replicates=n, groups=G,
+                        blocks=nb, rounds=TO.shuffle_rounds(nb - 1),
+                        redraws=redraws, ms=ms, plain_ms=plain_ms,
+                        bound_ms=bd, bound_by=by, max_abs_err=0.0,
+                        library_ms=None))
+        log(f"[stream] {label} ({form}): {n} replicates, G={G}, "
+            f"{nb} blocks, {redraws} redraws: bitwise; kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.3f} ms, bound {bd:.4f} ms ({by}, "
+            f"{100 * bd / ms:.1f}%)")
+    return out
+
+
+def _spec_overlap(events):
+    """At each speculative dispatch followed by a drain: the next chunk's
+    kernels (correlated with launches inside the dispatch's range) against
+    the drain's end, in us: the first kernel's start minus the drain's end
+    (negative: it started before the drain returned) and the kernel time
+    left after the drain returned."""
+    ann = sorted((e for e in events if e.get("cat") == "user_annotation"
+                  and e.get("name") in ("fscl_spec_dispatch", "fscl_drain")),
+                 key=lambda e: e["ts"])
+    launches = [e for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "aunch" in e.get("name", "")
+                and "correlation" in e.get("args", {})]
+    kernels = {e["args"]["correlation"]: e for e in events
+               if e.get("cat") == "kernel" and "correlation" in
+               e.get("args", {})}
+    out = []
+    for i, a in enumerate(ann):
+        if a["name"] != "fscl_spec_dispatch":
+            continue
+        d = next((b for b in ann[i + 1:] if b["name"] == "fscl_drain"), None)
+        if d is None:
+            continue
+        a1, d1 = a["ts"] + a["dur"], d["ts"] + d["dur"]
+        ks = [kernels[c] for c in (x["args"]["correlation"] for x in launches
+                                   if a["ts"] <= x["ts"] <= a1)
+              if c in kernels]
+        if ks:
+            out.append(dict(
+                kernels=len(ks),
+                start_minus_drain_end_us=min(k["ts"] for k in ks) - d1,
+                kernel_us_after_drain=sum(
+                    max(0.0, k["ts"] + k["dur"] - max(k["ts"], d1))
+                    for k in ks)))
+    return out
+
+
+def _deep_tail(result):
+    """bench/run_tail.py's tail: one point a chromosome (its largest CLR)
+    left active, the rest finished."""
+    import numpy as np
+
+    r = _unpermuted(result)
+    keep = [np.where(r.chr_id == c)[0][np.argmax(r.clr[r.chr_id == c])]
+            for c in np.unique(r.chr_id)]
+    r.permute_finished[:] = True
+    r.permute_finished[keep] = False
+    return r
+
+
+def _stream_perm(label, scanned, cfg, dev, spec, trace, fresh=_unpermuted):
+    """scan_permute of fresh(scan result) at FSCL_STAT_SPEC=spec;
+    (result, wall s, last_stats, kernel launches, busy share, speculative
+    boundaries) with the last two from torch.profiler where ``trace``."""
+    import contextlib
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from fscl_tpu_torch.engine import permute as TP
+    from fscl_tpu_torch.ops import permute as TO
+
+    data, tables, scan_cfg, result = scanned
+    r = fresh(result)
+    saved = TP.STAT_SPEC
+    TP.STAT_SPEC = spec
+    torch.cuda.synchronize()
+    TO.replicate_runs_launches = 0
+    ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+           if trace else contextlib.nullcontext())
+    try:
+        with ctx as prof:
+            t0 = time.monotonic()
+            TP.scan_permute(data, tables, r, scan_cfg, copy.deepcopy(cfg),
+                            device=dev)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+    finally:
+        TP.STAT_SPEC = saved
+    launches = TO.replicate_runs_launches
+    busy = bounds = None
+    if trace:
+        path = OUT / f"stream_{label.replace(' ', '_')}_spec{int(spec)}.json"
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text()).get("traceEvents", [])
+        dev_s = sum(e.get("dur", 0) for e in events if e.get("cat") in (
+            "kernel", "gpu_memcpy", "gpu_memset")) / 1e6
+        busy = dev_s / wall
+        bounds = _spec_overlap(events)
+    return r, wall, dict(TP.last_stats), launches, busy, bounds
+
+
+def _stream_pair(label, scanned, cfg, dev, fresh=_unpermuted):
+    """One run at FSCL_STAT_SPEC 0 and 1, untraced (walls, bitwise) and
+    traced (busy share, chunk boundaries)."""
+    import numpy as np
+
+    res = {}
+    for spec in (False, True):
+        r, wall, st, launches, _, _ = _stream_perm(label, scanned, cfg, dev,
+                                                   spec, False, fresh)
+        _, t_wall, _, _, busy, bounds = _stream_perm(label, scanned, cfg,
+                                                     dev, spec, True, fresh)
+        res[spec] = dict(result=r, wall_s=wall, traced_wall_s=t_wall,
+                         stats=st, launches=launches, busy=busy,
+                         boundaries=bounds)
+    a, b = res[False]["result"], res[True]["result"]
+    same = all(np.array_equal(getattr(a, f), getattr(b, f)) for f in (
+        "permute_n", "permute_p", "permute_finished")) \
+        and np.array_equal(a.stat_threshold, b.stat_threshold,
+                           equal_nan=True) \
+        and all(x == y for x, y in zip(a.null_clr, b.null_clr))
+    if not same:
+        fail(f"stream {label}: FSCL_STAT_SPEC 0 and 1 differ")
+    out = {}
+    for spec in (False, True):
+        x = res[spec]
+        st = x["stats"]
+        out[f"spec{int(spec)}"] = dict(
+            wall_s=x["wall_s"], traced_wall_s=x["traced_wall_s"],
+            busy=x["busy"], launches=x["launches"],
+            spec_chunks=st["hist_spec_chunks"],
+            spec_misses=st["hist_spec_misses"],
+            stack_dispatches=st["stack_dispatches"],
+            rdp_dispatches=st["rdp_dispatches"], boundaries=x["boundaries"])
+        starts = [b["start_minus_drain_end_us"] for b in x["boundaries"]]
+        log(f"[stream] {label} FSCL_STAT_SPEC={int(spec)}: permutation wall "
+            f"{x['wall_s']:.3f}s (traced {x['traced_wall_s']:.3f}s, busy "
+            f"{100 * x['busy']:.1f}%); speculative chunks taken "
+            f"{st['hist_spec_chunks']}, dropped {st['hist_spec_misses']}; "
+            f"replicate_runs launches {x['launches']}; next-chunk start "
+            f"minus drain end (us) at {len(starts)} boundaries: "
+            f"{[round(v, 1) for v in starts]}")
+    log(f"[stream] {label}: FSCL_STAT_SPEC 0 and 1 bit for bit equal "
+        f"({int(b.permute_n.sum())} point-rounds)")
+    return out
+
+
+def phase_stream(dev, smi):
+    """Phase 12 (see the module doc)."""
+    from fscl_tpu_torch.engine import permute as TP
+    from fscl_tpu_torch.engine.permute import PermuteConfig
+
+    gpos = {"20k": SCANS["20k"][0].genome_pos(),
+            "genome1m": SCANS["genome1m"][0].genome_pos(),
+            "big_chromosome": LOAD_INPUTS["big_chromosome"].genome_pos()}
+    kern = []
+    for label, key, n, start, seed in STREAM_SHAPES:
+        kern += _stream_case(label, gpos[key], n, start, seed, dev)
+    g = SCANS["genome1m"]
+    genome = _stream_pair("genome1m", g, PermuteConfig(n_permute=64), dev)
+    if genome["spec1"]["launches"] <= 0:
+        fail("stream: genome1m's permutations launched no replicate_runs")
+    saved = TP.RDP_FORCE
+    TP.RDP_FORCE = "off"
+    try:
+        deep = _stream_pair("genome1m deep tail", g,
+                            PermuteConfig(**STREAM_TAIL), dev,
+                            fresh=_deep_tail)
+    finally:
+        TP.RDP_FORCE = saved
+    on = deep["spec1"]
+    if on["spec_chunks"] <= 0:
+        fail(f"stream: the deep tail took no speculative chunk: {on}")
+    starts = [b["start_minus_drain_end_us"] for b in on["boundaries"]]
+    if starts and min(starts) >= 0:
+        fail("stream: no speculative chunk's first kernel started before "
+             f"its drain returned: {on['boundaries']}")
+    if not starts:
+        log("[stream] chunk boundaries: not measured (no launch in the "
+            "trace correlated with a kernel)")
+    log(f"[stream] ({smi})")
+    return dict(kernel=kern, genome1m=genome, deep_tail=deep,
+                launches=genome["spec1"]["launches"])
+
+
 def phase_profile(dev):
     import torch
     from torch.autograd import DeviceType
@@ -4269,6 +4570,21 @@ def phase_profile(dev):
                 f"{lat * 1e3:.3f} ms ({100 * lat / max(busy, 1e-12):.1f}%)")
             for t, n, key in sorted(kern, reverse=True)[:10]:
                 log(f"[profile]   {t / 1e3:10.2f} ms  {n:7d}x  {key[:90]}")
+    # phase 12's deep tail with speculation on: the chunk boundaries
+    TP.RDP_FORCE = "off"
+    try:
+        _, wall, st, _, busy, bounds = _stream_perm(
+            "profile deep tail", (dg, tg, ScanConfig(),
+                                  scan_genome(dg, tg, ScanConfig(),
+                                              device=dev)),
+            PermuteConfig(**STREAM_TAIL), dev, True, True, _deep_tail)
+    finally:
+        TP.RDP_FORCE = saved
+    log(f"[profile] genome1m deep tail, FSCL_STAT_SPEC=1: wall {wall:.3f}s "
+        f"(profiled), {100 * busy:.1f}% busy, speculative chunks "
+        f"{st['hist_spec_chunks']} taken, {st['hist_spec_misses']} dropped; "
+        "at each boundary the next chunk's first kernel start minus the "
+        f"drain's end (us) and its kernel time after the drain: {bounds}")
 
 
 def main():
@@ -4388,6 +4704,7 @@ def main():
     rres = phase_resume(dev, smi, rg["perm_s"])
     rsplit = phase_split(dev, smi)
     rload = phase_load(smi, rsplit, parser_build_s)
+    rstream = phase_stream(dev, smi)
 
     gkern = rr["gkernel"] + gkern  # the RDP path's shape first
     okern = (r20["okernel"] + rg["okernel"] + rm["okernel"]
@@ -4403,7 +4720,7 @@ def main():
                   bench_20k_grid1024=r1024, big_chromosome=rb, genome=rg,
                   mixed100k=rm, cgkernel=cg["cgkernel"], exact=rx,
                   check=chk, rdp=rr, ms=rms, resume=rres, split=rsplit,
-                  load=rload)
+                  load=rload, stream=rstream)
     (OUT / "smoke.json").write_text(json.dumps(detail, indent=1) + "\n")
 
     def entry(name, source, replaces, launches, runs, main=None, note=None,
@@ -4510,6 +4827,17 @@ def main():
                   "old_bound_ms", "max_abs_err")}
                   for r in cg["cgkernel"] if r["label"].startswith(
                       "flagship")]),
+        # main shape: genome1m's deep-tail chunk in the sigma form; launches
+        # over phase 12's genome1m permutations with speculation on
+        entry("replicate_runs", "replicate_runs.cu",
+              "fscl_tpu/ops/permute.py:57-150 _one_replicate_runs under "
+              "_replicates and _replicates_runs (XLA-fused, no Pallas "
+              "kernel)", rstream["launches"], rstream["kernel"],
+              main="genome1m chunk (sigma)",
+              note="no single PyTorch call computes fscl_tpu's threefry "
+                   "block shuffle",
+              deep_tail_spec_chunks=rstream["deep_tail"]["spec1"][
+                  "spec_chunks"]),
     ]}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

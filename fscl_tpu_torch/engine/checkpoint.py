@@ -25,12 +25,12 @@ Two formats:
 
 The sigma-stream marker: the base file and the full snapshot carry one
 more entry, ``sigma_stream`` (ops/permute.py:SIGMA_STREAM), and a file
-without it, or with another stream's name, is refused.  fscl_tpu writes no
-such entry: its permutations come from threefry, so resuming its file here
-would continue another package's run on this package's stream, a result
-equal to no uninterrupted run of either.  Every other entry and the delta
-records are byte-compatible with fscl_tpu's, which checks only positions
-and CLRs and so accepts this package's files.
+naming another stream is refused: resuming it would continue one run
+on another stream, a result equal to no uninterrupted run.  fscl_tpu
+writes no such entry, and its stream is this package's (threefry, row r
+a function of (seed, start + r)); every other entry and the delta
+records are byte-compatible both ways, so each package resumes the
+other's files.
 
 Under a split over ranks (parallel/) every rank holds the same state, so
 one file serves every world: rank 0 writes it (``write=True``), the
@@ -102,14 +102,14 @@ def _restore_thresholds(z, result):
 
 
 def _check_stream(z, path):
-    """Refuse a file written on another permutation stream."""
+    """Refuse a file written on another permutation stream (a file that
+    names none is fscl_tpu's, on this stream)."""
     stream = str(z["sigma_stream"]) if "sigma_stream" in z.files else None
-    if stream != SIGMA_STREAM:
+    if stream not in (None, SIGMA_STREAM):
         raise ValueError(
-            f"checkpoint {path} was written by another package (sigma "
-            f"stream {stream or 'not named: fscl_tpu, threefry'}), whose "
-            f"permutation stream differs from this one ({SIGMA_STREAM}); "
-            "a resume would equal no uninterrupted run"
+            f"checkpoint {path} was written on another permutation stream "
+            f"({stream}) than this one ({SIGMA_STREAM}); a resume would "
+            "equal no uninterrupted run"
         )
 
 
@@ -126,8 +126,8 @@ def load_checkpoint(path, result):
     """Restore a full snapshot into ``result``; returns (rounds_done, seed).
 
     Validates that the checkpoint was written on this package's sigma
-    stream and belongs to the same scan (matching observed CLRs and
-    positions).
+    stream (or names none, as fscl_tpu's) and belongs to the same scan
+    (matching observed CLRs and positions).
     """
     with np.load(path) as z:
         _check_stream(z, path)

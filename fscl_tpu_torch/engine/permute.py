@@ -28,11 +28,29 @@ cost follows bounds, not sites.  FSCL_RDP=on/off forces the choice
 (exact one-hot tables only; compressed tables keep the stacked path).
 Both paths compute the same window counts, hence the same statistic.
 
-Chunk schedule (_boost) and point order (stacks by segment length, then
-chromosomes, then point ids, on both paths) follow the JAX package, so
-the pruning RNG is consumed in the same order.  ``last_stats`` counts the
-last run's dispatches.  Not ported: speculative dispatch, the
-group-granular statistic, the warm pool and the sigma element cap.
+Chunk schedule (_boost, with the sigma element cap) and point order
+(stacks by segment length, then chromosomes, then point ids, on both
+paths) follow the JAX package, so the pruning RNG is consumed in the same
+order.  ``last_stats`` counts the last run's dispatches.  Not ported: the
+group-granular statistic (GROUP_STAT, off by default there) and the warm
+pool (it compiles XLA programs; the port has none).
+
+Speculation (fscl_tpu/engine/permute.py:1983-2124), on the stacked
+path: once a chunk's statistic is enqueued, its readback is enqueued
+(pinned memory and an event on the card), then the next chunk's sigma
+is drawn on the card at the tier predicted from the active count before
+the drain, and, where that tier is >= 16, the run a world of one and the
+next chunk predicted off the RDP tail (FSCL_STAT_SPEC=1, the default),
+the whole next chunk's statistic is enqueued on the present geometry;
+then the host waits for the readback.  So the card rolls into the next
+chunk while the host counts exceedances.  A speculative chunk is taken
+only when its (boost, start, R) is the chunk's and no stack is due a
+compaction, so it ran on exactly the geometry a plain dispatch would use
+and the results are bitwise those of FSCL_STAT_SPEC=0; otherwise, and
+when the RDP tail engages, it is dropped and counted once as a miss
+(``hist_spec_misses``; taken: ``hist_spec_chunks``).  A checkpoint holds
+only drained chunks: a speculative chunk in flight at a save is dropped
+on a resume.
 
 Checkpoint and resume (engine/checkpoint.py), on both paths: with
 checkpoint_path, the state is saved after every chunk and a run whose
@@ -128,11 +146,20 @@ PS_BUDGET_BYTES = 2_400_000_000
 RDP_FORCE = os.environ.get("FSCL_RDP", "auto")
 RDP_BOUNDS_FACTOR = 24
 POINT_BUCKET = 64  # scan points per lattice statistic call
+# elements of one chunk's sigma at the largest tier: the boost tiers are
+# clamped to it (fscl_tpu/engine/permute.py:131), so at genome1m's 24,304
+# groups the deep tail runs 2,048-replicate chunks as there
+SIGMA_ELEM_CAP = 64_000_000
+# speculative next-chunk statistic on the stacked path (module doc);
+# results are bitwise equal either way
+STAT_SPEC = os.environ.get("FSCL_STAT_SPEC", "1") == "1"
+STAT_SPEC_MIN_BOOST = 16  # tiers from which the whole next chunk is enqueued
 
 # dispatch counts of the last scan_permute call: chunks through the RDP
-# path, stacked statistic dispatches of the chunk loop, and lattice
-# statistic calls (thresholds and chunks); and its split: the world, the
-# gathers' wall and received bytes (parallel/shard.py)
+# path, stacked statistic dispatches of the chunks taken, lattice
+# statistic calls (thresholds and chunks), speculative chunks taken and
+# dropped; and its split: the world, the gathers' wall and received
+# bytes (parallel/shard.py)
 last_stats: dict = {}
 
 
@@ -678,7 +705,8 @@ def scan_permute(data, tables, result, scan_cfg, cfg: PermuteConfig,
 
     last_stats.clear()
     last_stats.update(rdp_dispatches=0, stack_dispatches=0,
-                      lattice_dispatches=0)
+                      lattice_dispatches=0, hist_spec_chunks=0,
+                      hist_spec_misses=0)
     g0 = dict(shard.stats)
     if use_hist:
         _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn,
@@ -691,6 +719,58 @@ def scan_permute(data, tables, result, scan_cfg, cfg: PermuteConfig,
     if bad.any():
         logmsg(MSG_WARN, "%d scan points with non-finite CLR", int(bad.sum()))
     return result
+
+
+def boost_cap(n_groups, chunk_replicates):
+    """Largest boost tier whose sigma stays within SIGMA_ELEM_CAP
+    elements (fscl_tpu/engine/permute.py:1424, :1445): R_gen rounds
+    chunk_replicates up to whole HIST_REP_SUB slices."""
+    r_gen = -(-chunk_replicates // HIST_REP_SUB) * HIST_REP_SUB
+    return max(1, SIGMA_ELEM_CAP // max(n_groups, 1) // max(r_gen, 1))
+
+
+def boost_tier(n_act, rounds_done, chunk_replicates, cap):
+    """Replicates per chunk, in chunk_replicates, as pruning leaves few
+    survivors (fscl_tpu/engine/permute.py:1447-1466): 4 mid-run, 16 and
+    64 near the tail, 128 in the deep tail after the first chunk, each
+    halved while above the cap."""
+    b = 1
+    if (n_act <= HIST_POINT_BUCKET * 4
+            and rounds_done >= 8 * chunk_replicates):
+        b = 4
+    if n_act <= HIST_POINT_BUCKET // 4:
+        b = 16
+    if n_act <= HIST_POINT_BUCKET // 8:
+        b = 64
+    if n_act <= HIST_POINT_BUCKET // 8 and rounds_done > 0:
+        b = 128
+    while b > cap:
+        b //= 2
+    return max(b, 1)
+
+
+class _Readback:
+    """A device tensor's copy to the host, enqueued now and awaited by
+    wait(): into pinned memory behind an event on the card, so work
+    enqueued after it runs on while the host waits; at once on the
+    CPU."""
+
+    def __init__(self, t):
+        self._src = t
+        self._event = None
+        if t.device.type == "cuda":
+            self._buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+            self._buf.copy_(t, non_blocking=True)
+            self._event = torch.cuda.Event()
+            self._event.record(torch.cuda.current_stream(t.device))
+        else:
+            self._buf = t
+
+    def wait(self):
+        if self._event is not None:
+            self._event.synchronize()
+        self._src = None
+        return self._buf.numpy()
 
 
 def _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
@@ -708,21 +788,10 @@ def _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
     for i in range(K):
         if result.null_clr[i] is None:
             result.null_clr[i] = []
+    cap = boost_cap(hs.n_groups, cfg.chunk_replicates)
 
-    def _boost(n_act, rounds_done=0):
-        """Replicates per chunk grow as pruning leaves few survivors
-        (fscl_tpu/engine/permute.py:1447, without the sigma element cap)."""
-        b = 1
-        if (n_act <= HIST_POINT_BUCKET * 4
-                and rounds_done >= 8 * cfg.chunk_replicates):
-            b = 4
-        if n_act <= HIST_POINT_BUCKET // 4:
-            b = 16
-        if n_act <= HIST_POINT_BUCKET // 8:
-            b = 64
-        if n_act <= HIST_POINT_BUCKET // 8 and rounds_done > 0:
-            b = 128
-        return b
+    def _boost(n_act, rounds_done):
+        return boost_tier(n_act, rounds_done, cfg.chunk_replicates, cap)
 
     # a resume restores the finished flags and every point's threshold
     # before ``active`` is taken: finished points stay finished, and the
@@ -748,6 +817,37 @@ def _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
         logmsg(MSG_DEBUG1, "hist permutation setup: %.1fs (%d stack groups)",
                time.monotonic() - t0, len(hs.stacks))
 
+        # the next chunk's sigma ((boost, start), padded rows of this
+        # rank) and whole statistic ((boost, start, R), blocks), enqueued
+        # before the current chunk's drain
+        spec_sigma = spec_chunk = None
+
+        def _drop_spec():
+            nonlocal spec_chunk
+            if spec_chunk is not None:
+                last_stats["hist_spec_misses"] += 1
+            spec_chunk = None
+
+        def _speculate(start, n_act):
+            """Enqueue the next chunk's sigma and, in the tail tiers, its
+            statistic; (spec_sigma, spec_chunk)."""
+            if rdp is not None and rdp.wanted(active):
+                return None, None
+            b = _boost(n_act, start)
+            R_n = min(cfg.chunk_replicates * b, cfg.n_permute - start)
+            q0, q1 = shard.split_range(R_n, split)
+            if q1 == q0:
+                return None, None
+            with torch.profiler.record_function("fscl_spec_dispatch"):
+                sig = hs.pad_sigma(sigma_source(q1 - q0, start + q0))
+                chunk = None
+                if (STAT_SPEC and split.world == 1
+                        and b >= STAT_SPEC_MIN_BOOST):
+                    chunk = ((b, start, R_n),
+                             _stack_chunk(hs, cfg, result, active, R_n,
+                                          start, sigma_source, sig))
+            return ((b, start), sig), chunk
+
         with _InterruptState(dump_fn) as intr:
             while active.any() and rounds_done < cfg.n_permute:
                 tr = time.monotonic()
@@ -755,18 +855,39 @@ def _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
                 R = min(cfg.chunk_replicates * boost,
                         cfg.n_permute - rounds_done)
                 if rdp is not None and rdp.wanted(active):
+                    _drop_spec()
+                    spec_sigma = None
                     pts, out = rdp.chunk(active, R, rounds_done)
                     blocks = [(pts, out)]
                     path = "rdp"
                     host = out.cpu().numpy()
                 else:
-                    r0, r1 = shard.split_range(R, split)
-                    blocks = _stack_chunk(hs, cfg, result, active, r1 - r0,
-                                          rounds_done + r0, sigma_source)
                     path = "hist"
-                    host = shard.gather_rows(
-                        torch.cat([o for _, o in blocks], 1).cpu().numpy(),
-                        R, split)
+                    r0, r1 = shard.split_range(R, split)
+                    if (spec_chunk is not None
+                            and spec_chunk[0] == (boost, rounds_done, R)
+                            and not _compaction_due(hs, result, active)):
+                        blocks = spec_chunk[1]
+                        spec_chunk = None
+                        last_stats["hist_spec_chunks"] += 1
+                    else:
+                        _drop_spec()
+                        sig = (spec_sigma[1] if spec_sigma is not None
+                               and spec_sigma[0] == (boost, rounds_done)
+                               else None)
+                        blocks = _stack_chunk(hs, cfg, result, active,
+                                              r1 - r0, rounds_done + r0,
+                                              sigma_source, sig)
+                    spec_sigma = None
+                    if r1 > r0:
+                        last_stats["stack_dispatches"] += len(blocks)
+                    pending = _Readback(
+                        torch.cat([o for _, o in blocks], 1))
+                    if rounds_done + R < cfg.n_permute:
+                        spec_sigma, spec_chunk = _speculate(
+                            rounds_done + R, int(active.sum()))
+                    with torch.profiler.record_function("fscl_drain"):
+                        host = shard.gather_rows(pending.wait(), R, split)
                 off = 0
                 for pts, _ in blocks:
                     _apply_round_updates(
@@ -785,6 +906,7 @@ def _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
                 if ckpt is not None:
                     ckpt.save(result, rounds_done)
                 intr.maybe_dump()
+            _drop_spec()
     logmsg(
         MSG_STATUS,
         "Scanning snp block permutations... finished (%d rounds).",
@@ -793,11 +915,21 @@ def _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
     return result
 
 
-def _stack_chunk(hs, cfg, result, active, R, start, sigma_source):
+def _compaction_due(hs, result, active):
+    """Whether a live stack is due a compaction on ``active``: a
+    speculative chunk, built on the geometry before the drain, is then
+    not the chunk a plain dispatch would build."""
+    return any(st.due(result, active) for st in hs.stacks
+               if st.pts is not None and active[st.pts].any())
+
+
+def _stack_chunk(hs, cfg, result, active, R, start, sigma_source,
+                 sigma=None):
     """[(pts, [R, len(pts)] statistic maxima)] of replicates start ..
     start + R - 1 on the stacked path, one entry per live stack
     (compacted first where due; R = 0, a rank without a share of the
-    chunk, compacts and launches nothing)."""
+    chunk, compacts and launches nothing).  sigma: the chunk's padded
+    rows drawn ahead, else drawn here."""
     live = [st for st in hs.stacks
             if st.pts is not None and active[st.pts].any()]
     for st in live:
@@ -807,12 +939,9 @@ def _stack_chunk(hs, cfg, result, active, R, start, sigma_source):
         return [(st.pts, torch.zeros((0, len(st.pts)))) for st in live]
     # exactly the chunk's rows, in slices of sub_rep (the last one
     # short): a rank of a split draws and evaluates its own rows only
-    sigma = hs.pad_sigma(sigma_source(R, start))
-    blocks = []
-    for st in live:
-        blocks.append((st.pts, st.stat(hs.table, sigma, cfg)))
-        last_stats["stack_dispatches"] += 1
-    return blocks
+    if sigma is None:
+        sigma = hs.pad_sigma(sigma_source(R, start))
+    return [(st.pts, st.stat(hs.table, sigma, cfg)) for st in live]
 
 
 class _ChrPermContext:

@@ -144,6 +144,10 @@ def load():
     lib.fscl_clr_grid.argtypes = [vp] * 10 + [i, i, i, i, ctypes.c_float,
                                                i, vp]
     lib.fscl_clr_grid.restype = i
+    f32, u32 = ctypes.c_float, ctypes.c_uint
+    lib.fscl_replicate_runs.argtypes = [vp, i, i, i, f32, f32, u32, u32,
+                                        u32, i, vp, vp, vp, vp, vp]
+    lib.fscl_replicate_runs.restype = i
     for tile in (lib.fscl_ps_tile, lib.fscl_wps_tile,
                  lib.fscl_clr_grid_slice_sites, lib.fscl_clr_grid_group):
         tile.argtypes = []
@@ -161,7 +165,7 @@ def launch_counts() -> dict:
     """Every wrapper's count of its kernel's launches in this process,
     by kernel (each wrapper adds one where it launches, and nowhere
     else)."""
-    from .ops import clr, gather, lattice, prefix_sums, window_clr
+    from .ops import clr, gather, lattice, permute, prefix_sums, window_clr
 
     return dict(
         onehot_prefix_sums=prefix_sums.launches,
@@ -175,6 +179,7 @@ def launch_counts() -> dict:
         window_clr_f32_reduce=window_clr.window_clr_f32_reduce_launches,
         clr_lattice=lattice.lattice_clr_launches,
         clr_grid=clr.clr_grid_launches,
+        replicate_runs=permute.replicate_runs_launches,
     )
 
 

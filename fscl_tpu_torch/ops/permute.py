@@ -1,5 +1,6 @@
-"""Genome-wide block permutation of SNP attributes (port of
-fscl_tpu/ops/permute.py, the group-level sigma).
+"""Genome-wide block permutation of SNP attributes: fscl_tpu's threefry
+stream (port of fscl_tpu/ops/permute.py:57-188, :242-265), drawn on the
+card.
 
 Reference: snp_block_permute (scan-chromosome.c:336-389).
 Sites are binned into contiguous blocks of >= scan_width bp by a uniform
@@ -7,23 +8,36 @@ random phase, block(w) = floor((gpos_w + phase) / width); the block order
 is shuffled, and within-block order is kept.  Block boundaries quantize
 to PERM_GROUP-site groups, so sigma is group-level: output group g takes
 input group sigma8[g].  The final (possibly partial) group is pinned in
-its own tail block, and a shuffle that moves nothing is redrawn whenever
-more than one block can move (fscl_tpu/ops/permute.py:71-95).
+its own tail block.
 
-Random numbers: replicate r of a stream draws from its own
-torch.Generator seeded from (seed, start + r), so row r is a pure
-function of (seed, start + r) whatever the chunking
-(fscl_tpu/ops/permute.py:109-114).  The bits differ from the JAX
-package's threefry stream; tests feed the JAX sigma (and runs) to the
-port where they compare permutation results.
+Random numbers: row r of a stream is row r of fscl_tpu's, bit for bit,
+for the same seed.  Its key is threefry2x32 fold_in(key(seed), start + r)
+with start + r taken as uint32 (fscl_tpu/ops/permute.py:109-114), so row
+r is a pure function of (seed, start + r) whatever the chunking.  The
+key splits into a phase key and a permutation key; the phase is a
+float32 uniform on [0, width); the block order is jax.random.permutation
+of the shuffled blocks as JAX's _shuffle computes it (rounds of 32-bit
+sort keys, each sorted stably), redrawn from fold_in(key, 1) while it is
+the identity and more than one block can move (:71-95).  What XLA
+computes is copied: split and random_bits as under
+jax_threefry_partitionable (the installed JAX's default), the block ids
+as (float32(g0) + phase) * float32(1 / width), XLA's rewrite of the
+division by a constant, each step rounded to float32.
 
 One draw serves two forms of a replicate: its runs (src, dst, sz), the
 contiguous source block behind each stretch of output groups
 (block_permutation_runs, consumed by the run-decomposed statistic), and
-the group sigma they materialise (block_permutation_groups).
+the group sigma they materialise (block_permutation_groups).  On the
+card both come from one kernel, csrc/replicate_runs.cu (one block a
+replicate: threefry, the block sizes, a bitonic sort of the shuffle's
+keys in shared memory with the redraw loop, the runs and, on request,
+the sigma row); on the CPU from replicate_runs_plain, the same function
+in int64 tensors masked to 32 bits.
 """
 
 from __future__ import annotations
+
+import weakref
 
 import numpy as np
 import torch
@@ -34,7 +48,169 @@ PERM_GROUP = 32  # sites per permutation group (fscl_tpu/ops/permute.py:40)
 # the name of this module's sigma stream, written into every permutation
 # checkpoint (engine/checkpoint.py), which refuses a file of another
 # stream; change it with any change to the rows a (seed, index) draws
-SIGMA_STREAM = "fscl_tpu_torch: splitmix64(seed, index) -> torch.Generator, v1"
+SIGMA_STREAM = ("threefry2x32 fold_in(key(seed), start + r): fscl_tpu's "
+                "block-permutation stream, v1")
+# shuffled blocks the kernel's shared-memory sort holds: 8 bytes a key
+# at the next power of two, plus 4 a block of starts, in 227 KB
+BLOCKS_MAX = 16384
+replicate_runs_launches = 0  # CUDA kernel launches by replicate_runs
+
+_M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+
+
+def threefry2x32(k0, k1, x0, x1):
+    """JAX's threefry2x32 hash (20 rounds) on int64 tensors holding
+    uint32 values; broadcasts; returns (y0, y1)."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    x0 = (x0 + k0) & _M32
+    x1 = (x1 + k1) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = ((x1 << r) | (x1 >> (32 - r))) & _M32
+            x1 = x0 ^ x1
+        x0 = (x0 + ks[(i + 1) % 3]) & _M32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x0, x1
+
+
+def _fold_in(k, data):
+    """fold_in of keys k [N, 2] with uint32 data (int or [N])."""
+    return torch.stack(threefry2x32(k[:, 0], k[:, 1], 0, data), 1)
+
+
+def _split(k):
+    """(first, second) of split(k) [N, 2] (partitionable threefry: key i
+    hashes the 64-bit counter i)."""
+    return _fold_in(k, 0), _fold_in(k, 1)
+
+
+def _bits32(k, n):
+    """random_bits(k, 32, (n,)) for keys [N, 2]: [N, n]."""
+    idx = torch.arange(n, dtype=torch.int64, device=k.device)[None, :]
+    y0, y1 = threefry2x32(k[:, :1], k[:, 1:], 0, idx)
+    return y0 ^ y1
+
+
+def seed_key(seed):
+    """(k0, k1) of jax.random.key(seed): the seed's low 32 bits."""
+    return 0, int(seed) & _M32
+
+
+def shuffle_rounds(n):
+    """Sort rounds of jax.random.permutation(key, n) (JAX's _shuffle)."""
+    return int(np.ceil(3 * np.log(max(1, n))
+                       / np.log(np.iinfo(np.uint32).max)))
+
+
+def _permutation(kp, B, rounds):
+    """[N, B] int64 jax.random.permutation(kp[i], B) for keys [N, 2]."""
+    x = torch.arange(B, dtype=torch.int64,
+                     device=kp.device).expand(kp.shape[0], B)
+    for _ in range(rounds):
+        kp, sub = _split(kp)
+        order = torch.sort(_bits32(sub, B), dim=1, stable=True).indices
+        x = torch.gather(x, 1, order)
+    return x
+
+
+def replicate_runs_plain(seed, start, g0f, n_blocks, width, n,
+                         with_sigma=False):
+    """Plain PyTorch version of the kernel: runs (src, dst, sz) [n,
+    n_blocks] int32 of replicates start..start+n-1, and with_sigma their
+    group sigma [n, G] int32 (else None).
+
+    g0f: [G] float32 first-site position of each group (from the genome's
+    first site); width: the block width (effective_block_width)."""
+    dev = g0f.device
+    G, nb, B = g0f.shape[0], int(n_blocks), int(n_blocks) - 1
+    k0, k1 = seed_key(seed)
+    idx = (int(start) + torch.arange(n, dtype=torch.int64,
+                                     device=dev)) & _M32
+    key = torch.stack(threefry2x32(k0, k1, 0, idx), 1)
+    k_phase, k_perm = _split(key)
+    w32 = torch.tensor(np.float32(width), device=dev)
+    inv_w = torch.tensor(np.float32(1) / np.float32(width), device=dev)
+    fb = ((_bits32(k_phase, 1)[:, 0] >> 9) | 0x3F800000)
+    phase = (fb.to(torch.int32).view(torch.float32) - 1.0) * w32
+    block = ((g0f[None, :] + phase[:, None]) * inv_w).to(torch.int64)
+    block = block.clamp(0, nb - 2)
+    block[:, -1] = nb - 1  # pinned tail block
+    b_idx = torch.arange(nb, device=dev).expand(n, nb).contiguous()
+    starts = torch.searchsorted(block, b_idx, side="left")
+    sizes = torch.searchsorted(block, b_idx, side="right") - starts
+    rounds = shuffle_rounds(B)
+    head = _permutation(k_perm, B, rounds)
+    ident = torch.arange(B, device=dev)
+    redo = (head == ident).all(1) & (B > 1)
+    while bool(redo.any()):
+        rows = torch.nonzero(redo).flatten()
+        k_perm[rows] = _fold_in(k_perm[rows], 1)
+        head[rows] = _permutation(k_perm[rows], B, rounds)
+        redo[rows] = (head[rows] == ident).all(1)
+    order = torch.cat(
+        [head, torch.full((n, 1), nb - 1, dtype=torch.int64, device=dev)], 1
+    )
+    sz = torch.gather(sizes, 1, order)
+    src = torch.gather(starts, 1, order)
+    dst = torch.cumsum(sz, 1) - sz  # exclusive prefix
+    sigma = sigma_from_runs(src, dst, G) if with_sigma else None
+    return (src.to(torch.int32), dst.to(torch.int32), sz.to(torch.int32),
+            sigma)
+
+
+def replicate_runs(seed, start, g0f, n_blocks, width, n, with_runs=True,
+                   with_sigma=False):
+    """(src, dst, sz) [n, n_blocks] int32 (None unless with_runs) and the
+    group sigma [n, G] int32 (None unless with_sigma) of replicates
+    start..start+n-1 (see replicate_runs_plain).  CPU tensors take the
+    plain version; CUDA tensors launch the kernel or raise."""
+    if g0f.device.type == "cpu":
+        src, dst, sz, sigma = replicate_runs_plain(
+            seed, start, g0f, n_blocks, width, n, with_sigma)
+        return ((src, dst, sz) if with_runs else None), sigma
+    if g0f.device.type != "cuda":
+        raise ValueError(f"replicate_runs: unsupported device {g0f.device}")
+    if g0f.dtype != torch.float32 or g0f.dim() != 1 \
+            or not g0f.is_contiguous():
+        raise ValueError("replicate_runs: g0f must be a contiguous 1-D "
+                         f"float32 tensor, got {g0f.dtype} "
+                         f"{tuple(g0f.shape)}")
+    G, nb = g0f.shape[0], int(n_blocks)
+    if not 1 <= nb - 1 <= BLOCKS_MAX:
+        raise ValueError(
+            f"replicate_runs: {nb - 1} shuffled blocks; the kernel's "
+            f"shared-memory sort holds 1 to {BLOCKS_MAX} (raise the block "
+            "width)")
+    if G == 0 or n * max(G, nb) >= 2**31:
+        raise ValueError(f"replicate_runs: {n} replicates of {G} groups "
+                         f"and {nb} blocks (need G >= 1, n x G < 2^31)")
+    dev = g0f.device
+    kw = dict(dtype=torch.int32, device=dev)
+    runs = (tuple(torch.empty((n, nb), **kw) for _ in range(3))
+            if with_runs else None)
+    sigma = torch.empty((n, G), **kw) if with_sigma else None
+    if n == 0:
+        return runs, sigma
+    from .. import kernels
+
+    lib = kernels.load()
+    k0, k1 = seed_key(seed)
+    ptr = [t.data_ptr() if t is not None else None
+           for t in (*(runs or (None,) * 3), sigma)]
+    with torch.cuda.device(dev):
+        rc = lib.fscl_replicate_runs(
+            g0f.data_ptr(), G, nb, shuffle_rounds(nb - 1),
+            float(np.float32(width)),
+            float(np.float32(1) / np.float32(width)), k0, k1,
+            int(start) & _M32, n, *ptr,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    kernels.check(lib, rc, "replicate_runs")
+    global replicate_runs_launches
+    replicate_runs_launches += 1
+    return runs, sigma
 
 
 def _group_first_positions(gpos):
@@ -44,6 +220,32 @@ def _group_first_positions(gpos):
         return np.zeros(0, np.int64), 0
     span = int(gpos[-1]) - int(gpos[0])
     return gpos[::PERM_GROUP] - gpos[0], span
+
+
+# device copies of the callers' host gpos arrays (group first positions
+# as float32): the drivers pass one genome_pos() array every chunk, and an
+# upload each chunk would be a host copy between two chunks' launches.
+# An entry pairs the device tensor with a weakref to the host array, so a
+# recycled id() never serves a stale copy (fscl_tpu/ops/permute.py:190).
+_g0_cache: dict = {}
+
+
+def _g0_device(gpos, device):
+    """([G] float32 group first positions on device, span)."""
+    key = (id(gpos), str(device))
+    hit = _g0_cache.get(key)
+    if hit is not None and hit[0]() is gpos:
+        return hit[1], hit[2]
+    g0, span = _group_first_positions(gpos)
+    # float32 of the int32 offsets fscl_tpu converts (round to nearest)
+    g0f = torch.as_tensor(g0.astype(np.float32), device=device)
+    if len(_g0_cache) > 64:
+        _g0_cache.clear()
+    try:
+        _g0_cache[key] = (weakref.ref(gpos), g0f, span)
+    except TypeError:  # not weakrefable (a list): no caching
+        pass
+    return g0f, span
 
 
 def effective_block_width(span, width_bp):
@@ -58,45 +260,39 @@ def n_blocks_for(span, width_bp):
     return max(int(span // w) + 2, 1) + 1
 
 
-def _replicate_seed(seed, index):
-    """32-bit seed of replicate ``index`` (splitmix64 of (seed, index)):
-    the CPU generator's Mersenne Twister keeps 32 bits of its seed."""
-    m = (1 << 64) - 1
-    z = ((((int(seed) & 0xFFFFFFFF) << 32) | (int(index) & 0xFFFFFFFF))
-         + 0x9E3779B97F4A7C15) & m
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & m
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & m
-    return (z ^ (z >> 31)) & 0xFFFFFFFF
+def _draw(seed, gpos, width_bp, n, start, device, with_runs, with_sigma):
+    device = parse_device(device)
+    g0f, span = _g0_device(gpos, device)
+    return replicate_runs(
+        seed, start, g0f, n_blocks_for(span, width_bp),
+        effective_block_width(span, width_bp), int(n), with_runs=with_runs,
+        with_sigma=with_sigma,
+    )
 
 
-def _blocks(g0, phase, n_blocks, width, device):
-    """[N, n_blocks] first group of each block and its group count."""
-    N = phase.shape[0]
-    g0_d = torch.as_tensor(g0, dtype=torch.float64, device=device)
-    ph = torch.as_tensor(phase, dtype=torch.float64, device=device)
-    block = torch.floor((g0_d[None, :] + ph[:, None]) / width).to(torch.int64)
-    block = block.clamp(0, n_blocks - 2)
-    block[:, -1] = n_blocks - 1  # pinned tail block
-    b_idx = torch.arange(n_blocks, device=device).expand(N, n_blocks)
-    b_idx = b_idx.contiguous()
-    starts = torch.searchsorted(block, b_idx, side="left")
-    ends = torch.searchsorted(block, b_idx, side="right")
-    return starts, ends - starts
+def block_permutation_groups(seed, gpos, width_bp, n_replicates, start=0,
+                             device="cuda"):
+    """Group-level gather indices sigma8 [R, G] int32, G = ceil(W / 32)
+    (fscl_tpu/ops/permute.py:229).
+
+    Site-level semantics: sigma[w] = PERM_GROUP * sigma8[w // PERM_GROUP]
+    + w % PERM_GROUP.  gpos: [W] genome-wide monotone bp coordinates;
+    width_bp: minimum block span; row r is a pure function of
+    (seed, start + r).
+    """
+    return _draw(seed, gpos, width_bp, n_replicates, start, device,
+                 with_runs=False, with_sigma=True)[1]
 
 
-def _runs(starts, sizes, order):
-    """Runs (src, dst, sz) [N, n_blocks] int64 of per-replicate block
-    orders: output groups [dst[j], dst[j] + sz[j]) take source groups
-    [src[j], src[j] + sz[j]); the pinned tail block is the last run
-    (fscl_tpu/ops/permute.py:96-106)."""
-    N, n_blocks = starts.shape
-    tail = torch.full((N, 1), n_blocks - 1, dtype=torch.int64,
-                      device=starts.device)
-    full_order = torch.cat([order.to(starts.device), tail], 1)
-    sz = torch.gather(sizes, 1, full_order)
-    src = torch.gather(starts, 1, full_order)
-    dst = torch.cumsum(sz, 1) - sz  # exclusive prefix
-    return src, dst, sz
+def block_permutation_runs(seed, gpos, width_bp, n_replicates, start=0,
+                           device="cuda"):
+    """Runs (src, dst, sz) [R, n_blocks] int32 of the replicates that
+    block_permutation_groups materialises (fscl_tpu/ops/permute.py:161).
+
+    Group units: sigma8[r, dst[r, j] + t] == src[r, j] + t for
+    t < sz[r, j]; row r is a pure function of (seed, start + r)."""
+    return _draw(seed, gpos, width_bp, n_replicates, start, device,
+                 with_runs=True, with_sigma=False)[0]
 
 
 def sigma_from_runs(src, dst, n_groups):
@@ -117,69 +313,6 @@ def sigma_from_runs(src, dst, n_groups):
     base.scatter_add_(1, dst, dval)
     sig = torch.cumsum(base[:, :G], 1) + torch.arange(G, device=src.device)
     return sig.to(torch.int32)
-
-
-def _draw_runs(seed, gpos, width_bp, n_replicates, start, device):
-    """(src, dst, sz) [N, n_blocks] int64 and G for replicates start..
-    start+N-1.  A row that would move nothing (every non-empty run left
-    in place) is redrawn from the same generator whenever two or more
-    non-empty blocks can move."""
-    device = parse_device(device)
-    g0, span = _group_first_positions(gpos)
-    n_blocks = n_blocks_for(span, width_bp)
-    width = effective_block_width(span, width_bp)
-    B = n_blocks - 1  # shuffled blocks; the tail block stays last
-    N = int(n_replicates)
-    gens = []
-    phase = np.empty(N, np.float64)
-    order = torch.empty((N, B), dtype=torch.int64)
-    for r in range(N):
-        g = torch.Generator()
-        g.manual_seed(_replicate_seed(seed, start + r))
-        phase[r] = float(torch.rand((), generator=g, dtype=torch.float64))
-        order[r] = torch.randperm(B, generator=g)
-        gens.append(g)
-    starts, sizes = _blocks(g0, phase * width, n_blocks, width, device)
-    src, dst, sz = _runs(starts, sizes, order)
-    movable = (sizes[:, :B] > 0).sum(1) > 1
-    while True:
-        still = ((src == dst) | (sz == 0)).all(1)
-        redo = torch.nonzero(still & movable).flatten().cpu().tolist()
-        if not redo:
-            return src, dst, sz, len(g0)
-        for r in redo:
-            order[r] = torch.randperm(B, generator=gens[r])
-        src[redo], dst[redo], sz[redo] = _runs(
-            starts[redo], sizes[redo], order[redo]
-        )
-
-
-def block_permutation_groups(seed, gpos, width_bp, n_replicates, start=0,
-                             device="cuda"):
-    """Group-level gather indices sigma8 [R, G] int32, G = ceil(W / 32).
-
-    Site-level semantics: sigma[w] = PERM_GROUP * sigma8[w // PERM_GROUP]
-    + w % PERM_GROUP.  gpos: [W] genome-wide monotone bp coordinates;
-    width_bp: minimum block span; row r is a pure function of
-    (seed, start + r).  A row that would move nothing is redrawn (see
-    _draw_runs).
-    """
-    src, dst, _, G = _draw_runs(seed, gpos, width_bp, n_replicates, start,
-                                device)
-    return sigma_from_runs(src, dst, G)
-
-
-def block_permutation_runs(seed, gpos, width_bp, n_replicates, start=0,
-                           device="cuda"):
-    """Runs (src, dst, sz) [R, n_blocks] int32 of the replicates that
-    block_permutation_groups materialises (fscl_tpu/ops/permute.py:161).
-
-    Group units: sigma8[r, dst[r, j] + t] == src[r, j] + t for
-    t < sz[r, j]; row r comes from exactly the draws and redraws of sigma
-    row r, a pure function of (seed, start + r)."""
-    src, dst, sz, _ = _draw_runs(seed, gpos, width_bp, n_replicates, start,
-                                 device)
-    return src.to(torch.int32), dst.to(torch.int32), sz.to(torch.int32)
 
 
 def expand_group_sigma(sigma8, n_sites):

@@ -5,10 +5,10 @@ against fscl_tpu.
 Stated tolerances:
   * one save sequence through both packages' Checkpointers: the replayed
     states equal (counters, thresholds, the float32 reservoir values),
-    whichever package replays; the port refuses fscl_tpu's files (no
-    sigma-stream entry) with a ValueError naming the stream, and
-    fscl_tpu, which checks only positions and CLRs, accepts the port's
-    (stated here, not changed: fscl_tpu is not edited);
+    whichever package replays; the port resumes fscl_tpu's files (no
+    sigma-stream entry: fscl_tpu's stream is the port's) and refuses a
+    file naming another stream with a ValueError, and fscl_tpu, which
+    checks only positions and CLRs, accepts the port's;
   * a resumed run against the uninterrupted run, the break on a chunk
     boundary of the uninterrupted run and before any point reached
     PRUNE_THRESHOLD exceedances (no pruning draw yet): permute_n,
@@ -258,15 +258,31 @@ def test_both_checkpointers_replay_one_save_sequence(onehot, tmp_path,
 
 
 def test_port_refuses_fscl_tpu_files(onehot, tmp_path):
+    """fscl_tpu's files name no sigma stream, and its stream is the
+    port's: the port resumes them (log and full snapshot) to the state
+    fscl_tpu replays.  A file naming another stream is refused."""
     result = onehot[2]
-    _save_sequence(JC.Checkpointer, str(tmp_path / "j.npz"), result, None)
-    JC.save_checkpoint(str(tmp_path / "full.npz"), _fresh(result), 4, 5)
-    with pytest.raises(ValueError, match="another package.*stream"):
-        TC.Checkpointer(str(tmp_path / "j.npz"), _fresh(result), seed=5)
-    with pytest.raises(ValueError, match="another package.*stream"):
-        TC.load_checkpoint(str(tmp_path / "full.npz"), _fresh(result))
-    with pytest.raises(ValueError, match="another package.*stream"):
-        TC.Checkpointer(str(tmp_path / "full.npz"), _fresh(result), seed=5)
+    saved = _state(_save_sequence(JC.Checkpointer, str(tmp_path / "j.npz"),
+                                  result, None))
+    r = _fresh(result)
+    c = TC.Checkpointer(str(tmp_path / "j.npz"), r, seed=5)
+    assert c.rounds_done == 16 and _state(r) == saved
+    c.close()
+    full = _fresh(result)
+    full.permute_n[:] = 4
+    full.stat_threshold = np.linspace(0.0, 1.0, full.n_points)
+    JC.save_checkpoint(str(tmp_path / "full.npz"), full, 4, 5)
+    r = _fresh(result)
+    assert TC.load_checkpoint(str(tmp_path / "full.npz"), r) == (4, 5)
+    assert _state(r) == _state(full)
+    with np.load(str(tmp_path / "full.npz")) as z:
+        other = dict(z)
+    other["sigma_stream"] = "another stream, v1"
+    np.savez(str(tmp_path / "other.npz"), **other)
+    with pytest.raises(ValueError, match="another permutation stream"):
+        TC.load_checkpoint(str(tmp_path / "other.npz"), _fresh(result))
+    with pytest.raises(ValueError, match="another permutation stream"):
+        TC.Checkpointer(str(tmp_path / "other.npz"), _fresh(result), seed=5)
 
 
 def test_torn_tail_falls_back_to_last_whole_record(onehot, tmp_path):
@@ -447,21 +463,22 @@ def test_interrupted_runs_match_fscl_tpu(onehot, tmp_path, monkeypatch):
 # ---- (6) - (8) kills, SIGINT, a finished run -------------------------------
 
 def test_run_killed_mid_chunk_resumes(onehot, tmp_path, monkeypatch):
-    """The sigma draw of the chunk starting at 32 (chunks of 32) raises
-    KeyboardInterrupt: the file holds the 32 rounds before it, and the
-    resume equals the uninterrupted run.  The break lies past the rounds
-    where points reach PRUNE_THRESHOLD exceedances, and a resume re-seeds
-    the pruning RNG (test_resume_after_pruning_draws holds that case to
-    fscl_tpu's contract), so both runs here take no pruning draw: the
-    threshold is set past the run's 64 rounds."""
-    n, pc = 64, dict(chunk_replicates=2)
+    """The sigma draw of the chunk starting at 64 (chunks of 32), made
+    ahead while the chunk starting at 32 runs, raises KeyboardInterrupt:
+    the file holds the 32 rounds saved before it, and the resume equals
+    the uninterrupted run.  The break lies past the rounds where points
+    reach PRUNE_THRESHOLD exceedances, and a resume re-seeds the pruning
+    RNG (test_resume_after_pruning_draws holds that case to fscl_tpu's
+    contract), so both runs here take no pruning draw: the threshold is
+    set past the run's 96 rounds."""
+    n, pc = 96, dict(chunk_replicates=2)
     monkeypatch.setattr(TP, "PRUNE_THRESHOLD", n + 1)
     s_full = []
     full, _ = _run(onehot, n, starts=s_full, **pc)
-    assert 32 in s_full
+    assert 32 in s_full and 64 in s_full
     ck = str(tmp_path / "k.npz")
     with pytest.raises(KeyboardInterrupt):
-        _run(onehot, n, ck, stop_at=32, **pc)
+        _run(onehot, n, ck, stop_at=64, **pc)
     r = _fresh(onehot[2])
     c = TC.Checkpointer(ck, r, seed=PC["seed"])
     assert c.rounds_done == 32 and (r.permute_n == 32).all()

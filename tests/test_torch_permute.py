@@ -1,9 +1,11 @@
 """Block permutations and the hist permutation driver: port vs fscl_tpu.
 
 Stated tolerances:
-  * sigma generator (the port's own torch.Generator stream): exact
-    properties — bijection made of contiguous group runs, pinned tail,
-    no identity row, chunked generation equal to one-shot generation;
+  * sigma generator (fscl_tpu's threefry stream): exact properties —
+    bijection made of contiguous group runs, pinned tail, chunked
+    generation equal to one-shot generation — and the rows of fscl_tpu's
+    block_permutation_groups bit for bit, whose rule redraws an identity
+    block order (tests/test_torch_stream.py holds the stream in full);
   * _stack_stat on a shared table, sigma, seg_g0, geometry and t3: float32
     1e-5 relative plus 1e-3 CLR units absolute, bfloat16 1e-2 relative;
   * scan_permute with the JAX sigma injected and hist_bf16=False:
@@ -28,7 +30,11 @@ from fscl_tpu.data import build_snp_data
 from fscl_tpu.models import background_fsp, build_tables
 from fscl_tpu.ops.permute import block_permutation_groups as jax_sigma
 from fscl_tpu.sim import simulate_dataset
-from fscl_tpu_torch.ops.permute import PERM_GROUP, block_permutation_groups
+from fscl_tpu_torch.ops.permute import (
+    PERM_GROUP,
+    block_permutation_groups,
+    n_blocks_for,
+)
 
 SCAN = dict(eval_range=300, small_grid_sp=10000, large_grid_sp=100000,
             exact_step_max=1.0, selection_bf16=False)
@@ -70,7 +76,7 @@ def _fresh(result):
     return r
 
 
-# ---- the port's sigma generator -------------------------------------------
+# ---- the sigma generator ----------------------------------------------------
 
 @pytest.fixture(scope="module")
 def gpos():
@@ -85,11 +91,12 @@ def test_sigma_rows_are_block_bijections(gpos):
     for row in sig:
         np.testing.assert_array_equal(np.sort(row), np.arange(G))
         assert row[-1] == G - 1  # pinned tail group
-        assert not np.array_equal(row, np.arange(G))  # identity rejected
         # contiguous runs: each block is a run of consecutive groups
         breaks = np.count_nonzero(np.diff(row) != 1)
         span = int(gpos[-1] - gpos[0])
         assert breaks + 1 <= span // 1_000_000 + 3
+    np.testing.assert_array_equal(
+        sig, np.asarray(jax_sigma(jax.random.key(7), gpos, 1e6, 24)))
 
 
 def test_sigma_chunking_replays_stream(gpos):
@@ -104,12 +111,18 @@ def test_sigma_chunking_replays_stream(gpos):
 
 
 def test_short_genome_still_mixes():
-    """A shuffle that moves only empty blocks is still the identity; the
-    rejection works on sigma, so every row moves something."""
+    """Two to four shuffled blocks: an identity block order is redrawn
+    from fold_in(key, 1), as fscl_tpu does, so some rows here are
+    redraws, and every row is fscl_tpu's bit for bit."""
     g = np.arange(0, 2_500_000, 400, dtype=np.int64)
     sig = block_permutation_groups(3, g, 1e6, 16, device="cpu").numpy()
-    for row in sig:
-        assert not np.array_equal(row, np.arange(sig.shape[1]))
+    np.testing.assert_array_equal(
+        sig, np.asarray(jax_sigma(jax.random.key(3), g, 1e6, 16)))
+    B = n_blocks_for(int(g[-1] - g[0]), 1e6) - 1
+    first = [np.asarray(jax.random.permutation(
+        jax.random.split(jax.random.fold_in(jax.random.key(3), r))[1], B))
+        for r in range(16)]
+    assert any(np.array_equal(o, np.arange(B)) for o in first)
 
 
 # ---- the statistic ---------------------------------------------------------

@@ -74,7 +74,9 @@ def _rebuild(src, dst, sz, G):
 ])
 def test_runs_rebuild_sigma_with_redraws(span, width, start):
     """block_permutation_runs rebuilds block_permutation_groups exactly,
-    redraws included (the analogue of tests/test_rdp.py:36)."""
+    redraws included (the analogue of tests/test_rdp.py:36), and both are
+    fscl_tpu's rows bit for bit (whose rule redraws an identity block
+    order)."""
     rng = np.random.default_rng(0)
     gpos = np.sort(rng.choice(span, 9_000, replace=False))
     sig = block_permutation_groups(7, gpos, width, 24, start=start,
@@ -87,7 +89,13 @@ def test_runs_rebuild_sigma_with_redraws(span, width, start):
         np.testing.assert_array_equal(_rebuild(src[r], dst[r], sz[r], G),
                                       sig[r])
         assert sz[r].sum() == G
-        assert not np.array_equal(sig[r], np.arange(G))  # moved something
+    want = [np.asarray(x) for x in jax_runs(jax.random.key(7), gpos, width,
+                                            24, start=start)]
+    for got, w in zip((src, dst, sz), want):
+        np.testing.assert_array_equal(got, w)
+    np.testing.assert_array_equal(
+        sig, np.asarray(jax_sigma(jax.random.key(7), gpos, width, 24,
+                                  start=start)))
 
 
 def test_runs_chunking_and_expansion():
