@@ -251,12 +251,20 @@ non-zero:
                csrc/replicate_runs.cu: fscl_tpu's threefry draw of a
                chunk's runs and sigma) against its plain version, bit for
                bit, in its two forms (sigma, runs), at the 20k chunk
-               (32 replicates), genome1m's deep-tail chunk (2,048 of
-               24,304 groups) and phase 4d's chromosome (16 of 131,060):
-               a second launch bitwise, kernel and plain timed, the bound
-               on the work these inputs need (bytes written, or threefry
-               hashes, sort compares and block ids, the redraws this
-               chunk takes counted); genome1m's 64 permutations (phase
+               (32 replicates), genome1m's first chunk (16 of 24,304
+               groups, the CLI's default) and deep-tail chunk (2,048),
+               phase 4d's chromosome (16 of 131,060) and genome1m at 30
+               kb blocks (256 replicates, about 33,000 blocks): a second
+               launch and a launch after the timing loop bitwise, the
+               kernel alone (a CUDA graph of 20 launches into
+               preallocated outputs), the wrapper and the plain version
+               timed, the bound on the work these inputs need (bytes
+               written and g0f read, or threefry hashes, a counting
+               sort's two operations a key and the block ids of the
+               starts, the redraws this chunk takes counted); the CLI on
+               genome1m.sf at -p 16 -w 0.03 --max-only to its end, its
+               first chunk's draw against the plain version's, its
+               launches counted; genome1m's 64 permutations (phase
                5's scan) and its deep tail (bench/run_tail.py's 22
                immortal points, 1,024 rounds at chunks of 256 and 512,
                RDP off) each with FSCL_STAT_SPEC 0 and 1: results bit for
@@ -4183,12 +4191,23 @@ def phase_load(smi, split, build_s):
     return out
 
 
-# phase 12: the stream's chunks (label, scan, replicates, start, seed): the
-# 20k task's chunk (chunk_replicates 32, seed 1), genome1m's deep-tail
-# chunk (2,048 replicates at the CLI's seed) and phase 4d's (16)
-STREAM_SHAPES = (("20k chunk", "20k", 32, 0, 1),
-                 ("genome1m chunk", "genome1m", 2048, 2048, 0xFD821A6),
-                 ("4d chromosome chunk", "big_chromosome", 16, 0, 0xFD821A6))
+# phase 12: the stream's chunks (label, scan, replicates, start, seed,
+# block width bp): the 20k task's chunk (chunk_replicates 32, seed 1),
+# genome1m's first chunk (16 replicates, the CLI's default) and deep-tail
+# chunk (2,048 at the CLI's seed), phase 4d's (16), and genome1m at 30 kb
+# blocks (256 replicates of about 33,000 blocks)
+STREAM_SHAPES = (("20k chunk", "20k", 32, 0, 1, 1e6),
+                 ("genome1m chunk", "genome1m", 16, 0, 0xFD821A6, 1e6),
+                 ("genome1m deep tail", "genome1m", 2048, 2048, 0xFD821A6,
+                  1e6),
+                 ("4d chromosome chunk", "big_chromosome", 16, 0, 0xFD821A6,
+                  1e6),
+                 ("large B", "genome1m", 256, 0, 0xFD821A6, 3e4))
+# launches a CUDA graph of the kernel alone holds (graph_time_ms)
+GRAPH_LAUNCHES = 20
+# phase 12's CLI leg: genome1m at 30 kb blocks (about 33,000 shuffled
+# blocks, past the first kernel's 16,384), 16 permutations
+STREAM_CLI = ["-p", "16", "-w", "0.03", "--max-only"]
 # lane operations of one threefry2x32 hash: 20 rounds of add, rotate and
 # xor, 5 key injections of three adds
 STREAM_OPS_HASH = 75
@@ -4216,74 +4235,206 @@ def _stream_redraws(seed, start, n, B):
     return redraws
 
 
-def _stream_ops(n, G, nb, redraws, sigma):
-    """Lane operations of a chunk's draw: the threefry hashes (a
-    replicate's key, phase key, phase bits and permutation key; a draw's
-    split and B sort keys a round; a redraw's fold_in), the compares of a
-    comparison sort of B keys a round, each group's block id (add,
-    multiply, convert, clamp) and, for the sigma, one operation an
-    entry."""
+def _stream_evals(G, nb):
+    """Block-id evaluations one replicate's nb + 1 block starts need: each
+    start lies after the one before, about G / (nb + 1) groups on, so a
+    search from it takes about log2 of that gap; or every group once,
+    where that is fewer."""
     import math
 
+    gap = max(1, math.ceil(math.log2(G / (nb + 1) + 1)))
+    return min(G, (nb + 1) * gap)
+
+
+def _stream_ops(n, G, nb, redraws, sigma):
+    """Lane operations a chunk's draw needs: the threefry hashes (a
+    replicate's key, phase key, phase bits and permutation key; a draw's
+    split and B sort keys a round; a redraw's fold_in), a counting sort's
+    two operations a key a round (the keys are uniform hashes), the block
+    ids of each replicate's starts (_stream_evals; add, multiply, convert,
+    clamp) and, for the sigma, one operation an entry."""
     from fscl_tpu_torch.ops.permute import shuffle_rounds
 
     B = nb - 1
     rounds = shuffle_rounds(B)
     draws = n + redraws
     hashes = 4 * n + draws * rounds * (2 + B) + redraws
-    compares = draws * rounds * B * max(1, math.ceil(math.log2(max(B, 2))))
-    return (hashes * STREAM_OPS_HASH + compares + 4 * n * G
-            + (n * G if sigma else 0))
+    return (hashes * STREAM_OPS_HASH + 2 * draws * rounds * B
+            + 4 * n * _stream_evals(G, nb) + (n * G if sigma else 0))
 
 
-def _stream_case(label, gpos, n, start, seed, dev):
-    """Phase 12's kernel check at one chunk: both forms bitwise against
-    the plain version and repeatable, kernel and plain timed, the
-    bound."""
+def _stream_bytes(G, nb, outputs):
+    """Bytes a chunk's draw must move: its outputs written once and the
+    g0f entries (float32) that one replicate's starts read."""
+    return 4 * _stream_evals(G, nb) + sum(x.numel() * x.element_size()
+                                          for x in outputs)
+
+
+def graph_time_ms(fn, launches=GRAPH_LAUNCHES):
+    """A kernel alone: ms a launch of a CUDA graph of `launches` calls of
+    fn (no host work between launches), the median of 5 CUDA-event
+    readings of a replay, after one call outside the graph."""
     import torch
 
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for _ in range(launches):
+            fn()
+    torch.cuda.synchronize()
+    ms = cuda_time_ms(g.replay, 1)
+    del g
+    return ms / launches
+
+
+def _stream_case(label, gpos, n, start, seed, width, dev):
+    """Phase 12's kernel check at one chunk: both forms bitwise against
+    the plain version, twice and after the timing loop; the kernel alone
+    (a CUDA graph of launches into preallocated outputs, the wrapper's
+    plan), the wrapper (back-to-back calls) and the plain version timed;
+    the bound."""
+    import dataclasses
+
+    import torch
+
+    from fscl_tpu_torch import kernels
     from fscl_tpu_torch.ops import permute as TO
 
     g0f, span = TO._g0_device(gpos, dev)
-    nb = TO.n_blocks_for(span, 1e6)
-    w = TO.effective_block_width(span, 1e6)
+    nb = TO.n_blocks_for(span, width)
+    w = TO.effective_block_width(span, width)
     G = g0f.shape[0]
     redraws = _stream_redraws(seed, start, n, nb - 1)
+    lib = kernels.load()
     out = []
     for form in ("sigma", "runs"):
         sigma = form == "sigma"
 
-        def kern():
+        def wrapper():
             runs, sig = TO.replicate_runs(seed, start, g0f, nb, w, n,
                                           with_runs=not sigma,
                                           with_sigma=sigma)
-            return sig if sigma else torch.cat(runs, 1)
+            return (sig,) if sigma else runs
 
         def plain():
             src, dst, sz, sig = TO.replicate_runs_plain(
                 seed, start, g0f, nb, w, n, with_sigma=sigma)
-            return sig if sigma else torch.cat((src, dst, sz), 1)
+            return (sig,) if sigma else (src, dst, sz)
 
-        got, want = kern(), plain()
+        def same(a, b):
+            return all(torch.equal(x, y) for x, y in zip(a, b))
+
+        got, want = wrapper(), plain()
         torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            bad = int((got != want).any(1).sum())
-            fail(f"stream kernel at {label} ({form}): {bad} of {n} rows "
-                 "differ from the plain version")
-        ms = _repeat_checks("stream", f"{label} ({form})", kern, got)
+        if not same(got, want):
+            bad = sum(int((x != y).any(1).sum()) for x, y in zip(got, want))
+            fail(f"stream kernel at {label} ({form}): {bad} rows differ "
+                 "from the plain version")
+        if not same(wrapper(), got):
+            fail(f"stream kernel at {label} ({form}): two launches differ")
+        # the kernel alone: the wrapper's plan into preallocated outputs
+        plan = TO.plan_replicate_runs(n, G, nb, sigma, TO._sm_count(dev))
+        lo, hi = TO._brackets(g0f, nb, w)
+        bufs = tuple(torch.full_like(x, -1) for x in got)
+        scratch = (torch.empty(plan.grid * plan.slot_bytes,
+                               dtype=torch.uint8, device=dev)
+                   if plan.slot_bytes else None)
+
+        def kern():
+            rc = TO.launch_replicate_runs(
+                lib, plan, seed, start, g0f, lo, hi, nb, w, n,
+                None if sigma else bufs, bufs[0] if sigma else None,
+                scratch)
+            kernels.check(lib, rc, "replicate_runs")
+
+        ms = graph_time_ms(kern)
+        torch.cuda.synchronize()
+        if not same(bufs, got) or not same(wrapper(), got):
+            fail(f"stream kernel at {label} ({form}): a launch after the "
+                 "timing loop differs from the first")
+        wrapper_ms = cuda_time_ms(wrapper, 20)
         plain_ms = cuda_time_ms(plain, 1, readings=3)
-        nbytes = G * 4 + got.numel() * got.element_size()
-        bd, by = bound_ms(nbytes, _stream_ops(n, G, nb, redraws, sigma))
+        bd, by = bound_ms(_stream_bytes(G, nb, got),
+                          _stream_ops(n, G, nb, redraws, sigma))
         out.append(dict(label=f"{label} ({form})", replicates=n, groups=G,
                         blocks=nb, rounds=TO.shuffle_rounds(nb - 1),
-                        redraws=redraws, ms=ms, plain_ms=plain_ms,
+                        redraws=redraws, plan=dataclasses.asdict(plan),
+                        ms=ms, wrapper_ms=wrapper_ms, plain_ms=plain_ms,
                         bound_ms=bd, bound_by=by, max_abs_err=0.0,
                         library_ms=None))
+        where = "global scratch" if plan.on_global else "shared memory"
         log(f"[stream] {label} ({form}): {n} replicates, G={G}, "
-            f"{nb} blocks, {redraws} redraws: bitwise; kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.3f} ms, bound {bd:.4f} ms ({by}, "
-            f"{100 * bd / ms:.1f}%)")
+            f"{nb} blocks, {redraws} redraws, plan T={plan.threads} "
+            f"tiles={plan.tiles}, radix sort in {where}: bitwise; kernel "
+            f"{ms:.4f} ms (graph of {GRAPH_LAUNCHES}), wrapper "
+            f"{wrapper_ms:.4f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{bd:.5f} ms ({by}, {100 * bd / ms:.1f}%)")
     return out
+
+
+def _stream_cli(dev):
+    """Phase 12's CLI leg: genome1m.sf (phase 10's file) through the CLI
+    at STREAM_CLI, in process, to its end; the first chunk's sigma (or
+    runs) drawn by the kernel against the plain version's."""
+    import torch
+
+    from fscl_tpu_torch import cli
+    from fscl_tpu_torch.engine import permute as TP
+    from fscl_tpu_torch.ops import permute as TO
+
+    first = {}
+    saved = TP.block_permutation_groups, TP.block_permutation_runs
+
+    def capture(fn, form):
+        def call(seed, gpos, width_bp, n, start=0, device="cuda"):
+            res = fn(seed, gpos, width_bp, n, start=start, device=device)
+            if not first:
+                first.update(form=form, seed=seed, gpos=gpos,
+                             width=width_bp, n=n, start=start,
+                             got=[x.clone() for x in (
+                                 (res,) if form == "sigma" else res)])
+            return res
+        return call
+
+    TP.block_permutation_groups = capture(saved[0], "sigma")
+    TP.block_permutation_runs = capture(saved[1], "runs")
+    tsv = SPLIT_WORK / "stream_cli.tsv"
+    before = TO.replicate_runs_launches
+    try:
+        t0 = time.monotonic()
+        cli.main(["-f", str(SPLIT_WORK / "genome1m.sf"), "-o", str(tsv),
+                  *STREAM_CLI, "--device", str(dev)])
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    finally:
+        TP.block_permutation_groups, TP.block_permutation_runs = saved
+    launches = TO.replicate_runs_launches - before
+    if not first or launches <= 0:
+        fail(f"stream CLI leg: no draw through replicate_runs ({launches} "
+             "launches)")
+    g0f, span = TO._g0_device(first["gpos"], dev)
+    nb = TO.n_blocks_for(span, first["width"])
+    src, dst, sz, sig = TO.replicate_runs_plain(
+        first["seed"], first["start"], g0f, nb,
+        TO.effective_block_width(span, first["width"]), first["n"],
+        with_sigma=first["form"] == "sigma")
+    want = (sig,) if first["form"] == "sigma" else (src, dst, sz)
+    if not all(torch.equal(a, b) for a, b in zip(first["got"], want)):
+        fail("stream CLI leg: the first chunk's draw differs from the plain "
+             "version")
+    rows = sum(1 for _ in open(tsv))
+    log(f"[stream] CLI {' '.join(STREAM_CLI)} on genome1m.sf: {nb - 1} "
+        f"shuffled blocks, ran to its end in {wall:.2f}s ({rows} TSV "
+        f"lines); replicate_runs launches {launches}; the first chunk's "
+        f"{first['form']} ({first['n']} replicates) equals the plain "
+        "version's")
+    return dict(blocks=nb, wall_s=wall, launches=launches,
+                first_form=first["form"], first_replicates=first["n"])
 
 
 def _spec_overlap(events):
@@ -4433,8 +4584,9 @@ def phase_stream(dev, smi):
             "genome1m": SCANS["genome1m"][0].genome_pos(),
             "big_chromosome": LOAD_INPUTS["big_chromosome"].genome_pos()}
     kern = []
-    for label, key, n, start, seed in STREAM_SHAPES:
-        kern += _stream_case(label, gpos[key], n, start, seed, dev)
+    for label, key, n, start, seed, width in STREAM_SHAPES:
+        kern += _stream_case(label, gpos[key], n, start, seed, width, dev)
+    cli_leg = _stream_cli(dev)
     g = SCANS["genome1m"]
     genome = _stream_pair("genome1m", g, PermuteConfig(n_permute=64), dev)
     if genome["spec1"]["launches"] <= 0:
@@ -4458,7 +4610,7 @@ def phase_stream(dev, smi):
         log("[stream] chunk boundaries: not measured (no launch in the "
             "trace correlated with a kernel)")
     log(f"[stream] ({smi})")
-    return dict(kernel=kern, genome1m=genome, deep_tail=deep,
+    return dict(kernel=kern, genome1m=genome, deep_tail=deep, cli=cli_leg,
                 launches=genome["spec1"]["launches"])
 
 
@@ -4827,8 +4979,9 @@ def main():
                   "old_bound_ms", "max_abs_err")}
                   for r in cg["cgkernel"] if r["label"].startswith(
                       "flagship")]),
-        # main shape: genome1m's deep-tail chunk in the sigma form; launches
-        # over phase 12's genome1m permutations with speculation on
+        # main shape: genome1m's first chunk (16 replicates, the CLI's
+        # default) in the sigma form, the kernel alone; launches over
+        # phase 12's genome1m permutations with speculation on
         entry("replicate_runs", "replicate_runs.cu",
               "fscl_tpu/ops/permute.py:57-150 _one_replicate_runs under "
               "_replicates and _replicates_runs (XLA-fused, no Pallas "
@@ -4836,6 +4989,10 @@ def main():
               main="genome1m chunk (sigma)",
               note="no single PyTorch call computes fscl_tpu's threefry "
                    "block shuffle",
+              wrapper_ms=next(k["wrapper_ms"] for k in rstream["kernel"]
+                              if k["label"] == "genome1m chunk (sigma)"),
+              cli_blocks=rstream["cli"]["blocks"],
+              cli_launches=rstream["cli"]["launches"],
               deep_tail_spec_chunks=rstream["deep_tail"]["spec1"][
                   "spec_chunks"]),
     ]}))

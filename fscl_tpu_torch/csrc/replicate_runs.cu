@@ -1,5 +1,5 @@
 // The block-permutation stream for Hopper: fscl_tpu's threefry draw of a
-// replicate's runs and group sigma, one block a replicate.
+// chunk's runs and group sigma.
 //
 // Replaces the chain that fscl_tpu/ops/permute.py:57-150 leaves to XLA
 // (_one_replicate_runs under _replicates and _replicates_runs, jitted and
@@ -27,28 +27,48 @@
 // product with float32(1 / width), and so does this kernel).
 //
 // What bounds it on the H100: the sigma row's bytes where it is written
-// (G int32 a replicate); otherwise lane operations: the shuffle's
-// threefry hashes and its bitonic sort, O(P log^2 P) compare-exchanges
-// for P = B rounded up to a power of two.  Design: a block holds its
-// replicate's whole state in shared memory: one 64-bit word a shuffled
-// block, (sort key << 32 | position << 16 | value), so one ascending
-// sort of the words is the stable sort of (key, value) pairs and carries
-// the values with it (B <= 16384 fits 16 bits each); then the same words
-// hold (src << 32 | size), and the starts array holds the runs' dst
-// offsets.  Block starts come from a binary search a block id over the
-// monotone block ids (computed from g0f on the fly, read through L2);
-// sigma entries from a binary search over the dst offsets, threads on
-// consecutive groups, so the row is written coalesced.  No wgmma, no
-// TMA: the simple version.
+// (G int32 a replicate); otherwise lane operations: the threefry hashes
+// and the sort, and the latency of one replicate's dependent steps.
+// Design (the launch plan, ops/permute.py:plan_replicate_runs, picks
+// the geometry from the chunk's shape):
+//   * a work item is a (replicate, tile of its sigma row); a block takes
+//     one (a loop over items where global scratch bounds the blocks), so
+//     a chunk of 16 replicates still fills the card: each tile's block
+//     draws its replicate's runs again (cheap next to the row) and writes
+//     its own tile;
+//   * block starts: block(g) is monotone in g and in the phase, which
+//     lies in [0, width], so start_b(width) <= start_b(phase) <=
+//     start_b(0); the wrapper computes both brackets once per genome and
+//     each start is a binary search inside its bracket (about G / nb
+//     groups) in place of one over all G;
+//   * the shuffle: one 64-bit word a shuffled block, (key << 32 |
+//     position), so one ascending sort is the stable sort by key and the
+//     positions give the round's permutation; values of earlier rounds
+//     are gathered through it.  The sort is an MSD radix sort: a
+//     counting sort of the keys' top log2 P bits into P buckets, then an
+//     insertion sort of each bucket (about one word: the keys are
+//     uniform hashes), eight barriers a round; in shared memory up to
+//     8,192 blocks, past that over global scratch (the wrapper's
+//     torch.empty), so any B that the int32 outputs admit is drawn.
+//     tools/replicate_runs_variants.cu holds the alternatives that were
+//     timed and lost: a bitonic sort with words in registers, and the
+//     radix sort over a cluster's distributed shared memory;
+//   * sigma: a table from s >> shift to the last run starting at or
+//     before it (one binary search an entry, about one entry a run), then
+//     a short walk a position; rows written 16 bytes a store where
+//     aligned.
+// No wgmma, no TMA: there is no matrix product, and the reads (g0f, the
+// brackets) stay in L1 and L2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBlocksMax = 16384;  // shuffled blocks B (ops/permute.py)
-constexpr int kThreadsMin = 256;
-constexpr int kThreadsMax = 1024;
+typedef unsigned long long u64;
+
+constexpr int kSmemMax = 232448;  // shared memory a block can use (H100)
+constexpr unsigned kFull = 0xFFFFFFFFu;
 
 __device__ __forceinline__ uint32_t rotl(uint32_t x, int r) {
   return (x << r) | (x >> (32 - r));
@@ -85,7 +105,7 @@ __device__ __forceinline__ uint32_t bits32(uint2 k, uint32_t i) {
   return y.x ^ y.y;
 }
 
-// block id of group g (monotone in g)
+// block id of group g (monotone in g and in phase)
 __device__ __forceinline__ int block_of(const float* __restrict__ g0f,
                                         int g, int G, int nb, float phase,
                                         float inv_w) {
@@ -95,46 +115,99 @@ __device__ __forceinline__ int block_of(const float* __restrict__ g0f,
   return min(max(b, 0), nb - 2);
 }
 
-// ascending bitonic sort of s[0, P), P a power of two
-__device__ void bitonic_sort(unsigned long long* s, int P) {
-  for (int k = 2; k <= P; k <<= 1) {
-    for (int j = k >> 1; j > 0; j >>= 1) {
-      for (int i = threadIdx.x; i < (P >> 1); i += blockDim.x) {
-        const int a = 2 * i - (i & (j - 1));
-        const int b = a + j;
-        const unsigned long long x = s[a], y = s[b];
-        if ((x > y) == ((a & k) == 0)) {
-          s[a] = y;
-          s[b] = x;
-        }
-      }
-      __syncthreads();
-    }
+// exclusive prefix of v over the block's threads, and the total; syncs
+__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sum,
+                                                    int& total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  int incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int u = __shfl_up_sync(kFull, incl, o);
+    if (lane >= o) incl += u;
   }
+  if (lane == 31) warp_sum[warp] = incl;
+  __syncthreads();
+  if (warp == 0) {
+    const int s = lane < nw ? warp_sum[lane] : 0;
+    int x = s;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(kFull, x, o);
+      if (lane >= o) x += u;
+    }
+    warp_sum[lane] = x - s;
+    if (lane == 31) warp_sum[32] = x;
+  }
+  __syncthreads();
+  const int ex = warp_sum[warp] + incl - v;
+  total = warp_sum[32];
+  __syncthreads();
+  return ex;
 }
 
-__global__ void replicate_runs_kernel(
-    const float* __restrict__ g0f, int G, int nb, int P, int rounds,
-    float width, float inv_w, uint2 seed_key, uint32_t start,
-    int* __restrict__ src_out, int* __restrict__ dst_out,
-    int* __restrict__ sz_out, int* __restrict__ sigma_out) {
-  extern __shared__ unsigned long long smem[];
-  unsigned long long* word = smem;                  // [P]
-  int* starts = reinterpret_cast<int*>(smem + P);  // [nb + 1], then dst
-  __shared__ int warp_sum[32];
-  __shared__ uint2 perm_key;
-  const int tid = threadIdx.x, T = blockDim.x;
-  const int r = blockIdx.x, B = nb - 1;
+// One round's stable sort by 32-bit keys as an MSD radix sort: a
+// counting sort of the keys' top log2 P bits into P buckets (cnt, P
+// ints), then an insertion sort of each bucket (one or two words on
+// average: the keys are uniform hashes) by the whole word (key << 32 |
+// position), which puts equal keys in position order.  The sorted words
+// land in out[0, B); the keys wait in stash [B] between the count and
+// the scatter.  out, cnt and stash lie in shared memory or global
+// scratch.
+__device__ __forceinline__ void radix_sort(uint2 sub, int B, int lgP,
+                                           u64* out, int* cnt,
+                                           uint32_t* stash, int* warp_sum) {
+  const int T = blockDim.x, tid = threadIdx.x;
+  const long long P = 1ll << lgP;
+  const int shr = 32 - lgP;  // 5 <= lgP <= 31
+  for (long long b = tid; b < P; b += T) cnt[b] = 0;
+  __syncthreads();
+  for (int i = tid; i < B; i += T) {
+    const uint32_t k = bits32(sub, (uint32_t)i);
+    stash[i] = k;
+    atomicAdd(cnt + (k >> shr), 1);
+  }
+  __syncthreads();
+  const long long per = (P + T - 1) / T;  // bucket offsets: exclusive
+  const long long b0 = min(tid * per, P), b1 = min(b0 + per, P);  // prefix
+  int sum = 0;
+  for (long long b = b0; b < b1; ++b) sum += cnt[b];
+  int total;
+  int off = block_exclusive_scan(sum, warp_sum, total);
+  for (long long b = b0; b < b1; ++b) {
+    const int c = cnt[b];
+    cnt[b] = off;
+    off += c;
+  }
+  __syncthreads();
+  for (int i = tid; i < B; i += T) {
+    const uint32_t k = stash[i];
+    out[atomicAdd(cnt + (k >> shr), 1)] = ((u64)k << 32) | (u64)i;
+  }
+  __syncthreads();
+  for (long long b = tid; b < P; b += T) {  // cnt[b]: the end of bucket b
+    const int s0 = b ? cnt[b - 1] : 0, s1 = cnt[b];
+    for (int x = s0 + 1; x < s1; ++x) {
+      const u64 v = out[x];
+      int y = x - 1;
+      while (y >= s0 && out[y] > v) {
+        out[y + 1] = out[y];
+        --y;
+      }
+      out[y + 1] = v;
+    }
+  }
+  __syncthreads();
+}
 
-  const uint2 key = fold(seed_key, start + (uint32_t)r);
-  const uint2 k_phase = fold(key, 0u);
-  const uint32_t pb = bits32(k_phase, 0u);
-  const float phase = __fmul_rn(
-      __fsub_rn(__uint_as_float((pb >> 9) | 0x3F800000u), 1.0f), width);
-
-  // starts[b] = first group with block id >= b; starts[nb] = G
-  for (int b = tid; b <= nb; b += T) {
-    int lo = 0, hi = G;
+// starts[b] = first group with block id >= b, inside its bracket, for b
+// = first, first + stride, ... <= nb (starts[nb] = G)
+__device__ __forceinline__ void block_starts(
+    const float* __restrict__ g0f, const int* __restrict__ lo_b,
+    const int* __restrict__ hi_b, int G, int nb, float phase, float inv_w,
+    int* starts, long long first, long long stride) {
+  for (long long b = first; b <= nb; b += stride) {
+    int lo = __ldg(lo_b + b), hi = __ldg(hi_b + b);
     while (lo < hi) {
       const int mid = (lo + hi) >> 1;
       if (block_of(g0f, mid, G, nb, phase, inv_w) < b) lo = mid + 1;
@@ -142,132 +215,350 @@ __global__ void replicate_runs_kernel(
     }
     starts[b] = lo;
   }
-  if (tid == 0) perm_key = fold(key, 1u);
-  __syncthreads();
+}
 
-  // the shuffle with its redraw loop (perm_key: the loop's key)
+// sigma[s] of groups [s0, s1) of one row (out) from the runs (dst, src -
+// dst): a table tbl from s >> sh to the last run with dst <= s (a binary
+// search an entry), then a short walk a position; [s0, sa) and [sb, s1)
+// one int a store, [sa, sb) four.  Syncs the block.
+__device__ __forceinline__ void write_sigma(int* out, const int2* runs,
+                                            int* tbl, int nb, int s0,
+                                            int s1, int sh) {
+  const int T = blockDim.x, tid = threadIdx.x;
+  const int c0 = s0 >> sh, nc = ((s1 - 1) >> sh) - c0 + 1;
+  for (int c = tid; c < nc; c += T) {
+    const int pos = (c0 + c) << sh;
+    int lo = 0, hi = nb;  // first run with dst > pos
+    while (lo < hi) {
+      const int mid = (lo + hi) >> 1;
+      if (runs[mid].x <= pos) lo = mid + 1;
+      else hi = mid;
+    }
+    tbl[c] = lo - 1;
+  }
+  __syncthreads();
+  const int mis = (int)(((uintptr_t)(out + s0) >> 2) & 3);
+  const int sa = min(s1, s0 + ((4 - mis) & 3));
+  const int sb = sa + ((s1 - sa) & ~3);
+  if (tid < (sa - s0) + (s1 - sb)) {  // at most 3 + 3 groups
+    const int s = tid < sa - s0 ? s0 + tid : sb + tid - (sa - s0);
+    int j = tbl[(s >> sh) - c0];
+    while (j + 1 < nb && runs[j + 1].x <= s) ++j;
+    out[s] = s + runs[j].y;
+  }
+  for (int s = sa + 4 * tid; s < sb; s += 4 * T) {
+    int j = tbl[(s >> sh) - c0];
+    int v[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      while (j + 1 < nb && runs[j + 1].x <= s + q) ++j;
+      v[q] = s + q + runs[j].y;
+    }
+    *reinterpret_cast<int4*>(out + s) = make_int4(v[0], v[1], v[2], v[3]);
+  }
+}
+
+enum { kShared = 0, kGlobal = 1 };  // where a block's arrays lie
+
+struct Params {
+  const float* g0f;
+  const int* lo;  // [nb + 1] first group of each block at phase = width
+  const int* hi;  // [nb + 1] the same at phase = 0
+  int G, nb, B, rounds;
+  long long P;  // the radix sort's buckets: a power of two >= max(B, 32)
+  float width, inv_w;
+  uint2 seed_key;
+  uint32_t start;
+  int n_rep, tiles, tile_len, shift, tbl_len;
+  int *src_out, *dst_out, *sz_out, *sigma_out;
+  unsigned char* scratch;  // kGlobal: a slot of slot_bytes a block
+  long long slot_bytes;
+};
+
+__host__ __device__ inline long long align16(long long x) {
+  return (x + 15) & ~15ll;
+}
+
+// One replicate's arrays: words [max(P, nb)] (u64; after the shuffle the
+// runs [nb] int2), starts [nb + 1], xa [B] (the order), an int array of
+// max(P, tbl_len) (the bucket counts, then the sigma table) and the
+// radix sort's key stash [B].  Shared memory a block, or global scratch
+// a block (kGlobal).
+struct Layout {
+  long long words, starts, xa, aux, stash, bytes;
+  __host__ __device__ Layout(long long P, int nb, int tbl_len) {
+    words = 0;
+    starts = align16(8ll * (P > nb ? P : nb));
+    xa = align16(starts + 4ll * (nb + 1));
+    aux = align16(xa + 4ll * (nb - 1));
+    stash = align16(aux + 4ll * (P > tbl_len ? P : tbl_len));
+    bytes = align16(stash + 4ll * (nb - 1));
+  }
+};
+
+// a block's pointers into its Layout at base
+struct Arrays {
+  u64* words;
+  int* starts;
+  int* xa;
+  int* aux;  // the bucket counts, then the sigma table
+  uint32_t* stash;
+  int2* runs;  // over the words
+  __device__ Arrays(unsigned char* base, const Layout& lay)
+      : words(reinterpret_cast<u64*>(base + lay.words)),
+        starts(reinterpret_cast<int*>(base + lay.starts)),
+        xa(reinterpret_cast<int*>(base + lay.xa)),
+        aux(reinterpret_cast<int*>(base + lay.aux)),
+        stash(reinterpret_cast<uint32_t*>(base + lay.stash)),
+        runs(reinterpret_cast<int2*>(base + lay.words)) {}
+};
+
+// replicate r's key (fold_in) and phase
+__device__ __forceinline__ float replicate_phase(const Params& p, int r,
+                                                 uint2& key) {
+  key = fold(p.seed_key, p.start + (uint32_t)r);
+  const uint32_t pb = bits32(fold(key, 0u), 0u);
+  return __fmul_rn(
+      __fsub_rn(__uint_as_float((pb >> 9) | 0x3F800000u), 1.0f), p.width);
+}
+
+// one round's radix_sort into the block's arrays, as shuffle_order calls
+// it
+struct RadixSort {
+  int B, lgP;
+  u64* out;
+  int* cnt;
+  uint32_t* stash;
+  int* warp_sum;
+  __device__ void operator()(uint2 sub) const {
+    radix_sort(sub, B, lgP, out, cnt, stash, warp_sum);
+  }
+};
+
+// The shuffle with its redraw loop: the order of the B shuffled blocks
+// ends in xa (B = 1: no round, the identity).  sort(sub) sorts one
+// round's words (key << 32 | position) into words[0, B) and syncs; the
+// round's new order is xa[m] = xa_old[position of word m].  Syncs.
+template <class Sort>
+__device__ __forceinline__ void shuffle_order(uint2 key, int B, int rounds,
+                                              u64* words, int* xa,
+                                              const Sort& sort) {
+  const int T = blockDim.x, tid = threadIdx.x;
+  if (rounds == 0) {
+    for (int m = tid; m < B; m += T) xa[m] = m;
+    __syncthreads();
+    return;
+  }
+  uint2 kp = fold(key, 1u);
   for (;;) {
-    for (int j = tid; j < P; j += T)
-      word[j] = j < B ? ((unsigned long long)j << 16) | (unsigned)j : ~0ull;
-    uint2 k = perm_key;
+    uint2 k = kp;
     for (int round = 0; round < rounds; ++round) {
-      const uint2 next = fold(k, 0u), sub = fold(k, 1u);
-      k = next;
-      for (int j = tid; j < B; j += T)
-        word[j] = ((unsigned long long)bits32(sub, (uint32_t)j) << 32) |
-                  ((unsigned long long)j << 16) | (word[j] & 0xFFFFull);
+      const uint2 sub = fold(k, 1u);
+      k = fold(k, 0u);
+      sort(sub);
+      // the new order: for round > 0 first gathered into the words' high
+      // halves (every read of xa before any write)
+      if (round > 0) {
+        for (int m = tid; m < B; m += T) {
+          const unsigned pos = (unsigned)words[m];
+          words[m] = ((u64)(unsigned)xa[pos] << 32) | pos;
+        }
+        __syncthreads();
+      }
+      for (int m = tid; m < B; m += T)
+        xa[m] = (int)(round > 0 ? words[m] >> 32 : words[m]);
       __syncthreads();
-      bitonic_sort(word, P);
     }
     int moved = 0;
-    for (int j = tid; j < B; j += T)
-      moved |= (int)(word[j] & 0xFFFFull) != j;
+    for (int m = tid; m < B; m += T) moved |= xa[m] != m;
     if (__syncthreads_or(moved) || B <= 1) break;
-    if (tid == 0) perm_key = fold(perm_key, 1u);
-    __syncthreads();
+    kp = fold(kp, 1u);
   }
+}
 
-  // runs: word[j] = src << 32 | size for the shuffled blocks; the tail
-  // block (id nb - 1) is run B
-  const int tail_src = starts[nb - 1], tail_sz = starts[nb] - tail_src;
-  for (int j = tid; j < B; j += T) {
-    const int o = (int)(word[j] & 0xFFFFull);
-    word[j] = ((unsigned long long)(unsigned)starts[o] << 32) |
-              (unsigned)(starts[o + 1] - starts[o]);
-  }
-  __syncthreads();
-
-  // dst = exclusive prefix of the sizes over runs 0..nb-1, into starts
-  const int per = (nb + T - 1) / T;
-  const int j0 = min(tid * per, nb), j1 = min(j0 + per, nb);
-  int sum = 0;
-  for (int j = j0; j < j1; ++j)
-    sum += j < B ? (int)(word[j] & 0xFFFFFFFFull) : tail_sz;
-  const int lane = tid & 31, warp = tid >> 5;
-  int incl = sum;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int v = __shfl_up_sync(0xFFFFFFFFu, incl, o);
-    if (lane >= o) incl += v;
-  }
-  if (lane == 31) warp_sum[warp] = incl;
-  __syncthreads();
-  if (warp == 0) {
-    const int v = lane < (T >> 5) ? warp_sum[lane] : 0;
-    int w = v;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int u = __shfl_up_sync(0xFFFFFFFFu, w, o);
-      if (lane >= o) w += u;
-    }
-    warp_sum[lane] = w - v;
-  }
-  __syncthreads();
-  int base = warp_sum[warp] + incl - sum;
-  for (int j = j0; j < j1; ++j) {
-    starts[j] = base;
-    base += j < B ? (int)(word[j] & 0xFFFFFFFFull) : tail_sz;
-  }
-  __syncthreads();
-  const int* dst = starts;
-
+// Replicate r's runs from its starts and order: run m < B is block
+// xa[m]; run B the tail block (its group G - 1 alone, at dst = src =
+// starts[nb - 1], the head's total).  Sizes, their exclusive prefix over
+// the block, then (dst, src - dst) into runs (over the words: every read
+// of them is done) and, write_runs, the outputs' row r.  coalesced: the
+// block takes runs T at a time (where the runs are written or lie in
+// global scratch); else thread t takes runs [t per, t per + per) of one
+// scan.  Syncs.
+__device__ __forceinline__ void make_runs(const Params& p, int r,
+                                          bool write_runs, bool coalesced,
+                                          const int* starts, const int* xa,
+                                          int2* runs, int* warp_sum) {
+  const int T = blockDim.x, tid = threadIdx.x, B = p.B, nb = p.nb;
   const size_t row = (size_t)r * nb;
-  if (src_out != nullptr) {
-    for (int j = tid; j < nb; j += T) {
-      const bool head = j < B;
-      src_out[row + j] = head ? (int)(word[j] >> 32) : tail_src;
-      dst_out[row + j] = dst[j];
-      sz_out[row + j] = head ? (int)(word[j] & 0xFFFFFFFFull) : tail_sz;
+  const int per = coalesced ? 1 : (B + T - 1) / T;
+  const int step = coalesced ? T : B;
+  int carry = 0;
+  for (int c0 = 0; c0 < B; c0 += step) {
+    const int m0 = min(c0 + tid * per, B);
+    const int m1 = min(m0 + per, min(c0 + step, B));
+    int sum = 0;
+    for (int m = m0; m < m1; ++m) {
+      const int o = xa[m];
+      sum += starts[o + 1] - starts[o];
     }
-  }
-  if (sigma_out != nullptr) {
-    int* out = sigma_out + (size_t)r * G;
-    for (int s = tid; s < G; s += T) {
-      int lo = 0, hi = nb;  // first run with dst > s
-      while (lo < hi) {
-        const int mid = (lo + hi) >> 1;
-        if (dst[mid] <= s) lo = mid + 1;
-        else hi = mid;
+    int total;
+    int dst = carry + block_exclusive_scan(sum, warp_sum, total);
+    carry += total;
+    for (int m = m0; m < m1; ++m) {
+      const int o = xa[m], src = starts[o], sz = starts[o + 1] - src;
+      runs[m] = make_int2(dst, src - dst);
+      if (write_runs) {
+        p.src_out[row + m] = src;
+        p.dst_out[row + m] = dst;
+        p.sz_out[row + m] = sz;
       }
-      const int j = lo - 1;
-      const int src = j < B ? (int)(word[j] >> 32) : tail_src;
-      out[s] = s - dst[j] + src;
+      dst += sz;
     }
   }
+  if (tid == 0) {
+    const int tail = starts[nb - 1];
+    runs[B] = make_int2(tail, 0);
+    if (write_runs) {
+      p.src_out[row + B] = tail;
+      p.dst_out[row + B] = tail;
+      p.sz_out[row + B] = p.G - tail;
+    }
+  }
+  __syncthreads();
+}
+
+// A work item is a (replicate, tile of its sigma row); block i takes
+// items i, i + grid, ...  32 registers a thread in shared memory, so
+// that 2,048 threads an SM fit; 64 over global scratch.
+template <int kMode>
+__global__ void __launch_bounds__(1024, kMode == kGlobal ? 1 : 2)
+    replicate_runs_kernel(const Params p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int warp_sum[33];
+  const Arrays a(kMode == kGlobal
+                     ? p.scratch + (long long)blockIdx.x * p.slot_bytes
+                     : smem,
+                 Layout(p.P, p.nb, p.tbl_len));
+  const RadixSort sort{p.B, __ffsll(p.P) - 1, a.words, a.aux, a.stash,
+                       warp_sum};
+  for (int item = blockIdx.x; item < p.n_rep * p.tiles; item += gridDim.x) {
+    const int r = item / p.tiles, tile = item - r * p.tiles;
+    uint2 key;
+    const float phase = replicate_phase(p, r, key);
+    block_starts(p.g0f, p.lo, p.hi, p.G, p.nb, phase, p.inv_w, a.starts,
+                 threadIdx.x, blockDim.x);
+    shuffle_order(key, p.B, p.rounds, a.words, a.xa, sort);
+    const bool write_runs = p.src_out != nullptr && tile == 0;
+    make_runs(p, r, write_runs, kMode == kGlobal || write_runs, a.starts,
+              a.xa, a.runs, warp_sum);
+    // sigma of this tile's groups [s0, s1)
+    const int s0 = tile * p.tile_len, s1 = min(p.G, s0 + p.tile_len);
+    if (p.sigma_out != nullptr && s0 < s1)
+      write_sigma(p.sigma_out + (size_t)r * p.G, a.runs, a.aux, p.nb, s0,
+                  s1, p.shift);
+    __syncthreads();  // the next item reuses every array
+  }
+}
+
+// Params from the entry's arguments (see fscl_replicate_runs), or false
+// where they are invalid
+inline bool make_params(const void* g0f, const void* lo, const void* hi,
+                        int G, int nb, int rounds, float width,
+                        float inv_width, unsigned key0, unsigned key1,
+                        unsigned start, int n_rep, int threads, int tiles,
+                        int tile_len, int shift, void* scratch,
+                        long long slot_bytes, void* src, void* dst,
+                        void* sz, void* sigma, Params& p) {
+  const int B = nb - 1;
+  if (B < 1 || G < 1 || n_rep < 0 || rounds < 0 || threads < 32 ||
+      threads > 1024 || threads % 32 || tiles < 1 || tile_len < 1 ||
+      (long long)tiles * tile_len < G ||
+      (long long)(tiles - 1) * tile_len >= G || shift < 0 || shift > 30)
+    return false;
+  long long P = 32;
+  while (P < B) P <<= 1;
+  p.g0f = (const float*)g0f;
+  p.lo = (const int*)lo;
+  p.hi = (const int*)hi;
+  p.G = G;
+  p.nb = nb;
+  p.B = B;
+  p.rounds = rounds;
+  p.P = P;
+  p.width = width;
+  p.inv_w = inv_width;
+  p.seed_key = make_uint2(key0, key1);
+  p.start = start;
+  p.n_rep = n_rep;
+  p.tiles = tiles;
+  p.tile_len = tile_len;
+  p.shift = shift;
+  p.tbl_len = (tile_len >> shift) + 2;
+  p.src_out = (int*)src;
+  p.dst_out = (int*)dst;
+  p.sz_out = (int*)sz;
+  p.sigma_out = (int*)sigma;
+  p.scratch = (unsigned char*)scratch;
+  p.slot_bytes = slot_bytes;
+  return true;
+}
+
+// launch kern with smem bytes of dynamic shared memory; the CUDA error
+template <class Kernel>
+int launch(Kernel kern, const Params& p, int grid, int threads, size_t smem,
+           cudaStream_t stream) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return (int)e;
+  }
+  kern<<<grid, threads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 extern "C" {
 
-// g0f [G] float32 group first positions; runs src/dst/sz [n_rep, nb] and
-// sigma [n_rep, G] int32, each written unless null (the runs' three
-// together).  1 <= nb - 1 <= 16384, G >= 1, n_rep x max(G, nb) < 2^31.
+// Bytes of one replicate's arrays (Layout): shared memory a block, or
+// global scratch a block.  tbl_len = (tile_len >> shift) + 2.
+long long fscl_replicate_runs_bytes(long long P, int nb, int tbl_len) {
+  return Layout(P, nb, tbl_len).bytes;
+}
+
+// g0f [G] float32 group first positions; lo, hi [nb + 1] int32 the
+// brackets of the block starts (phase = width and phase = 0); runs
+// src/dst/sz [n_rep, nb] and sigma [n_rep, G] int32, each written unless
+// null (the runs' three together).  The plan (ops/permute.py:
+// plan_replicate_runs): threads a block, tiles of tile_len groups a
+// sigma row, the table's shift, the blocks (grid); the arrays in shared
+// memory where scratch is null, else over global scratch, grid slots of
+// slot_bytes.  B = nb - 1 >= 1, G >= 1, n_rep x max(G, nb) < 2^31.
 // Returns the launch's CUDA error (0 = success).
-int fscl_replicate_runs(const void* g0f, int G, int nb, int rounds,
-                        float width, float inv_width, unsigned key0,
-                        unsigned key1, unsigned start, int n_rep, void* src,
-                        void* dst, void* sz, void* sigma, void* stream) {
-  const int B = nb - 1;
-  if (B < 1 || B > kBlocksMax || G < 1) return (int)cudaErrorInvalidValue;
+int fscl_replicate_runs(const void* g0f, const void* lo, const void* hi,
+                        int G, int nb, int rounds, float width,
+                        float inv_width, unsigned key0, unsigned key1,
+                        unsigned start, int n_rep, int threads, int tiles,
+                        int tile_len, int shift, int grid, void* scratch,
+                        long long slot_bytes, void* src, void* dst,
+                        void* sz, void* sigma, void* stream) {
+  Params p;
+  if (!make_params(g0f, lo, hi, G, nb, rounds, width, inv_width, key0,
+                   key1, start, n_rep, threads, tiles, tile_len, shift,
+                   scratch, slot_bytes, src, dst, sz, sigma, p))
+    return (int)cudaErrorInvalidValue;
   if (n_rep == 0) return 0;
-  int P = 1;
-  while (P < B) P <<= 1;
-  const int T = P / 2 < kThreadsMin   ? kThreadsMin
-                : P / 2 > kThreadsMax ? kThreadsMax
-                                      : P / 2;
-  const size_t smem = (size_t)P * 8 + (size_t)(nb + 1) * 4;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        replicate_runs_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
+  if (grid < 1 || grid > (long long)n_rep * tiles)
+    return (int)cudaErrorInvalidValue;
+  const long long bytes = Layout(p.P, nb, p.tbl_len).bytes;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (scratch != nullptr) {
+    if (slot_bytes < bytes) return (int)cudaErrorInvalidValue;
+    return launch(replicate_runs_kernel<kGlobal>, p, grid, threads, 0, s);
   }
-  replicate_runs_kernel<<<n_rep, T, smem, (cudaStream_t)stream>>>(
-      (const float*)g0f, G, nb, P, rounds, width, inv_width,
-      make_uint2(key0, key1), start, (int*)src, (int*)dst, (int*)sz,
-      (int*)sigma);
-  return (int)cudaGetLastError();
+  if (bytes > kSmemMax) return (int)cudaErrorInvalidValue;
+  return launch(replicate_runs_kernel<kShared>, p, grid, threads,
+                (size_t)bytes, s);
 }
 
 }  // extern "C"

@@ -145,9 +145,12 @@ def load():
                                                i, vp]
     lib.fscl_clr_grid.restype = i
     f32, u32 = ctypes.c_float, ctypes.c_uint
-    lib.fscl_replicate_runs.argtypes = [vp, i, i, i, f32, f32, u32, u32,
-                                        u32, i, vp, vp, vp, vp, vp]
+    lib.fscl_replicate_runs.argtypes = [vp, vp, vp, i, i, i, f32, f32, u32,
+                                        u32, u32, i, i, i, i, i, i, vp, i64,
+                                        vp, vp, vp, vp, vp]
     lib.fscl_replicate_runs.restype = i
+    lib.fscl_replicate_runs_bytes.argtypes = [i64, i, i]
+    lib.fscl_replicate_runs_bytes.restype = i64
     for tile in (lib.fscl_ps_tile, lib.fscl_wps_tile,
                  lib.fscl_clr_grid_slice_sites, lib.fscl_clr_grid_group):
         tile.argtypes = []

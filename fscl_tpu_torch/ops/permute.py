@@ -28,16 +28,19 @@ One draw serves two forms of a replicate: its runs (src, dst, sz), the
 contiguous source block behind each stretch of output groups
 (block_permutation_runs, consumed by the run-decomposed statistic), and
 the group sigma they materialise (block_permutation_groups).  On the
-card both come from one kernel, csrc/replicate_runs.cu (one block a
-replicate: threefry, the block sizes, a bitonic sort of the shuffle's
-keys in shared memory with the redraw loop, the runs and, on request,
-the sigma row); on the CPU from replicate_runs_plain, the same function
-in int64 tensors masked to 32 bits.
+card both come from one kernel, csrc/replicate_runs.cu (threefry, the
+block starts searched inside per-genome brackets, a radix sort of the
+shuffle's keys in shared memory or, for many blocks, global scratch,
+with the redraw loop, the runs and, on request, the sigma row, split
+over blocks by tiles where a chunk has few replicates; its geometry
+from plan_replicate_runs); on the CPU from replicate_runs_plain, the
+same function in int64 tensors masked to 32 bits.
 """
 
 from __future__ import annotations
 
 import weakref
+from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -50,9 +53,6 @@ PERM_GROUP = 32  # sites per permutation group (fscl_tpu/ops/permute.py:40)
 # stream; change it with any change to the rows a (seed, index) draws
 SIGMA_STREAM = ("threefry2x32 fold_in(key(seed), start + r): fscl_tpu's "
                 "block-permutation stream, v1")
-# shuffled blocks the kernel's shared-memory sort holds: 8 bytes a key
-# at the next power of two, plus 4 a block of starts, in 227 KB
-BLOCKS_MAX = 16384
 replicate_runs_launches = 0  # CUDA kernel launches by replicate_runs
 
 _M32 = 0xFFFFFFFF
@@ -160,6 +160,156 @@ def replicate_runs_plain(seed, start, g0f, n_blocks, width, n,
             sigma)
 
 
+# the kernel's launch plan (csrc/replicate_runs.cu)
+SMEM_MAX = 232448  # shared memory a block can use on the H100
+GLOBAL_THREADS = 1024  # threads a block where the sort is in global scratch
+SCRATCH_MAX = 512 << 20  # global scratch a launch, bytes (one slot at least)
+TILE_MIN = 2048  # groups a sigma tile at least
+BLOCKS_PER_SM = 2  # work items a chunk aims at, per SM, before tiling
+
+
+def _pow2(x):
+    """The least power of two >= x (1 for x <= 1)."""
+    return 1 << max(0, int(x) - 1).bit_length()
+
+
+def _align16(x):
+    return (x + 15) & ~15
+
+
+def replicate_runs_bytes(P, nb, tbl_len):
+    """Bytes of one replicate's arrays in the kernel (its Layout): shared
+    memory a block, or global scratch a block."""
+    starts = _align16(8 * max(P, nb))
+    xa = _align16(starts + 4 * (nb + 1))
+    aux = _align16(xa + 4 * (nb - 1))
+    stash = _align16(aux + 4 * max(P, tbl_len))
+    return _align16(stash + 4 * (nb - 1))
+
+
+@dataclass(frozen=True)
+class RunsPlan:
+    """One launch's geometry: the radix sort's buckets P (a power of two
+    >= max(B, 32)), threads a block, tiles of tile_len groups a sigma row
+    (a block a (replicate, tile)), the sigma table's shift, the blocks
+    (grid), and where the arrays lie: shared memory, smem_bytes a block,
+    or on_global over global scratch, grid slots of slot_bytes."""
+    threads: int
+    P: int
+    tiles: int
+    tile_len: int
+    shift: int
+    on_global: bool
+    grid: int
+    slot_bytes: int
+    smem_bytes: int
+
+
+def plan_replicate_runs(n, G, nb, with_sigma, n_sm=132):
+    """The kernel's launch plan for n replicates of G groups in nb blocks
+    (B = nb - 1 shuffled) on a card of n_sm SMs.
+
+    The radix sort of P = max(B, 32) rounded up to a power of two
+    buckets, in shared memory where its arrays fit, else over global
+    scratch at 1,024 threads a block.  Threads: one a block start, up to
+    512, and at least one for 16 sigma groups, up to 256; 32 at least.
+    The sigma row splits into tiles, each redrawing the replicate's runs,
+    until the chunk has BLOCKS_PER_SM items an SM or a tile TILE_MIN
+    groups (one tile in global scratch and for the runs)."""
+    n, G, nb = int(n), int(G), int(nb)
+    P = _pow2(max(nb - 1, 32))
+    shift = max(0, (G // nb).bit_length() - 1) if with_sigma else 30
+    tiles = 1
+    if with_sigma:
+        want = -(-BLOCKS_PER_SM * n_sm // max(n, 1))
+        tiles = max(1, min(want, -(-G // TILE_MIN)))
+    tile_len = -(-G // tiles)
+    tile_len += -tile_len % 4
+    tiles = -(-G // tile_len)
+    smem = replicate_runs_bytes(P, nb, (tile_len >> shift) + 2)
+    if smem <= SMEM_MAX:
+        want = max(_pow2(nb + 1), min(256, _pow2(tile_len // 16))
+                   if with_sigma else 0)
+        return RunsPlan(max(32, min(512, want)), P, tiles, tile_len, shift,
+                        False, n * tiles, 0, smem)
+    # global scratch: one tile
+    tile_len = G + (-G % 4)
+    slot = replicate_runs_bytes(P, nb, (tile_len >> shift) + 2)
+    grid = max(1, min(n, BLOCKS_PER_SM * n_sm, SCRATCH_MAX // slot))
+    return RunsPlan(GLOBAL_THREADS, P, 1, tile_len, shift, True, grid, slot,
+                    0)
+
+
+_sm_counts: dict = {}
+
+
+def _sm_count(dev):
+    if dev not in _sm_counts:
+        _sm_counts[dev] = torch.cuda.get_device_properties(
+            dev).multi_processor_count
+    return _sm_counts[dev]
+
+
+def block_start_brackets(g0f, nb, width):
+    """(lo, hi) [nb + 1] int32: the first group of each block id 0..nb at
+    phase = width and at phase = 0, in replicate_runs_plain's float32
+    arithmetic.  A block id is monotone in the phase, which lies in [0,
+    width], so every replicate's start of block b lies in [lo[b],
+    hi[b]]."""
+    dev = g0f.device
+    w32 = torch.tensor(np.float32(width), device=dev)
+    inv_w = torch.tensor(np.float32(1) / np.float32(width), device=dev)
+    b_idx = torch.arange(int(nb) + 1, device=dev)
+    out = []
+    for phase in (w32, torch.zeros_like(w32)):
+        block = ((g0f + phase) * inv_w).to(torch.int64).clamp(0, nb - 2)
+        block[-1] = nb - 1  # pinned tail block
+        out.append(torch.searchsorted(block, b_idx, side="left")
+                   .to(torch.int32))
+    return tuple(out)
+
+
+# the brackets of a device g0f (one per genome, _g0_device) at a block
+# count and width; an entry pairs them with a weakref to the g0f tensor
+_bracket_cache: dict = {}
+
+
+def _brackets(g0f, nb, width):
+    key = (id(g0f), int(nb), float(np.float32(width)))
+    hit = _bracket_cache.get(key)
+    if hit is not None and hit[0]() is g0f:
+        return hit[1]
+    lohi = block_start_brackets(g0f, nb, width)
+    if len(_bracket_cache) > 64:
+        _bracket_cache.clear()
+    _bracket_cache[key] = (weakref.ref(g0f), lohi)
+    return lohi
+
+
+def launch_replicate_runs(lib, plan, seed, start, g0f, lo, hi, nb, width, n,
+                          runs, sigma, scratch=None):
+    """Launch the kernel of library lib with plan on the current stream
+    (on_global: global scratch, grid slots of the plan's slot_bytes,
+    allocated here unless given); its return code."""
+    dev = g0f.device
+    if plan.on_global and scratch is None:
+        scratch = torch.empty(plan.grid * plan.slot_bytes, dtype=torch.uint8,
+                              device=dev)
+    k0, k1 = seed_key(seed)
+    ptr = [t.data_ptr() if t is not None else None
+           for t in (*(runs or (None,) * 3), sigma, scratch)]
+    with torch.cuda.device(dev):
+        return lib.fscl_replicate_runs(
+            g0f.data_ptr(), lo.data_ptr(), hi.data_ptr(), g0f.shape[0],
+            int(nb), shuffle_rounds(int(nb) - 1), float(np.float32(width)),
+            float(np.float32(1) / np.float32(width)), k0, k1,
+            int(start) & _M32, int(n), plan.threads, plan.tiles,
+            plan.tile_len, plan.shift, plan.grid,
+            ptr[4] if plan.on_global else None, plan.slot_bytes, *ptr[:4],
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+
+
 def replicate_runs(seed, start, g0f, n_blocks, width, n, with_runs=True,
                    with_sigma=False):
     """(src, dst, sz) [n, n_blocks] int32 (None unless with_runs) and the
@@ -178,14 +328,14 @@ def replicate_runs(seed, start, g0f, n_blocks, width, n, with_runs=True,
                          f"float32 tensor, got {g0f.dtype} "
                          f"{tuple(g0f.shape)}")
     G, nb = g0f.shape[0], int(n_blocks)
-    if not 1 <= nb - 1 <= BLOCKS_MAX:
-        raise ValueError(
-            f"replicate_runs: {nb - 1} shuffled blocks; the kernel's "
-            f"shared-memory sort holds 1 to {BLOCKS_MAX} (raise the block "
-            "width)")
+    if nb < 2:
+        raise ValueError(f"replicate_runs: {nb} blocks; need the tail block "
+                         "and at least one shuffled block")
     if G == 0 or n * max(G, nb) >= 2**31:
         raise ValueError(f"replicate_runs: {n} replicates of {G} groups "
-                         f"and {nb} blocks (need G >= 1, n x G < 2^31)")
+                         f"and {nb} blocks; the kernel needs G >= 1 and "
+                         "its int32 outputs of n x G sigma and n x nb run "
+                         "entries below 2^31")
     dev = g0f.device
     kw = dict(dtype=torch.int32, device=dev)
     runs = (tuple(torch.empty((n, nb), **kw) for _ in range(3))
@@ -196,17 +346,10 @@ def replicate_runs(seed, start, g0f, n_blocks, width, n, with_runs=True,
     from .. import kernels
 
     lib = kernels.load()
-    k0, k1 = seed_key(seed)
-    ptr = [t.data_ptr() if t is not None else None
-           for t in (*(runs or (None,) * 3), sigma)]
-    with torch.cuda.device(dev):
-        rc = lib.fscl_replicate_runs(
-            g0f.data_ptr(), G, nb, shuffle_rounds(nb - 1),
-            float(np.float32(width)),
-            float(np.float32(1) / np.float32(width)), k0, k1,
-            int(start) & _M32, n, *ptr,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+    lo, hi = _brackets(g0f, nb, width)
+    plan = plan_replicate_runs(n, G, nb, with_sigma, _sm_count(dev))
+    rc = launch_replicate_runs(lib, plan, seed, start, g0f, lo, hi, nb,
+                               width, n, runs, sigma)
     kernels.check(lib, rc, "replicate_runs")
     global replicate_runs_launches
     replicate_runs_launches += 1

@@ -30,8 +30,11 @@ Stated tolerances:
   * a checkpoint written by fscl_tpu resumed by the port: as the
     scan_permute comparison above, against fscl_tpu's unbroken run;
   * on the card (gpu): the kernel's runs and sigma equal its plain
-    version's bit for bit, at the shapes above and at genome1m's chunk
-    (R = 2,048, G = 24,304).
+    version's bit for bit, at the shapes above, at genome1m's chunks (R =
+    2,048 and 16, G = 24,304), at B = 1, 2, 3, 31-33, 8,192-8,193,
+    16,384-16,385 and 65,536-65,537, with more blocks than groups, and
+    at about 33,000 blocks (R = 256); the launch plan's byte counts are
+    the kernel's.
 
 This file imports nothing of tests/: on the card machine such imports do
 not collect.
@@ -548,35 +551,68 @@ def _genome1m_gpos():
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("kind, width, seed, start, n", [
-    ("spread", 1e5, 0, 0, 32), ("spread", 1e5, 1, 37, 32),
-    ("spread", 1e5, 2**31 - 1, 2**32 - 5, 32), ("short", 1e6, 3, 5, 64),
-    ("many", 1500.0, 3, 5, 16), ("gaps", 3e5, 3, 5, 32),
-    ("genome", 1e6, 3, 5, 32), ("genome1m", 1e6, 4, 96, 2048)])
-def test_kernel_matches_plain_on_card(kind, width, seed, start, n):
+@pytest.mark.parametrize("kind, width, nb, seed, start, n", [
+    ("spread", 1e5, None, 0, 0, 32), ("spread", 1e5, None, 1, 37, 32),
+    ("spread", 1e5, None, 2**31 - 1, 2**32 - 5, 32),
+    ("short", 1e6, None, 3, 5, 64), ("many", 1500.0, None, 3, 5, 16),
+    ("gaps", 3e5, None, 3, 5, 32), ("genome", 1e6, None, 3, 5, 32),
+    ("genome1m", 1e6, None, 4, 96, 2048),
+    # genome1m's first chunk at the CLI's default: 12 tiles a row
+    ("genome1m", 1e6, None, 0, 0, 16),
+    # B = 1, 2 (half the rows redraw) and 3 at few replicates
+    ("spread", 1e5, 2, 3, 5, 8), ("spread", 1e5, 3, 3, 5, 64),
+    ("spread", 1e5, 4, 9, 0, 4),
+    # B = 31, 32 (32 radix buckets), 33 (64)
+    ("spread", 3e3, 32, 7, 0, 32), ("spread", 3e3, 33, 7, 0, 32),
+    ("spread", 3e3, 34, 7, 0, 32),
+    # G = 112 groups in 600 blocks: most blocks empty
+    ("gaps", 1e3, 600, 3, 5, 16),
+    # B = 8,192 (the largest sort in shared memory) and 8,193 (global
+    # scratch), the old cap 16,384 and 16,385, about 33,000 at genome1m's
+    # coordinates (a 3.1 Gb genome at -w 0.1), and 65,536-65,537 (P
+    # from 65,536 to 131,072)
+    ("many", 100.0, 8193, 3, 5, 8), ("many", 100.0, 8194, 3, 5, 8),
+    ("many", 100.0, 16385, 3, 5, 8), ("many", 100.0, 16386, 3, 5, 8),
+    ("genome1m", 3e4, None, 4, 96, 256), ("many", 100.0, 65537, 3, 5, 4),
+    ("many", 100.0, 65538, 3, 5, 4)])
+def test_kernel_matches_plain_on_card(kind, width, nb, seed, start, n):
     dev = _card()
     g = _genome1m_gpos() if kind == "genome1m" else _gpos(kind)
     g0f, span = TO._g0_device(g, dev)
-    nb = TO.n_blocks_for(span, width)
+    nb = nb or TO.n_blocks_for(span, width)
     w = TO.effective_block_width(span, width)
     before = TO.replicate_runs_launches
     runs, sig = TO.replicate_runs(seed, start, g0f, nb, w, n,
                                   with_sigma=True)
     runs_only, none = TO.replicate_runs(seed, start, g0f, nb, w, n)
-    assert none is None and TO.replicate_runs_launches == before + 2
+    again = TO.replicate_runs(seed, start, g0f, nb, w, n, with_runs=False,
+                              with_sigma=True)[1]
+    assert none is None and TO.replicate_runs_launches == before + 3
     src, dst, sz, sig_p = TO.replicate_runs_plain(seed, start, g0f, nb, w, n,
                                                   with_sigma=True)
     torch.cuda.synchronize()
-    assert torch.equal(sig, sig_p)
+    assert torch.equal(sig, sig_p) and torch.equal(again, sig_p)
     for a, b, c in zip(runs, runs_only, (src, dst, sz)):
         assert torch.equal(a, c) and torch.equal(b, c)
-    if kind == "genome1m":
-        assert sig.shape == (2048, 24_304)
+    if kind == "genome1m" and width == 1e6:
+        assert sig.shape == (n, 24_304)
+    if kind == "genome1m" and width == 3e4:
+        assert 32_000 < nb - 1 < 34_000
 
 
 @pytest.mark.gpu
-def test_kernel_refuses_too_many_blocks_on_card():
-    dev = _card()
-    g0f = torch.zeros(64, dtype=torch.float32, device=dev)
-    with pytest.raises(ValueError, match="shuffled blocks"):
-        TO.replicate_runs(0, 0, g0f, TO.BLOCKS_MAX + 2, 1.0, 4)
+@pytest.mark.parametrize("n, G, nb, sigma", [
+    (32, 625, 22, True), (2048, 24_304, 1003, True), (16, 24_304, 1003, True),
+    (16, 131_060, 122, True), (256, 24_304, 33_369, True),
+    (256, 24_304, 33_369, False), (8, 3125, 16_386, True),
+    (8, 3125, 70_000, True)])
+def test_plan_bytes_match_the_kernel_on_card(n, G, nb, sigma):
+    """The planner's shared-memory and scratch sizes are the kernel's."""
+    _card()
+    from fscl_tpu_torch import kernels
+
+    plan = TO.plan_replicate_runs(n, G, nb, sigma)
+    tbl_len = (plan.tile_len >> plan.shift) + 2
+    got = kernels.load().fscl_replicate_runs_bytes(plan.P, nb, tbl_len)
+    assert got == TO.replicate_runs_bytes(plan.P, nb, tbl_len)
+    assert got == (plan.slot_bytes if plan.on_global else plan.smem_bytes)
