@@ -4438,13 +4438,15 @@ def _stream_cli(dev):
 
 
 def _spec_overlap(events):
-    """At each speculative dispatch followed by a drain: the next chunk's
-    kernels (correlated with launches inside the dispatch's range) against
-    the drain's end, in us: the first kernel's start minus the drain's end
-    (negative: it started before the drain returned) and the kernel time
-    left after the drain returned."""
+    """At each speculative dispatch (span permute.speculate) followed by a
+    drain (permute.drain): the next chunk's kernels (correlated with
+    launches inside the dispatch's range) against the drain's end, in us:
+    the first kernel's start minus the drain's end (negative: it started
+    before the drain returned) and the kernel time left after the drain
+    returned."""
     ann = sorted((e for e in events if e.get("cat") == "user_annotation"
-                  and e.get("name") in ("fscl_spec_dispatch", "fscl_drain")),
+                  and e.get("name") in ("permute.speculate",
+                                        "permute.drain")),
                  key=lambda e: e["ts"])
     launches = [e for e in events
                 if e.get("cat") in ("cuda_runtime", "cuda_driver")
@@ -4455,9 +4457,10 @@ def _spec_overlap(events):
                e.get("args", {})}
     out = []
     for i, a in enumerate(ann):
-        if a["name"] != "fscl_spec_dispatch":
+        if a["name"] != "permute.speculate":
             continue
-        d = next((b for b in ann[i + 1:] if b["name"] == "fscl_drain"), None)
+        d = next((b for b in ann[i + 1:] if b["name"] == "permute.drain"),
+                 None)
         if d is None:
             continue
         a1, d1 = a["ts"] + a["dur"], d["ts"] + d["dur"]
@@ -4498,6 +4501,7 @@ def _stream_perm(label, scanned, cfg, dev, spec, trace, fresh=_unpermuted):
 
     from fscl_tpu_torch.engine import permute as TP
     from fscl_tpu_torch.ops import permute as TO
+    from fscl_tpu_torch.utils import timing
 
     data, tables, scan_cfg, result = scanned
     r = fresh(result)
@@ -4508,7 +4512,8 @@ def _stream_perm(label, scanned, cfg, dev, spec, trace, fresh=_unpermuted):
     ctx = (profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
            if trace else contextlib.nullcontext())
     try:
-        with ctx as prof:
+        with ctx as prof, (timing.annotating() if trace
+                           else contextlib.nullcontext()):
             t0 = time.monotonic()
             TP.scan_permute(data, tables, r, scan_cfg, copy.deepcopy(cfg),
                             device=dev)

@@ -72,6 +72,17 @@ keeps it on one device, fscl_tpu/engine/permute.py:1815-1820).  Only
 rank 0 writes the checkpoint; every rank replays it on a resume, so a
 file written under one world resumes under any other.
 
+Spans (utils/timing.py; recorded only while the recorder is on): the
+call is ``permute.pass`` (a step), set-up and thresholds
+``permute.setup``, each loop turn ``permute.chunk`` (attributes path, R,
+boost, n_active) holding ``permute.draw`` (sigma), ``permute.compact``
+(stack rebuilds and their build_hist_points uploads), ``permute.stat``
+(the statistic's launches and its readback's enqueue),
+``permute.speculate`` (the next chunk's sigma and statistic),
+``permute.drain`` (the readback's wait and the split's gather),
+``permute.update`` (_apply_round_updates) and ``permute.save``
+(checkpoint and SIGINT dump).
+
 Lattice path (fscl_tpu/engine/permute.py:460-644), under --no-hist
 (use_hist=False) and for datasets past the hist gate: the statistic is
 the per-interval max over the same Jf-point position grid of the coarse
@@ -93,7 +104,6 @@ import numpy as np
 import torch
 
 from ..utils.logging import (
-    MSG_DEBUG1,
     MSG_STATUS,
     MSG_WARN,
     cr_logmsg,
@@ -124,6 +134,7 @@ from ..ops.permute import (
 from ..ops.windows import candidate_windows
 from ..parallel import shard
 from ..parallel.mesh import SOLO
+from ..utils.timing import span, traced
 from .checkpoint import Checkpointer
 from .scan import (
     get_hist_device_arrays,
@@ -630,15 +641,18 @@ class _RdpTail:
             self.psite = build_site_prefix(hs.row_cg, n_rows=ht.n_rows)
         key = active.tobytes()
         if self.ctx is None or self.ctx[0] != key:
-            self.ctx = (key, *self._rebuild(active))
+            with span("permute.compact"):
+                self.ctx = (key, *self._rebuild(active))
         _, pts, bounds, fbar = self.ctx
         rp = -(-R // HIST_REP_SUB) * HIST_REP_SUB
         dev = ht.t3.device
-        src, dst, sz = (
-            torch.as_tensor(x if isinstance(x, torch.Tensor) else np.array(x))
-            .to(device=dev, dtype=torch.int32)
-            for x in self.runs_source(rp, start)
-        )
+        with span("permute.draw"):
+            src, dst, sz = (
+                torch.as_tensor(x if isinstance(x, torch.Tensor)
+                                else np.array(x))
+                .to(device=dev, dtype=torch.int32)
+                for x in self.runs_source(rp, start)
+            )
         out = _rdp_stat(
             ht.t3, bounds, fbar, self.psite, src, dst, sz,
             n_cells=ht.n_cells, n_rows=ht.n_rows, n_alpha=ht.n_alpha,
@@ -649,6 +663,7 @@ class _RdpTail:
         return pts, out[:R]
 
 
+@traced("permute.pass", step=True)
 def scan_permute(data, tables, result, scan_cfg, cfg: PermuteConfig,
                  dump_fn=None, device="cuda", sigma_source=None,
                  runs_source=None, split=None):
@@ -776,18 +791,18 @@ class _Readback:
 def _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
                        sigma_source, runs_source, split):
     rng = np.random.default_rng(cfg.seed)
-    t0 = time.monotonic()
-    hs = setup_hist(data, tables, result, scan_cfg, cfg, device)
-    rdp = _RdpTail(hs, result, scan_cfg.eval_range, stat_positions(cfg),
-                   runs_source, cfg.hist_bf16)
+    with span("permute.setup"):
+        hs = setup_hist(data, tables, result, scan_cfg, cfg, device)
+        rdp = _RdpTail(hs, result, scan_cfg.eval_range, stat_positions(cfg),
+                       runs_source, cfg.hist_bf16)
+        K = result.n_points
+        for i in range(K):
+            if result.null_clr[i] is None:
+                result.null_clr[i] = []
     if split.world > 1:
         rdp = None
         logmsg(MSG_STATUS, "Permutation replicates split over %d ranks "
                "(the RDP tail is off under a split)", split.world)
-    K = result.n_points
-    for i in range(K):
-        if result.null_clr[i] is None:
-            result.null_clr[i] = []
     cap = boost_cap(hs.n_groups, cfg.chunk_replicates)
 
     def _boost(n_act, rounds_done):
@@ -803,19 +818,17 @@ def _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
             active[:] = False  # a finished run: no chunk, no threshold
         # observed thresholds under the identical statistic: sigma = identity
         threshold = np.zeros(K)
-        obs_sigma = hs.pad_sigma(
-            torch.arange(hs.n_groups, dtype=torch.int32, device=device)[None]
-        )
-        for st in hs.stacks:
-            st.rebuild(result, active_by_chr(result, st, active))
-            if len(st.pts):
-                sub_save, st.sub_rep = st.sub_rep, 1
-                obs = st.stat(hs.table, obs_sigma, cfg)
-                st.sub_rep = sub_save
-                threshold[st.pts] = obs[0].cpu().numpy()
-                _record_thresholds(result, st.pts, threshold)
-        logmsg(MSG_DEBUG1, "hist permutation setup: %.1fs (%d stack groups)",
-               time.monotonic() - t0, len(hs.stacks))
+        with span("permute.setup"):
+            obs_sigma = hs.pad_sigma(torch.arange(
+                hs.n_groups, dtype=torch.int32, device=device)[None])
+            for st in hs.stacks:
+                st.rebuild(result, active_by_chr(result, st, active))
+                if len(st.pts):
+                    sub_save, st.sub_rep = st.sub_rep, 1
+                    obs = st.stat(hs.table, obs_sigma, cfg)
+                    st.sub_rep = sub_save
+                    threshold[st.pts] = obs[0].cpu().numpy()
+                    _record_thresholds(result, st.pts, threshold)
 
         # the next chunk's sigma ((boost, start), padded rows of this
         # rank) and whole statistic ((boost, start, R), blocks), enqueued
@@ -838,74 +851,79 @@ def _scan_permute_hist(data, tables, result, scan_cfg, cfg, dump_fn, device,
             q0, q1 = shard.split_range(R_n, split)
             if q1 == q0:
                 return None, None
-            with torch.profiler.record_function("fscl_spec_dispatch"):
+            with span("permute.draw"):
                 sig = hs.pad_sigma(sigma_source(q1 - q0, start + q0))
-                chunk = None
-                if (STAT_SPEC and split.world == 1
-                        and b >= STAT_SPEC_MIN_BOOST):
-                    chunk = ((b, start, R_n),
-                             _stack_chunk(hs, cfg, result, active, R_n,
-                                          start, sigma_source, sig))
+            chunk = None
+            if STAT_SPEC and split.world == 1 and b >= STAT_SPEC_MIN_BOOST:
+                chunk = ((b, start, R_n),
+                         _stack_chunk(hs, cfg, result, active, R_n, start,
+                                      sigma_source, sig))
             return ((b, start), sig), chunk
 
         with _InterruptState(dump_fn) as intr:
             while active.any() and rounds_done < cfg.n_permute:
-                tr = time.monotonic()
-                boost = _boost(int(active.sum()), rounds_done)
-                R = min(cfg.chunk_replicates * boost,
-                        cfg.n_permute - rounds_done)
-                if rdp is not None and rdp.wanted(active):
-                    _drop_spec()
-                    spec_sigma = None
-                    pts, out = rdp.chunk(active, R, rounds_done)
-                    blocks = [(pts, out)]
-                    path = "rdp"
-                    host = out.cpu().numpy()
-                else:
-                    path = "hist"
-                    r0, r1 = shard.split_range(R, split)
-                    if (spec_chunk is not None
-                            and spec_chunk[0] == (boost, rounds_done, R)
-                            and not _compaction_due(hs, result, active)):
-                        blocks = spec_chunk[1]
-                        spec_chunk = None
-                        last_stats["hist_spec_chunks"] += 1
-                    else:
+                with span("permute.chunk") as turn:
+                    n_act = int(active.sum())
+                    boost = _boost(n_act, rounds_done)
+                    R = min(cfg.chunk_replicates * boost,
+                            cfg.n_permute - rounds_done)
+                    path = ("rdp" if rdp is not None and rdp.wanted(active)
+                            else "hist")
+                    turn.set(path=path, R=R, boost=boost, n_active=n_act)
+                    if path == "rdp":
                         _drop_spec()
-                        sig = (spec_sigma[1] if spec_sigma is not None
-                               and spec_sigma[0] == (boost, rounds_done)
-                               else None)
-                        blocks = _stack_chunk(hs, cfg, result, active,
-                                              r1 - r0, rounds_done + r0,
-                                              sigma_source, sig)
-                    spec_sigma = None
-                    if r1 > r0:
-                        last_stats["stack_dispatches"] += len(blocks)
-                    pending = _Readback(
-                        torch.cat([o for _, o in blocks], 1))
-                    if rounds_done + R < cfg.n_permute:
-                        spec_sigma, spec_chunk = _speculate(
-                            rounds_done + R, int(active.sum()))
-                    with torch.profiler.record_function("fscl_drain"):
-                        host = shard.gather_rows(pending.wait(), R, split)
-                off = 0
-                for pts, _ in blocks:
-                    _apply_round_updates(
-                        result, active, threshold, rng, cfg, pts,
-                        host[:, off:off + len(pts)], rounds_done, R,
+                        spec_sigma = None
+                        with span("permute.stat"):
+                            pts, out = rdp.chunk(active, R, rounds_done)
+                        blocks = [(pts, out)]
+                        with span("permute.drain"):
+                            host = out.cpu().numpy()
+                    else:
+                        r0, r1 = shard.split_range(R, split)
+                        if (spec_chunk is not None
+                                and spec_chunk[0] == (boost, rounds_done, R)
+                                and not _compaction_due(hs, result, active)):
+                            blocks = spec_chunk[1]
+                            spec_chunk = None
+                            last_stats["hist_spec_chunks"] += 1
+                        else:
+                            _drop_spec()
+                            sig = (spec_sigma[1] if spec_sigma is not None
+                                   and spec_sigma[0] == (boost, rounds_done)
+                                   else None)
+                            blocks = _stack_chunk(hs, cfg, result, active,
+                                                  r1 - r0, rounds_done + r0,
+                                                  sigma_source, sig)
+                        spec_sigma = None
+                        if r1 > r0:
+                            last_stats["stack_dispatches"] += len(blocks)
+                        with span("permute.stat"):
+                            pending = _Readback(
+                                torch.cat([o for _, o in blocks], 1))
+                        if rounds_done + R < cfg.n_permute:
+                            with span("permute.speculate"):
+                                spec_sigma, spec_chunk = _speculate(
+                                    rounds_done + R, int(active.sum()))
+                        with span("permute.drain"):
+                            host = shard.gather_rows(pending.wait(), R, split)
+                    with span("permute.update"):
+                        off = 0
+                        for pts, _ in blocks:
+                            _apply_round_updates(
+                                result, active, threshold, rng, cfg, pts,
+                                host[:, off:off + len(pts)], rounds_done, R,
+                            )
+                            off += len(pts)
+                    rounds_done += R
+                    cr_logmsg(
+                        MSG_STATUS,
+                        "Scanning snp block permutations... %7d (%d scan "
+                        "pts remaining)", rounds_done, int(active.sum()),
                     )
-                    off += len(pts)
-                rounds_done += R
-                cr_logmsg(
-                    MSG_STATUS,
-                    "Scanning snp block permutations... %7d (%d scan pts "
-                    "remaining)", rounds_done, int(active.sum()),
-                )
-                logmsg(MSG_DEBUG1, "%s round chunk of %d: %.2fs", path, R,
-                       time.monotonic() - tr)
-                if ckpt is not None:
-                    ckpt.save(result, rounds_done)
-                intr.maybe_dump()
+                    with span("permute.save"):
+                        if ckpt is not None:
+                            ckpt.save(result, rounds_done)
+                        intr.maybe_dump()
             _drop_spec()
     logmsg(
         MSG_STATUS,
@@ -930,18 +948,21 @@ def _stack_chunk(hs, cfg, result, active, R, start, sigma_source,
     (compacted first where due; R = 0, a rank without a share of the
     chunk, compacts and launches nothing).  sigma: the chunk's padded
     rows drawn ahead, else drawn here."""
-    live = [st for st in hs.stacks
-            if st.pts is not None and active[st.pts].any()]
-    for st in live:
-        if st.due(result, active):
-            st.rebuild(result, active_by_chr(result, st, active))
+    with span("permute.compact"):
+        live = [st for st in hs.stacks
+                if st.pts is not None and active[st.pts].any()]
+        for st in live:
+            if st.due(result, active):
+                st.rebuild(result, active_by_chr(result, st, active))
     if R == 0:
         return [(st.pts, torch.zeros((0, len(st.pts)))) for st in live]
     # exactly the chunk's rows, in slices of sub_rep (the last one
     # short): a rank of a split draws and evaluates its own rows only
     if sigma is None:
-        sigma = hs.pad_sigma(sigma_source(R, start))
-    return [(st.pts, st.stat(hs.table, sigma, cfg)) for st in live]
+        with span("permute.draw"):
+            sigma = hs.pad_sigma(sigma_source(R, start))
+    with span("permute.stat"):
+        return [(st.pts, st.stat(hs.table, sigma, cfg)) for st in live]
 
 
 class _ChrPermContext:
@@ -985,37 +1006,35 @@ def _scan_permute_lattice(data, tables, result, scan_cfg, cfg, dump_fn,
     (:460-644): thresholds per POINT_BUCKET points of each chromosome,
     then chunks of chunk_replicates replicates, pruned between chunks."""
     rng = np.random.default_rng(cfg.seed)
-    t0 = time.monotonic()
-    lt = get_lattice_tables(tables, device)
-    Jf = stat_positions(cfg)
-    row_gen = torch.as_tensor(np.asarray(data.row, dtype=np.int32),
-                              device=device)
-    null_gen = torch.as_tensor(np.asarray(data.null_logl, dtype=np.float32),
-                               device=device)
-    W = row_gen.shape[0]
-    K = result.n_points
-    for i in range(K):
-        if result.null_clr[i] is None:
-            result.null_clr[i] = []
-    chr_ctx = []
-    threshold = np.zeros(K)
-    for c, cl in enumerate(data.chr_limits):
-        pts = np.where(result.chr_id == c)[0]
-        if len(pts) == 0:
-            continue
-        ctx = _ChrPermContext(data, cl, scan_cfg, pts, Jf, device)
-        chr_ctx.append(ctx)
-        sl = slice(ctx.start, ctx.start + ctx.n)
-        row, null = row_gen[None, sl], null_gen[None, sl]
-        for g0 in range(0, len(pts), POINT_BUCKET):
-            grp = pts[g0:g0 + POINT_BUCKET]
-            obs = _stat_max(lt, row, null, ctx.pos,
-                            *ctx.build_batch(result, grp), n_pts=len(grp),
-                            Jf=Jf)
-            threshold[grp] = obs[0].cpu().numpy()
-    _record_thresholds(result, np.arange(K), threshold)
-    logmsg(MSG_DEBUG1, "lattice permutation setup: %.1fs",
-           time.monotonic() - t0)
+    with span("permute.setup"):
+        lt = get_lattice_tables(tables, device)
+        Jf = stat_positions(cfg)
+        row_gen = torch.as_tensor(np.asarray(data.row, dtype=np.int32),
+                                  device=device)
+        null_gen = torch.as_tensor(
+            np.asarray(data.null_logl, dtype=np.float32), device=device)
+        W = row_gen.shape[0]
+        K = result.n_points
+        for i in range(K):
+            if result.null_clr[i] is None:
+                result.null_clr[i] = []
+        chr_ctx = []
+        threshold = np.zeros(K)
+        for c, cl in enumerate(data.chr_limits):
+            pts = np.where(result.chr_id == c)[0]
+            if len(pts) == 0:
+                continue
+            ctx = _ChrPermContext(data, cl, scan_cfg, pts, Jf, device)
+            chr_ctx.append(ctx)
+            sl = slice(ctx.start, ctx.start + ctx.n)
+            row, null = row_gen[None, sl], null_gen[None, sl]
+            for g0 in range(0, len(pts), POINT_BUCKET):
+                grp = pts[g0:g0 + POINT_BUCKET]
+                obs = _stat_max(lt, row, null, ctx.pos,
+                                *ctx.build_batch(result, grp),
+                                n_pts=len(grp), Jf=Jf)
+                threshold[grp] = obs[0].cpu().numpy()
+        _record_thresholds(result, np.arange(K), threshold)
 
     # opened after the thresholds are recorded, as the JAX package does:
     # a resume's replay overwrites them with the checkpointed values
@@ -1024,51 +1043,59 @@ def _scan_permute_lattice(data, tables, result, scan_cfg, cfg, dump_fn,
         active = ~result.permute_finished.copy()
         rounds_done = ckpt.rounds_done if ckpt is not None else 0
         while active.any() and rounds_done < cfg.n_permute:
-            tr = time.monotonic()
-            R = min(cfg.chunk_replicates, cfg.n_permute - rounds_done)
-            r0, r1 = shard.split_range(R, split)
-            sigma = None
-            if r1 > r0:
-                sig8 = sigma_source(r1 - r0, rounds_done + r0)
-                if not isinstance(sig8, torch.Tensor):
-                    sig8 = torch.from_numpy(np.array(sig8, dtype=np.int32))
-                sigma = expand_group_sigma(
-                    sig8.to(device=device, dtype=torch.int64), W)
-            for ctx in chr_ctx:
-                act_all = ctx.point_ids[active[ctx.point_ids]]
-                if len(act_all) == 0:
-                    continue
-                groups = [act_all[g0:g0 + POINT_BUCKET]
-                          for g0 in range(0, len(act_all), POINT_BUCKET)]
-                if sigma is not None:
-                    idx = sigma[:, ctx.start:ctx.start + ctx.n]
-                    row, null = row_gen[idx], null_gen[idx]  # [Rr, n]
-                    mine = torch.cat([
-                        _stat_max(lt, row, null, ctx.pos,
-                                  *ctx.build_batch(result, act),
-                                  n_pts=len(act), Jf=Jf)
-                        for act in groups], 1).cpu().numpy()
-                else:  # no replicate of this chunk is this rank's
-                    mine = np.zeros((0, len(act_all)), np.float32)
-                host = shard.gather_rows(mine, R, split)
-                off = 0
-                for act in groups:
-                    _apply_round_updates(
-                        result, active, threshold, rng, cfg, act,
-                        host[:, off:off + len(act)], rounds_done, R,
-                    )
-                    off += len(act)
-            rounds_done += R
-            cr_logmsg(
-                MSG_STATUS,
-                "Scanning snp block permutations... %7d (%d scan pts "
-                "remaining)", rounds_done, int(active.sum()),
-            )
-            logmsg(MSG_DEBUG1, "lattice round chunk of %d: %.2fs", R,
-                   time.monotonic() - tr)
-            if ckpt is not None:
-                ckpt.save(result, rounds_done)
-            intr.maybe_dump()
+            with span("permute.chunk") as turn:
+                R = min(cfg.chunk_replicates, cfg.n_permute - rounds_done)
+                turn.set(path="lattice", R=R, boost=1,
+                          n_active=int(active.sum()))
+                r0, r1 = shard.split_range(R, split)
+                sigma = None
+                if r1 > r0:
+                    with span("permute.draw"):
+                        sig8 = sigma_source(r1 - r0, rounds_done + r0)
+                        if not isinstance(sig8, torch.Tensor):
+                            sig8 = torch.from_numpy(
+                                np.array(sig8, dtype=np.int32))
+                        sigma = expand_group_sigma(
+                            sig8.to(device=device, dtype=torch.int64), W)
+                for ctx in chr_ctx:
+                    act_all = ctx.point_ids[active[ctx.point_ids]]
+                    if len(act_all) == 0:
+                        continue
+                    groups = [act_all[g0:g0 + POINT_BUCKET]
+                              for g0 in range(0, len(act_all), POINT_BUCKET)]
+                    out = None
+                    if sigma is not None:
+                        with span("permute.stat"):
+                            idx = sigma[:, ctx.start:ctx.start + ctx.n]
+                            row, null = row_gen[idx], null_gen[idx]  # [Rr, n]
+                            out = torch.cat([
+                                _stat_max(lt, row, null, ctx.pos,
+                                          *ctx.build_batch(result, act),
+                                          n_pts=len(act), Jf=Jf)
+                                for act in groups], 1)
+                    with span("permute.drain"):
+                        # no replicate of this chunk may be this rank's
+                        mine = (out.cpu().numpy() if out is not None else
+                                np.zeros((0, len(act_all)), np.float32))
+                        host = shard.gather_rows(mine, R, split)
+                    with span("permute.update"):
+                        off = 0
+                        for act in groups:
+                            _apply_round_updates(
+                                result, active, threshold, rng, cfg, act,
+                                host[:, off:off + len(act)], rounds_done, R,
+                            )
+                            off += len(act)
+                rounds_done += R
+                cr_logmsg(
+                    MSG_STATUS,
+                    "Scanning snp block permutations... %7d (%d scan pts "
+                    "remaining)", rounds_done, int(active.sum()),
+                )
+                with span("permute.save"):
+                    if ckpt is not None:
+                        ckpt.save(result, rounds_done)
+                    intr.maybe_dump()
     logmsg(
         MSG_STATUS,
         "Scanning snp block permutations... finished (%d rounds).",

@@ -26,12 +26,21 @@ same selections and holds the same ScanResult.  The tie stage is split
 the same way (_eval_flats), so that a rank builds the tie table's
 prefix sums only for the chromosomes of its share.  ``last_stats`` holds
 the last scan's split_world, split_gather_s and split_gather_bytes.
+
+Spans (utils/timing.py; recorded only while the recorder is on): the
+call is ``scan.genome`` (a step); ``scan.tables`` the tables, prefix
+sums and device arrays built for a cold data object (also where a stage
+builds them at first use); ``scan.setup`` the chromosome states and SNP
+probes; one ``scan.stage`` (attribute ``stage``: dense, refine, tie) a
+stage, holding ``scan.eval`` (the host's enqueue of every chromosome's
+statistic), ``scan.readback`` (the wait for it and the split's gather)
+and ``scan.select`` (the numpy candidates and selections around it);
+``scan.output`` the result's assembly.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -50,8 +59,8 @@ from ..ops.lattice import LatticeTables, two_stage_lattice_max
 from ..ops.windows import candidate_windows
 from ..parallel import shard
 from ..parallel.mesh import SOLO
-from ..utils.logging import MSG_DEBUG1, MSG_STATUS, cr_logmsg, logmsg
-from ..utils.timing import phase
+from ..utils.logging import MSG_STATUS, cr_logmsg
+from ..utils.timing import phase, span, traced
 
 # the last scan_genome call's split: its world and its gathers' wall and
 # received bytes (parallel/shard.py)
@@ -190,12 +199,14 @@ def make_scan_hist_tables(data, tables, n_alpha=128, decimate=1,
     cache["qbits"] = qb
     null_row = np.zeros(tables.table.shape[0])
     null_row[row] = np.asarray(data.null_logl)
-    ht = build_hist_tables(
-        tables.table, tables.grid_points, null_row, rows_used,
-        extent_bp=max(extents) + 1, n_alpha=n_alpha, decimate=decimate,
-        site_row_counts=np.bincount(row, minlength=tables.table.shape[0]),
-        device=device,
-    )
+    with span("scan.tables"):
+        ht = build_hist_tables(
+            tables.table, tables.grid_points, null_row, rows_used,
+            extent_bp=max(extents) + 1, n_alpha=n_alpha, decimate=decimate,
+            site_row_counts=np.bincount(row,
+                                        minlength=tables.table.shape[0]),
+            device=device,
+        )
     cache[key] = ht
     return ht
 
@@ -207,7 +218,8 @@ def get_hist_device_arrays(data, ht, pos_np, start_index):
     key = ("dev", start_index, len(pos_np), qb, ht.n_cells,
            round(float(ht.step), 12))
     if key not in cache:
-        cache[key] = make_hist_device_arrays(ht, pos_np, qbits=qb)
+        with span("scan.tables"):
+            cache[key] = make_hist_device_arrays(ht, pos_np, qbits=qb)
     return cache[key]
 
 
@@ -269,14 +281,16 @@ def _eval_flats(evaluate, states, flats, split):
     n = sum(len(f) for f in flats)
     r0, r1 = shard.split_range(n, split)
     pend, off = [], 0
-    for st, f in zip(states, flats):
-        a, b = max(r0 - off, 0), min(r1 - off, len(f))
-        if a < b:
-            pend.append(evaluate(st, f[a:b]))
-        off += len(f)
-    mine = (torch.cat(pend, 1).cpu().numpy() if pend
-            else np.zeros((2, 0), np.float32))
-    host = shard.gather_cols(mine, n, split)
+    with span("scan.eval"):
+        for st, f in zip(states, flats):
+            a, b = max(r0 - off, 0), min(r1 - off, len(f))
+            if a < b:
+                pend.append(evaluate(st, f[a:b]))
+            off += len(f)
+    with span("scan.readback"):
+        mine = (torch.cat(pend, 1).cpu().numpy() if pend
+                else np.zeros((2, 0), np.float32))
+        host = shard.gather_cols(mine, n, split)
     outs, off = [], 0
     for f in flats:
         outs.append((host[0, off:off + len(f)], host[1, off:off + len(f)]))
@@ -350,16 +364,17 @@ def _chrom_scan_ps(data, ht, st, mod16):
     same row pad).  Compressed mode: per table, since each table's
     channels are the SVD factors of its own decimated columns."""
     cache = _port_cache(data, ht.t3.device)
-    row_c = _chrom_row_stream(data, ht, st)
     if ht.weights is None:
         key = ("scan-ps", st.cl.start_index, st.cl.n_snps, ht.n_rows, mod16)
-        if key not in cache:
-            cache[key] = _build_scan_ps(row_c, n_rows=ht.n_rows, mod16=mod16)
     else:
         key = ("scan-ps-w", st.cl.start_index, st.cl.n_snps, ht.n_cells,
                round(float(ht.step), 12))
-        if key not in cache:
-            cache[key] = _build_scan_ps_w(row_c, ht.weights)
+    if key not in cache:
+        with span("scan.tables"):
+            row_c = _chrom_row_stream(data, ht, st)
+            cache[key] = (
+                _build_scan_ps(row_c, n_rows=ht.n_rows, mod16=mod16)
+                if ht.weights is None else _build_scan_ps_w(row_c, ht.weights))
     return cache[key]
 
 
@@ -496,8 +511,9 @@ def _tie_stage(data, tables, cfg, states, hist_ht, device, split):
     finer tie table (the selection table is already at tie_decimate) the
     refine winners stand.  Under a split, each rank evaluates its share
     of the pool, as in every other stage (_eval_flats)."""
-    for st in states:
-        st.cand_x, st.owner_x = _tie_candidates(st, cfg)
+    with span("scan.select"):
+        for st in states:
+            st.cand_x, st.owner_x = _tie_candidates(st, cfg)
     ht1 = (
         make_scan_hist_tables(
             data, tables, cfg.hist_alphas, decimate=cfg.tie_decimate,
@@ -510,22 +526,26 @@ def _tie_stage(data, tables, cfg, states, hist_ht, device, split):
     ht_report = ht1 if ht1 is not None else hist_ht
     flats = [st.cand_x for st in states]
     if float(ht_report.step) > cfg.exact_step_max:
-        for st in states:
-            if st.blk is None:
-                st.blk = _ChromosomeBlock(data, st.cl,
-                                          get_lattice_tables(tables, device))
+        with span("scan.tables"):
+            for st in states:
+                if st.blk is None:
+                    st.blk = _ChromosomeBlock(
+                        data, st.cl, get_lattice_tables(tables, device))
 
         def evaluate(st, f):
             return st.blk.eval_device(f, cfg)
     elif ht1 is not None:
-        evaluate = _FusedHistEval(ht1, data, cfg).evaluate
+        with span("scan.tables"):
+            evaluate = _FusedHistEval(ht1, data, cfg).evaluate
     else:
         return
     outs = _eval_flats(evaluate, states, flats, split)
-    for st, (clr, la) in zip(states, outs):
-        _report_pool_max(st, st.cand_x, clr, la)
+    with span("scan.select"):
+        for st, (clr, la) in zip(states, outs):
+            _report_pool_max(st, st.cand_x, clr, la)
 
 
+@traced("scan.genome", step=True)
 def scan_genome(data, tables, cfg: ScanConfig, device="cuda",
                 split=None) -> ScanResult:
     """Scan all chromosomes; returns one scan point per coarse interval.
@@ -536,59 +556,61 @@ def scan_genome(data, tables, cfg: ScanConfig, device="cuda",
     takes the lattice path or its exact tie stage.  ``split``: this
     process's parallel.Split (None: a world of one); see the module doc.
     """
-    t0 = time.monotonic()
     device = parse_device(device)
     split = split or SOLO
     g0 = dict(shard.stats)
-    hist_ht = (
-        make_scan_hist_tables(
-            data, tables, cfg.hist_alphas, decimate=cfg.hist_decimate,
-            device=device,
+    with span("scan.tables"):
+        hist_ht = (
+            make_scan_hist_tables(
+                data, tables, cfg.hist_alphas, decimate=cfg.hist_decimate,
+                device=device,
+            )
+            if cfg.use_hist else None
         )
-        if cfg.use_hist else None
-    )
-
-    fused = (
-        _FusedHistEval(hist_ht, data, cfg, mm_bf16=cfg.selection_bf16)
-        if hist_ht is not None else None
-    )
+        fused = (
+            _FusedHistEval(hist_ht, data, cfg, mm_bf16=cfg.selection_bf16)
+            if hist_ht is not None else None
+        )
     stride = (
         max(int(cfg.dense_stride), 1)
         if (cfg.refine and hist_ht is not None) else 1
     )
 
-    states = []
-    for c, cl in enumerate(data.chr_limits):
-        blk = (_ChromosomeBlock(data, cl, get_lattice_tables(tables, device))
-               if hist_ht is None else None)
-        st = _ChrScanState(c, cl, data, cfg, blk=blk, stride=stride)
-        cr_logmsg(
-            MSG_STATUS,
-            "Scanning chromosome %s - %d intervals x %d candidates",
-            cl.name, st.n_int, st.J,
-        )
-        states.append(st)
+    with span("scan.setup"):
+        states = []
+        for c, cl in enumerate(data.chr_limits):
+            blk = None
+            if hist_ht is None:
+                with span("scan.tables"):
+                    blk = _ChromosomeBlock(data, cl,
+                                           get_lattice_tables(tables, device))
+            st = _ChrScanState(c, cl, data, cfg, blk=blk, stride=stride)
+            cr_logmsg(
+                MSG_STATUS,
+                "Scanning chromosome %s - %d intervals x %d candidates",
+                cl.name, st.n_int, st.J,
+            )
+            states.append(st)
+        if hist_ht is not None and cfg.snp_probes:
+            row_all = np.asarray(data.row)
+            null_row = np.zeros(tables.table.shape[0])
+            null_row[row_all] = np.asarray(data.null_logl)
+            row_gain = tables.table.max(axis=1) - null_row
+            for st in states:
+                st.snp_cand, st.snp_owner = _snp_probe_positions(
+                    data, tables, st, cfg, row_gain
+                )
 
     def eval_stage(get_cand):
         """get_cand(st) for every chromosome, one readback: the hist
         statistic, or the lattice search on the lattice path; under a
         split, this rank's share, gathered (_eval_flats)."""
+        with span("scan.select"):
+            flats = [get_cand(st) for st in states]
         return _eval_flats(
             fused.evaluate if fused is not None
             else lambda st, f: st.blk.eval_device(f, cfg),
-            states, [get_cand(st) for st in states], split)
-
-    if hist_ht is not None and cfg.snp_probes:
-        row_all = np.asarray(data.row)
-        null_row = np.zeros(tables.table.shape[0])
-        null_row[row_all] = np.asarray(data.null_logl)
-        row_gain = tables.table.max(axis=1) - null_row
-        for st in states:
-            st.snp_cand, st.snp_owner = _snp_probe_positions(
-                data, tables, st, cfg, row_gain
-            )
-    logmsg(MSG_DEBUG1, "scan setup: %.2fs", time.monotonic() - t0)
-    t0 = time.monotonic()
+            states, flats, split)
 
     def _dense_cand(st):
         flat = st.cand.reshape(-1)
@@ -597,47 +619,11 @@ def scan_genome(data, tables, cfg: ScanConfig, device="cuda",
         return flat
 
     # dense fine-grid stage (+ SNP-anchored probes in the same evaluation)
-    for st, (clr_all, la_all) in zip(states, eval_stage(_dense_cand)):
-        ng = st.n_int * st.J
-        clr = np.where(
-            st.valid.reshape(-1), clr_all[:ng], -np.inf
-        ).reshape(st.n_int, st.J)
-        la = la_all[:ng].reshape(st.n_int, st.J)
-        jbest = np.argmax(clr, axis=1)
-        st.best_pos = st.cand[st.r, jbest]
-        st.best_clr = clr[st.r, jbest]
-        st.best_la = la[st.r, jbest]
-        # top-k dense cells within branch_margin of the winner each get a
-        # refine zoom
-        k = max(1, min(cfg.branch_k, st.J))
-        order = np.argsort(clr, axis=1)[:, -k:]
-        st.bpos = st.cand[st.r[:, None], order]
-        st.bclr = clr[st.r[:, None], order]
-        st.bla = la[st.r[:, None], order]
-        if st.snp_cand is not None:
-            st.snp_clr = clr_all[ng : ng + len(st.snp_cand)]
-            st.snp_la = la_all[ng : ng + len(st.snp_cand)]
-            # top-2 SNP probes per interval join the branch pool
-            o = np.lexsort((-st.snp_clr, st.snp_owner))
-            so, sp = st.snp_owner[o], st.snp_cand[o]
-            sc, sl = st.snp_clr[o], st.snp_la[o]
-            rank = np.arange(len(so)) - np.searchsorted(so, so)
-            ext_pos = np.tile(st.best_pos[:, None], (1, 2))
-            ext_clr = np.full((st.n_int, 2), -np.inf)
-            ext_la = np.zeros((st.n_int, 2))
-            for rk in (0, 1):
-                m = rank == rk
-                ext_pos[so[m], rk] = sp[m]
-                ext_clr[so[m], rk] = sc[m]
-                ext_la[so[m], rk] = sl[m]
-            st.bpos = np.concatenate([st.bpos, ext_pos], axis=1)
-            st.bclr = np.concatenate([st.bclr, ext_clr], axis=1)
-            st.bla = np.concatenate([st.bla, ext_la], axis=1)
-            st.best_clr = np.maximum(st.best_clr, st.bclr.max(axis=1))
-        st.bkeep = st.bclr >= (st.best_clr - cfg.branch_margin)[:, None]
-        st.bkeep[:, min(k, st.bkeep.shape[1]) - 1] = True
-    logmsg(MSG_DEBUG1, "scan dense stage: %.2fs", time.monotonic() - t0)
-    t0 = time.monotonic()
+    with span("scan.stage", stage="dense"):
+        outs = eval_stage(_dense_cand)
+        with span("scan.select"):
+            for st, (clr_all, la_all) in zip(states, outs):
+                _select_dense(st, clr_all, la_all, cfg)
 
     if cfg.refine:
         # iterative zoom: re-center each kept branch on its running winner
@@ -660,42 +646,92 @@ def scan_genome(data, tables, cfg: ScanConfig, device="cuda",
                 st.flat_cand = c.reshape(-1)
                 return st.flat_cand
 
-            for st, (clr2, la2) in zip(states, eval_stage(rcand)):
-                nb = len(st.flat_bi)
-                no = 2 * offs_w + 1
-                cand2 = st.flat_cand.reshape(nb, no)
-                clr2 = clr2[: nb * no].reshape(nb, no)
-                la2 = la2[: nb * no].reshape(nb, no)
-                j2 = np.argmax(clr2, axis=1)
-                rows = np.arange(nb)
-                fb, fj = st.flat_bi, st.flat_bj
-                better = clr2[rows, j2] > st.bclr[fb, fj]
-                st.bpos[fb, fj] = np.where(
-                    better, cand2[rows, j2], st.bpos[fb, fj]
-                )
-                st.bla[fb, fj] = np.where(better, la2[rows, j2],
-                                          st.bla[fb, fj])
-                st.bclr[fb, fj] = np.maximum(st.bclr[fb, fj],
-                                             clr2[rows, j2])
-                if final_round:
-                    st.probe_owner = np.repeat(st.flat_bi, no)
-                    st.probe_pos = cand2.reshape(-1)
-                    st.probe_clr = clr2.reshape(-1)
+            with span("scan.stage", stage="refine", pitch=pitch):
+                outs = eval_stage(rcand)
+                with span("scan.select"):
+                    for st, (clr2, la2) in zip(states, outs):
+                        _select_refine(st, clr2, la2, offs_w, final_round)
 
-        for st in states:
-            bb = np.argmax(np.where(st.bkeep, st.bclr, -np.inf), axis=1)
-            st.best_pos = st.bpos[st.r, bb]
-            st.best_clr = st.bclr[st.r, bb]
-            st.best_la = st.bla[st.r, bb]
-    logmsg(MSG_DEBUG1, "scan refine stage: %.2fs", time.monotonic() - t0)
-    t0 = time.monotonic()
+        with span("scan.select"):
+            for st in states:
+                bb = np.argmax(np.where(st.bkeep, st.bclr, -np.inf), axis=1)
+                st.best_pos = st.bpos[st.r, bb]
+                st.best_clr = st.bclr[st.r, bb]
+                st.best_la = st.bla[st.r, bb]
 
     if hist_ht is not None:
-        _tie_stage(data, tables, cfg, states, hist_ht, device, split)
-        logmsg(MSG_DEBUG1, "scan tie stage: %.2fs (%d candidates)",
-               time.monotonic() - t0,
-               sum(len(st.cand_x) for st in states))
+        with span("scan.stage", stage="tie"):
+            _tie_stage(data, tables, cfg, states, hist_ht, device, split)
 
+    with span("scan.output"):
+        return _scan_result(states, cfg, g0, split)
+
+
+def _select_dense(st, clr_all, la_all, cfg):
+    """The dense stage's winner and refine branches of one chromosome."""
+    ng = st.n_int * st.J
+    clr = np.where(
+        st.valid.reshape(-1), clr_all[:ng], -np.inf
+    ).reshape(st.n_int, st.J)
+    la = la_all[:ng].reshape(st.n_int, st.J)
+    jbest = np.argmax(clr, axis=1)
+    st.best_pos = st.cand[st.r, jbest]
+    st.best_clr = clr[st.r, jbest]
+    st.best_la = la[st.r, jbest]
+    # top-k dense cells within branch_margin of the winner each get a
+    # refine zoom
+    k = max(1, min(cfg.branch_k, st.J))
+    order = np.argsort(clr, axis=1)[:, -k:]
+    st.bpos = st.cand[st.r[:, None], order]
+    st.bclr = clr[st.r[:, None], order]
+    st.bla = la[st.r[:, None], order]
+    if st.snp_cand is not None:
+        st.snp_clr = clr_all[ng : ng + len(st.snp_cand)]
+        st.snp_la = la_all[ng : ng + len(st.snp_cand)]
+        # top-2 SNP probes per interval join the branch pool
+        o = np.lexsort((-st.snp_clr, st.snp_owner))
+        so, sp = st.snp_owner[o], st.snp_cand[o]
+        sc, sl = st.snp_clr[o], st.snp_la[o]
+        rank = np.arange(len(so)) - np.searchsorted(so, so)
+        ext_pos = np.tile(st.best_pos[:, None], (1, 2))
+        ext_clr = np.full((st.n_int, 2), -np.inf)
+        ext_la = np.zeros((st.n_int, 2))
+        for rk in (0, 1):
+            m = rank == rk
+            ext_pos[so[m], rk] = sp[m]
+            ext_clr[so[m], rk] = sc[m]
+            ext_la[so[m], rk] = sl[m]
+        st.bpos = np.concatenate([st.bpos, ext_pos], axis=1)
+        st.bclr = np.concatenate([st.bclr, ext_clr], axis=1)
+        st.bla = np.concatenate([st.bla, ext_la], axis=1)
+        st.best_clr = np.maximum(st.best_clr, st.bclr.max(axis=1))
+    st.bkeep = st.bclr >= (st.best_clr - cfg.branch_margin)[:, None]
+    st.bkeep[:, min(k, st.bkeep.shape[1]) - 1] = True
+
+
+def _select_refine(st, clr2, la2, offs_w, final_round):
+    """One refine round's running branch winners of one chromosome, and
+    in the final round its probes for the tie stage."""
+    nb = len(st.flat_bi)
+    no = 2 * offs_w + 1
+    cand2 = st.flat_cand.reshape(nb, no)
+    clr2 = clr2[: nb * no].reshape(nb, no)
+    la2 = la2[: nb * no].reshape(nb, no)
+    j2 = np.argmax(clr2, axis=1)
+    rows = np.arange(nb)
+    fb, fj = st.flat_bi, st.flat_bj
+    better = clr2[rows, j2] > st.bclr[fb, fj]
+    st.bpos[fb, fj] = np.where(better, cand2[rows, j2], st.bpos[fb, fj])
+    st.bla[fb, fj] = np.where(better, la2[rows, j2], st.bla[fb, fj])
+    st.bclr[fb, fj] = np.maximum(st.bclr[fb, fj], clr2[rows, j2])
+    if final_round:
+        st.probe_owner = np.repeat(st.flat_bi, no)
+        st.probe_pos = cand2.reshape(-1)
+        st.probe_clr = clr2.reshape(-1)
+
+
+def _scan_result(states, cfg, g0, split):
+    """The ScanResult of the chromosomes' winners; records last_stats."""
     out = {k: [] for k in (
         "chr_id", "sweep_pos", "clr", "lalpha", "nearest", "window_start",
         "window_end", "interval_start", "interval_end",

@@ -18,8 +18,9 @@ Shares differ by at most one; each rank pads its share to the largest
 and the gather trims, so an axis shorter than the world (a last chunk
 of one replicate) works.  ``stats`` accumulates the gathers' wall and
 the bytes each rank receives (the whole padded result), which the
-drivers copy into their ``last_stats``; the wall also goes to the
-``gather`` phase of utils/timing.py.
+drivers copy into their ``last_stats``; each exchange is the span
+``split.gather``, whose wall also goes to the ``gather`` entry of
+utils/timing.py's phase table.
 
 psum_counts sums an exceedance-count vector over the ranks, the psum of
 fscl_tpu's sharded_permute_chunk; no driver needs it (they gather the
@@ -29,12 +30,10 @@ not only counts), and its parity test holds it to fscl_tpu's.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
-from ..utils.timing import add_time
+from ..utils.timing import span
 
 stats = {"gather_s": 0.0, "gather_bytes": 0, "gathers": 0}
 
@@ -66,17 +65,15 @@ def gather_rows(x, n, split):
                          f"share of {r1 - r0}")
     shares = [_share(n, split.world, r) for r in range(split.world)]
     top = max(b - a for a, b in shares)
-    t0 = time.monotonic()
-    mine = torch.from_numpy(np.ascontiguousarray(x))
-    buf = torch.zeros((top, *x.shape[1:]), dtype=mine.dtype)
-    buf[: x.shape[0]] = mine
-    outs = [torch.empty_like(buf) for _ in range(split.world)]
-    dist.all_gather(outs, buf, group=split.group)
-    full = np.concatenate([o[: b - a].numpy()
-                           for o, (a, b) in zip(outs, shares)])
-    dt = time.monotonic() - t0
-    stats["gather_s"] += dt
-    add_time("gather", dt)
+    with span("split.gather", table="gather") as sp:
+        mine = torch.from_numpy(np.ascontiguousarray(x))
+        buf = torch.zeros((top, *x.shape[1:]), dtype=mine.dtype)
+        buf[: x.shape[0]] = mine
+        outs = [torch.empty_like(buf) for _ in range(split.world)]
+        dist.all_gather(outs, buf, group=split.group)
+        full = np.concatenate([o[: b - a].numpy()
+                               for o, (a, b) in zip(outs, shares)])
+    stats["gather_s"] += sp.seconds
     stats["gather_bytes"] += split.world * buf.numel() * buf.element_size()
     stats["gathers"] += 1
     return full

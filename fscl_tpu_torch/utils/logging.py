@@ -59,7 +59,10 @@ def _emit(text: str, cr: bool) -> None:
 
 
 def logmsg(priority: int, fmt: str, *args) -> None:
-    """Leveled message; priority MSG_FATAL exits the process."""
+    """Leveled message; priority MSG_FATAL exits the process.  The message
+    is formatted only where it prints or exits."""
+    if priority > _level and priority != MSG_FATAL:
+        return
     text = _prefix + ((fmt % args) if args else fmt)
     if priority <= _level:
         _emit(text, cr=False)

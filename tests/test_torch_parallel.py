@@ -41,7 +41,8 @@ Stated tolerances:
   * --device cuda with LOCAL_RANK past the device count raises;
   * the CLI under torch.distributed.run with --device cpu (2 ranks, -f
     and -m) writes one TSV and one nulldist file, byte for byte those of
-    the plain CLI.
+    the plain CLI; each rank's [split] line holds its gathers' wall under
+    phases["gather"], equal to its split_gather_s.
 
 This file imports nothing of tests/ (the card machine does not collect
 such imports), and jax only inside the tests: the spawned ranks import
@@ -600,3 +601,19 @@ def test_cli_under_torchrun_matches_plain_cli(cli_inputs, cli_runs, mode):
     assert all('"world": 2' in r and '"split_gather_bytes": 0' not in r
                for r in reports)
     assert "[rank 1]" not in err  # rank 1 logs warnings only
+
+
+@pytest.mark.parametrize("mode", ["-f", "-m"])
+def test_split_report_gather_phase_is_the_gathers_wall(cli_runs, mode):
+    """Each rank's phase table holds its gathers under ``gather``, the
+    same seconds as its split_gather_s: one split.gather span times
+    both (utils/timing.py, parallel/shard.py)."""
+    import json
+
+    err = cli_runs[mode][1]
+    reports = [json.loads(line[len("[split] "):])
+               for line in err.splitlines() if line.startswith("[split] ")]
+    assert len(reports) == 2, err[-3000:]
+    for r in reports:
+        assert r["split_gathers"] > 0
+        assert r["phases"]["gather"] == r["split_gather_s"] > 0

@@ -12,7 +12,8 @@ Stated tolerances:
     accumulates every phase of a CLI run (load, tables, scan, permute,
     output; and lattice-pack on the lattice path) into phase_report(); with
     FSCL_TPU_TRACE_DIR set, one Chrome trace per outermost phase, read
-    back as JSON with its events.
+    back as JSON with its events; the scan and permute phases' traces
+    hold the drivers' spans (utils/timing.py span) as annotations.
 
 This file imports nothing of tests/: on the card machine such imports do
 not collect.
@@ -166,3 +167,28 @@ def test_trace_dir_writes_one_trace_a_phase(tmp_path, monkeypatch):
     with open(files[0]) as f:
         assert json.load(f)["traceEvents"]
     assert set(TT.phase_report()) == {"outer", "inner"}
+
+
+def test_trace_dir_traces_hold_the_drivers_spans(snp_file, tmp_path,
+                                                  monkeypatch):
+    from fscl_tpu_torch.cli import main
+
+    tdir = tmp_path / "traces"
+    monkeypatch.setenv("FSCL_TPU_TRACE_DIR", str(tdir))
+    monkeypatch.setattr(TT, "_phases", {})
+    assert main(["-f", str(snp_file), "-o", str(tmp_path / "o.tsv"),
+                 "-g", "20000", "-G", "200000", "-p", "8", "--device",
+                 "cpu"]) == 0
+
+    def annotations(phase):
+        (path,) = glob.glob(str(tdir / f"{phase}.*.pt.trace.json"))
+        with open(path) as f:
+            return {e["name"] for e in json.load(f)["traceEvents"]
+                    if e.get("cat") == "user_annotation"}
+
+    assert {"permute.pass", "permute.setup", "permute.chunk",
+            "permute.stat", "permute.drain", "permute.update",
+            "permute.save"} <= annotations("permute")
+    assert {"scan.genome", "scan.stage", "scan.eval", "scan.readback",
+            "scan.select", "scan.output"} <= annotations("scan")
+    assert TT.span("after") is TT._NOOP  # off again once the trace ends
