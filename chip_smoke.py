@@ -58,7 +58,12 @@ non-zero:
                bfloat16 tensor-core contraction in one kernel) against its
                plain version within 2e-4 S + 1e-5 per entry (S = 2 sum_k
                |k t|), at the 20k scan, 20k stacked, genome and mixed100k
-               first-chunk inputs of 3e and their whole calls; kernel,
+               first-chunk inputs of 3e and their whole calls, and at the
+               permutation tail's launch shapes (P = 32, R = 48, A = 32,
+               NC = 208, 7 and 21 candidates, int32 and int16, synthetic
+               rows; phase 5);
+               its split count over cells, the launch at one split (the
+               kernel unsplit) bitwise equal; kernel, unsplit kernel,
                plain, and two yardsticks timed: window_operand + float32
                matmul and window_operand + bfloat16 matmul (cuBLAS tensor
                cores)
@@ -969,14 +974,38 @@ def _f64_clr(ps, bounds, fbar, t3, *, n_rep, n_cells, n_rows, n_alpha):
     return torch.cat(refs).reshape(shape), torch.cat(sums).reshape(shape)
 
 
+def _window_clr_at(ps, bounds, fbar, pack, *, n_rep, n_cells, n_rows,
+                   n_alpha, splits):
+    """window_clr's kernel through its C entry at the given split count
+    over cells."""
+    import torch
+
+    from fscl_tpu_torch import kernels
+    from fscl_tpu_torch.ops.gather import _DTYPE_CODE
+
+    c = bounds.shape[0]
+    out = torch.empty((c, n_rep, n_alpha), dtype=torch.float32,
+                      device=ps.device)
+    lib = kernels.load()
+    rc = lib.fscl_window_clr(
+        ps.data_ptr(), bounds.data_ptr(), fbar.data_ptr(), pack.data_ptr(),
+        out.data_ptr(), c, n_cells, n_rep, n_rows, ps.shape[0],
+        _DTYPE_CODE[ps.dtype], n_alpha, pack.shape[1], splits,
+        torch.cuda.current_stream(ps.device).cuda_stream)
+    kernels.check(lib, rc, "window_clr")
+    return out
+
+
 def _window_clr_case(label, ps, bounds, fbar, *, n_rep, n_cells, n_rows,
                      t3, n_alpha, iters=20):
     """Phase 3f: the fused window contraction vs its plain version within
-    CLR_REL * S + CLR_ABS per entry; kernel, plain and two yardsticks
-    timed: window_operand + float32 matmul (the two-step route it
-    replaces) and window_operand + bfloat16 matmul (cuBLAS's tensor
-    cores, bfloat16 output), both a candidate chunk (_chunk_rows) at a
-    time as the float32 route takes them.  The bound is the larger of
+    CLR_REL * S + CLR_ABS per entry, and its split count over cells, the
+    launch at one split bitwise equal; kernel, the kernel at one split
+    (unsplit), plain and two yardsticks timed: window_operand + float32
+    matmul (the two-step route it replaces) and window_operand + bfloat16
+    matmul (cuBLAS's tensor cores, bfloat16 output), both a candidate
+    chunk (_chunk_rows) at a time as the float32 route takes them.  The
+    bound is the larger of
     the bytes (the distinct bound rows read, bounds, fbar, the bfloat16
     pack and the output) over the HBM rate and the operations (the MMA's
     2 c P K A at the bfloat16 tensor-core rate plus 6 float operations
@@ -998,6 +1027,10 @@ def _window_clr_case(label, ps, bounds, fbar, *, n_rep, n_cells, n_rows,
     def kern():
         return W.window_clr(ps, bounds, fbar, pack, n_alpha=n_alpha, **kw)
 
+    def unsplit():
+        return _window_clr_at(ps, bounds, fbar, pack, n_alpha=n_alpha,
+                              splits=1, **kw)
+
     def plain():
         return W.window_clr_plain(ps, bounds, fbar, pack, n_alpha=n_alpha,
                                   **kw)
@@ -1011,6 +1044,9 @@ def _window_clr_case(label, ps, bounds, fbar, *, n_rep, n_cells, n_rows,
             ps, b, f, mm_bf16=True, **kw).to(torch.bfloat16), t3b)
             for b, f in chunks]
 
+    splits = W.window_clr_splits(bounds.shape[0] * n_rep, n_cells=n_cells,
+                                 n_rows=n_rows, n_alpha=n_alpha,
+                                 device=ps.device)
     got, want = kern(), plain()
     lim = CLR_REL * _abs_clr(ps, bounds, fbar, t3, n_alpha=n_alpha,
                              **kw) + CLR_ABS
@@ -1018,6 +1054,9 @@ def _window_clr_case(label, ps, bounds, fbar, *, n_rep, n_cells, n_rows,
     if got.shape != want.shape:
         fail(f"fkernel at {label}: {tuple(got.shape)} vs plain "
              f"{tuple(want.shape)}")
+    if not torch.equal(unsplit().view(torch.int32), got.view(torch.int32)):
+        fail(f"fkernel at {label}: the launch at {splits} splits differs "
+             "from the launch at one, bit for bit")
     err = (got - want).abs()
     max_err, ratio = float(err.max()), float((err / lim).max())
     if not bool((err <= lim).all()):
@@ -1036,23 +1075,75 @@ def _window_clr_case(label, ps, bounds, fbar, *, n_rep, n_cells, n_rows,
     del got, want, err, lim
     torch.cuda.empty_cache()
     ms = cuda_time_ms(kern, iters)
+    unsplit_ms = cuda_time_ms(unsplit, iters) if splits > 1 else ms
     plain_ms = cuda_time_ms(plain, max(1, iters // 4))
     f32_ms = cuda_time_ms(two_step_f32, iters)
     bf16_ms = cuda_time_ms(two_step_bf16, iters)
     torch.cuda.empty_cache()
     shape = (f"ps {list(ps.shape)} c={c} NC={n_cells} P={P} R={n_rows} "
              f"A={A} {str(ps.dtype).replace('torch.', '')}, "
-             f"{(c * P + 63) // 64} blocks of 64 rows")
+             f"{(c * P + 63) // 64} blocks of 64 rows x {splits} splits")
     log(f"[fkernel] {label}: {shape}; max |err| {max_err:.4g} "
-        f"({ratio:.3g} x tolerance); kernel {ms:.4f} ms, plain "
+        f"({ratio:.3g} x tolerance); kernel {ms:.4f} ms (unsplit "
+        f"{unsplit_ms:.4f} ms), plain "
         f"{plain_ms:.4f} ms, window_operand + f32 matmul {f32_ms:.4f} ms, "
         f"+ bf16 matmul {bf16_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}: "
         f"{nbytes / 1e6:.2f} MB, {mma / 1e9:.3f} GFLOP MMA)")
-    return dict(label=label, shape=shape, ms=ms, plain_ms=plain_ms,
+    return dict(label=label, shape=shape, splits=splits, ms=ms,
+                unsplit_ms=unsplit_ms, plain_ms=plain_ms,
                 two_step_f32_ms=f32_ms, two_step_bf16_ms=bf16_ms,
                 library_ms=None, max_abs_err=max_err,
                 max_err_over_tol=ratio, bound_ms=b_ms, bound_by=b_by,
                 bytes=nbytes, mma_ops=mma, lerp_ops=lerp)
+
+
+def _tail_window_inputs(dev, c, dtype, *, seed, rows=61440, P=32, R=48,
+                        A=32, NC=208):
+    """Phase 3f's inputs at the permutation tail's launch shape: one-hot
+    prefix rows of a 61,440-row slab (a chromosome of the Perlegen
+    genome's median length) for a 32-replicate slice at depth 48, in
+    `dtype` (int16 wrapped past 32,767 as the stacked slab's may be, or
+    int32); c candidates, each side walking NC cells from its split point
+    over about a quarter of the slab, some empty (fbar 0.5); a
+    [2*NC*R, A] float32 pack."""
+    import torch
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ids = torch.randint(0, R, (rows, P), generator=g, device=dev)
+    ps = torch.zeros((rows, P, R), dtype=torch.int32, device=dev)
+    ps.scatter_(2, ids[:, :, None], 1)
+    ps = ps.cumsum(0, dtype=torch.int32).reshape(rows, P * R)
+    if dtype == torch.int16:
+        ps = (ps + 32000).to(torch.int16)  # wrapped mod 2^16
+    step = rows // (4 * NC)
+    sp = torch.randint(rows // 3, 2 * rows // 3, (c, 1), generator=g,
+                       device=dev)
+    walk = torch.randint(0, 2 * step + 1, (c, 2, NC), generator=g,
+                         device=dev).cumsum(2)
+    edges = torch.stack([(sp - walk[:, 0]).clamp_min(0),
+                         (sp + walk[:, 1]).clamp_max(rows - 1)], 1)
+    bounds = torch.cat([sp[:, None].expand(c, 2, 1), edges],
+                       2).to(torch.int32).contiguous()
+    fbar = torch.rand((c, 2, NC), generator=g, device=dev)
+    fbar[:, :, -2:] = torch.tensor([0.0, 1.0], device=dev)
+    fbar = torch.where(bounds[:, :, 1:] == bounds[:, :, :-1], 0.5,
+                       fbar).contiguous()
+    t3 = 3.0 * torch.randn((2 * NC * R, A), generator=g, device=dev)
+    return dict(ps=ps, bounds=bounds, fbar=fbar, n_rep=P, n_cells=NC,
+                n_rows=R, t3=t3, n_alpha=A)
+
+
+def _tail_window_cases(dev):
+    """Phase 3f at the permutation tail's launch shapes: a stack of one and
+    of three chromosomes' 7 positions, in int32 (most of the tail's
+    launches) and int16."""
+    import torch
+
+    return [_window_clr_case(
+        f"tail launch, {c} candidates, {str(dt).replace('torch.', '')}",
+        **_tail_window_inputs(dev, c, dt, seed=c))
+        for c, dt in ((7, torch.int32), (21, torch.int32),
+                      (7, torch.int16))]
 
 
 def _window_clr_f32_case(label, ps, bounds, fbar, *, n_rep, n_cells, n_rows,
@@ -1468,6 +1559,7 @@ def _zero_window_counts():
     from fscl_tpu_torch.ops import window_clr as W
 
     G.window_launches = W.window_clr_launches = 0
+    W.window_clr_split_launches = 0
     W.window_clr_f32_launches = W.window_clr_f32_reduce_launches = 0
 
 
@@ -1477,6 +1569,7 @@ def _window_counts():
     from fscl_tpu_torch.ops import window_clr as W
 
     return dict(window_clr=W.window_clr_launches,
+                window_clr_split=W.window_clr_split_launches,
                 window_clr_f32=W.window_clr_f32_launches,
                 window_clr_f32_reduce=W.window_clr_f32_reduce_launches,
                 window_operand=G.window_launches)
@@ -2297,7 +2390,8 @@ def phase_genome(dev, n_permute=64):
     tp = dict(t3=hs.ht.t3, n_alpha=hs.ht.n_alpha)
     fkern = [_window_clr_case("genome stacked slice", **win[0], **tp),
              _window_clr_case("genome stacked slice (whole call)", **win[1],
-                              **tp, iters=2)]
+                              **tp, iters=2),
+             *_tail_window_cases(dev)]
     f32kern = [_window_clr_f32_case("genome tie stage, largest chromosome "
                                     "(whole call)", **tie, iters=5)]
     log(f"[genome] stacks (w_seg_p, chromosomes, sub_rep): {stacks}")

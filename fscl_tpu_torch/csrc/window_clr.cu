@@ -1,5 +1,6 @@
 // The hist statistic's window operand and its bfloat16 contraction in one
-// tensor-core kernel for Hopper (sm_90a).
+// tensor-core kernel for Hopper (sm_90a), split over cells across a
+// thread-block cluster where the grid would not fill the card.
 //
 // fscl_window_clr replaces fscl_tpu/ops/histclr.py:1116-1131, the chunk
 // body of hist_clr_reps_ps with mm_bf16=True, which XLA fuses on the TPU
@@ -50,19 +51,62 @@
 // shared-memory layout and a 128-thread warpgroup per 64 rows; at these
 // A (32 and 128) the MMA is a small part of the work next to the row
 // reads and the lerp, so the simpler mma.sync register fragments do.
-// The epilogue writes 2 * acc for a < A.  No atomics: the sums run in
-// one fixed order, so a launch is deterministic.
+//
+// What bounds a launch that does not fill the card: the cell walk.  Each
+// cell costs a barrier and a round of dependent row loads, so a block's
+// time is about its cells times that latency, whatever the grid.  The
+// permutation tail calls the kernel once a stack of chromosomes and
+// replicate slice, about 490 times a chunk: c*P = 224-672 rows, 4-11
+// blocks for 132 SMs, each walking 208 cells, 0.30 ms a launch unsplit
+// and 0.06 ms split 7 ways (PERF.md).
+//
+// Split over cells, for tiles of BN = 32 columns (the permutations' 32
+// alphas).  Where the grid has fewer than two waves' blocks, blockIdx.z
+// takes a contiguous range of the cells, and the splits of one tile run
+// as one thread-block cluster along z.  Each block walks its cells with
+// its own prologue and keeps the sums of its runs of kCellChunk cells in
+// its shared memory; after a cluster barrier, block z adds a slice of the
+// 64 x BN tile over every rank's runs through distributed shared memory,
+// in rank and run order, doubles and writes it; a second barrier keeps
+// every rank's shared memory until all have read it.  One launch: no
+// partial sums in HBM, no atomics.  The split count (splits_for) walks
+// the fewest runs of cells end to end, counting the blocks the card
+// holds at once (registers, the slots' shared memory, whole clusters a
+// GPC) and a run more a split for its prologue and reduction, with at
+// least kMinCells cells a split and at most kClusterMax = 8 splits, the
+// portable cluster size.  Clusters of 16 schedule on the H100, but at one
+// block an SM only one cluster of 9-16 fits a GPC, against two of up to
+// 8: at the tail's int32 launches of 11 tiles 9 splits took 0.103 ms and
+// 7 took 0.066, and over a tail pass 16 gained under 2% (PERF.md).  The
+// count is a pure function of (c*P, NC, R, A, SM count)
+// (fscl_window_clr_splits).
+//
+// An entry's bits do not depend on its launch.  At BN = 32 the MMAs sum
+// each run of kCellChunk cells from zero, and the runs' sums are added to
+// a total from zero, one by one in cell order (rounded to nearest): in
+// the block's shared memory where it walks every cell, in the cluster's
+// reduction where it does not; the same float32 adds in the same order
+// for any M, grid or split count.  The total stays out of registers, and
+// this kernel is held to 128 registers, two blocks an SM (below).  At BN
+// = 128 (the scan's 128 alphas, whose launches are a chromosome's
+// candidates, over two waves) the MMAs sum every cell in one chain and
+// never split: a total there would take 32 KB of shared memory or 32
+// registers, and the int16 kernel is at 128 registers already.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 #include <string.h>
+
+#include <algorithm>
 
 #include "tile_copy.cuh"
 #include "window_lerp.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using fscl::cp_async16;
 using fscl::cp_async_commit;
 using fscl::cp_async_wait_all;
@@ -75,6 +119,12 @@ using fscl::window_lerp;
 constexpr int kThreads = 256;  // 8 warps
 constexpr int kBM = 64;        // flat rows m per block
 constexpr int kPad = 8;        // bf16 row padding of both tiles (16 bytes)
+constexpr int kCellChunk = 8;  // cells the MMAs sum from zero
+constexpr int kMinCells = 16;  // fewest cells a split walks
+constexpr int kClusterMax = 8;  // the portable cluster size
+constexpr int kSmemMax = 232448;  // a block's shared memory on the H100
+constexpr int kSmemSM = 233472;   // an SM's, 1 KB of it reserved a block
+constexpr int kGpcSMs = 16;       // SMs of a GPC, which holds a cluster
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile(
@@ -115,15 +165,16 @@ struct Unit {
   bool live;
 };
 
+// One block's 64 x BN tile of out (split: its share of it).
 template <typename T, int BN, int UPT>
-__global__ void __launch_bounds__(kThreads)
-    window_clr_kernel(const T* __restrict__ ps,
-                      const int32_t* __restrict__ bounds,
-                      const float* __restrict__ fbar,
-                      const __nv_bfloat16* __restrict__ pack,
-                      float* __restrict__ out, int C, int NC, int P, int R,
-                      int64_t n_rows, int A, int A_pack) {
+__device__ __forceinline__ void window_clr_tile(
+    const T* __restrict__ ps, const int32_t* __restrict__ bounds,
+    const float* __restrict__ fbar, const __nv_bfloat16* __restrict__ pack,
+    float* __restrict__ out, int C, int NC, int P, int R, int64_t n_rows,
+    int A, int A_pack, int splits) {
   constexpr int kNT8 = BN / 16;  // n8 tiles per warp: a warp takes BN/2
+  constexpr int kFrag = kNT8 * kThreads;  // float4 fragments of a tile
+  constexpr bool kRuns = BN == 32;  // summed by runs of cells, splittable
   extern __shared__ __align__(16) unsigned char smem[];
   const int R16 = (R + 15) & ~15;
   const int KT = 2 * R16;       // k values of one cell's tile
@@ -131,6 +182,9 @@ __global__ void __launch_bounds__(kThreads)
   constexpr int ldb = BN + kPad;  // pack tile row stride (bf16)
   __nv_bfloat16* sA = reinterpret_cast<__nv_bfloat16*>(smem);  // [2][BM][lda]
   __nv_bfloat16* sB = sA + 2 * kBM * lda;                      // [2][KT][ldb]
+  // kRuns: the running total of the runs of kCellChunk cells, or, split,
+  // each run's sum: [runs][kNT8][kThreads] float4 after the rings
+  float4* slots = reinterpret_cast<float4*>(sB + 2 * KT * ldb);
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
@@ -138,11 +192,20 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t L = (int64_t)P * R;
   const int64_t m0 = (int64_t)blockIdx.x * kBM;
   const int n0 = blockIdx.y * BN;
+  // this split's runs of cells [q_lo, q_hi) and its cells [j_lo, j_hi)
+  const int NQ = (NC + kCellChunk - 1) / kCellChunk;
+  const int z = blockIdx.z;
+  const int q_lo = kRuns ? (int)((int64_t)z * NQ / splits) : 0;
+  const int q_hi = kRuns ? (int)((int64_t)(z + 1) * NQ / splits) : NQ;
+  const int j_lo = q_lo * kCellChunk;
+  const int j_hi = kRuns ? min(NC, q_hi * kCellChunk) : NC;
 
   // zeros that stay: rows past M, lanes r >= R, pack rows r >= R and
-  // pack columns past A_pack
+  // pack columns past A_pack; and the running total (split, the runs'
+  // slots are written before they are read)
   {
-    const int n16 = (2 * kBM * lda + 2 * KT * ldb) / 8;
+    const int n16 = (2 * kBM * lda + 2 * KT * ldb) / 8 +
+                    (kRuns && splits == 1 ? kFrag : 0);
     for (int i = tid; i < n16; i += kThreads)
       reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
   }
@@ -228,20 +291,21 @@ __global__ void __launch_bounds__(kThreads)
     }
   };
 
-  // prologue: prev = rows b[0], cur = rows b[1]; tile 0 in buffer 0
+  // prologue: prev = rows b[j_lo], cur = rows b[j_lo + 1]; the tile of
+  // cell j_lo in buffer 0
 #pragma unroll
   for (int i = 0; i < UPT; ++i) {
     if (!u[i].live) continue;
-    const int32_t* b0 = u[i].b0;
+    const int32_t* b0 = u[i].b0 + j_lo;
     load8(table_row(ps, __ldg(b0), n_rows, L) + u[i].lane, prev0[i]);
     load8(table_row(ps, __ldg(b0 + NC + 1), n_rows, L) + u[i].lane,
           prev1[i]);
     nb0[i] = __ldg(b0 + 1);
     nb1[i] = __ldg(b0 + NC + 2);
   }
-  load_rows(0);
+  load_rows(j_lo);
   __syncthreads();  // the zero fill is done before any tile lands
-  load_pack(0, 0);
+  load_pack(j_lo, 0);
   build(0);
   cp_async_wait_all();
   __syncthreads();
@@ -255,9 +319,10 @@ __global__ void __launch_bounds__(kThreads)
   const int a_off = (wm + (lane & 15)) * lda + (lane >> 4) * 8;
   const int b_off = (lane & 15) * ldb + wn + (lane >> 4) * 8;
 
-  for (int j = 0; j < NC; ++j) {
-    const int buf = j & 1;
-    const bool more = j + 1 < NC;
+  float4* run = slots + tid;  // the total, or split this run's slot
+  for (int j = j_lo; j < j_hi; ++j) {
+    const int buf = (j - j_lo) & 1;
+    const bool more = j + 1 < j_hi;
     if (more) {
       load_pack(j + 1, buf ^ 1);
       load_rows(j + 1);
@@ -275,94 +340,241 @@ __global__ void __launch_bounds__(kThreads)
         mma_bf16(acc[t + 1], a, b[2], b[3]);
       }
     }
+    if (kRuns && ((j + 1) % kCellChunk == 0 || j + 1 == NC)) {
+      // a run of cells ends: add its sum to the total, or keep it for the
+      // cluster's reduction; the next run starts from zero
+#pragma unroll
+      for (int t = 0; t < kNT8; ++t) {
+        float4 v = make_float4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
+        if (splits == 1) {
+          const float4 o = run[t * kThreads];
+          v = make_float4(__fadd_rn(o.x, v.x), __fadd_rn(o.y, v.y),
+                          __fadd_rn(o.z, v.z), __fadd_rn(o.w, v.w));
+        }
+        run[t * kThreads] = v;
+        acc[t][0] = acc[t][1] = acc[t][2] = acc[t][3] = 0.0f;
+      }
+      if (splits > 1) run += kFrag;
+    }
     if (more) build(buf ^ 1);
     cp_async_wait_all();
     __syncthreads();
   }
 
-  // epilogue: accumulator (row lane/4 (+8), columns 2*(lane%4) + {0,1})
-#pragma unroll
-  for (int t = 0; t < kNT8; ++t) {
-    const int col = n0 + wn + t * 8 + 2 * (lane & 3);
+  // epilogue: fragment element e of tile t of thread (warp, lane) is row
+  // wm + lane/4 + 8*(e/2), column wn + 8*t + 2*(lane%4) + e%2
+  auto store = [&](int t, int thread, const float (&v)[4]) {
+    const int ln = thread & 31, wp = thread >> 5;
+    const int col = n0 + (wp >> 2) * (BN / 2) + t * 8 + 2 * (ln & 3);
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      const int64_t m = m0 + wm + (lane >> 2) + 8 * h;
+      const int64_t m = m0 + (wp & 3) * 16 + (ln >> 2) + 8 * h;
       if (m >= M) continue;
 #pragma unroll
       for (int e = 0; e < 2; ++e)
-        if (col + e < A) out[m * A + col + e] = 2.0f * acc[t][2 * h + e];
+        if (col + e < A) out[m * A + col + e] = 2.0f * v[2 * h + e];
     }
+  };
+  if (!kRuns) {
+#pragma unroll
+    for (int t = 0; t < kNT8; ++t) store(t, tid, acc[t]);
+    return;
   }
+  if (splits == 1) {
+#pragma unroll
+    for (int t = 0; t < kNT8; ++t) {
+      const float4 x = slots[t * kThreads + tid];
+      const float v[4] = {x.x, x.y, x.z, x.w};
+      store(t, tid, v);
+    }
+    return;
+  }
+  // split: block z adds fragments [f_lo, f_hi) of the tile over every
+  // rank's runs from zero, in rank and run order (the cells' order), the
+  // adds of the unsplit total
+  cg::cluster_group cluster = cg::this_cluster();
+  cluster.sync();  // every rank's slots are written
+  const int f_lo = z * kFrag / splits, f_hi = (z + 1) * kFrag / splits;
+  for (int f = f_lo + tid; f < f_hi; f += kThreads) {
+    float v[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int r = 0; r < splits; ++r) {
+      const float4* rs = cluster.map_shared_rank(slots, r);
+      const int nq = (int)((int64_t)(r + 1) * NQ / splits) -
+                     (int)((int64_t)r * NQ / splits);
+      for (int q = 0; q < nq; ++q) {
+        const float4 x = rs[q * kFrag + f];
+        v[0] = __fadd_rn(v[0], x.x), v[1] = __fadd_rn(v[1], x.y);
+        v[2] = __fadd_rn(v[2], x.z), v[3] = __fadd_rn(v[3], x.w);
+      }
+    }
+    store(f / kThreads, f % kThreads, v);
+  }
+  cluster.sync();  // no rank leaves while another reads its slots
 }
 
-size_t smem_bytes(int R, int BN) {
+#define FSCL_WINDOW_CLR_PARAMS                                               \
+  const T *__restrict__ ps, const int32_t *__restrict__ bounds,             \
+      const float *__restrict__ fbar,                                       \
+      const __nv_bfloat16 *__restrict__ pack, float *__restrict__ out,      \
+      int C, int NC, int P, int R, int64_t n_rows, int A, int A_pack,       \
+      int splits
+#define FSCL_WINDOW_CLR_ARGS \
+  ps, bounds, fbar, pack, out, C, NC, P, R, n_rows, A, A_pack, splits
+
+// The kernel, as many registers a thread as the compiler takes ...
+template <typename T, int BN, int UPT>
+__global__ void __launch_bounds__(kThreads)
+    window_clr_kernel(FSCL_WINDOW_CLR_PARAMS) {
+  window_clr_tile<T, BN, UPT>(FSCL_WINDOW_CLR_ARGS);
+}
+
+// ... but two blocks an SM at BN = 32 and R <= 64, the permutations'
+// tiles: 128 registers a thread.  The int32 kernel took 160 unbounded,
+// one block an SM, and a 1,750-block launch 4.99 ms against 3.20 before
+// the split; held to 128 it spills 4 bytes and takes 3.27 (PERF.md).
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 2)
+    window_clr_kernel(FSCL_WINDOW_CLR_PARAMS) {
+  window_clr_tile<T, 32, 2>(FSCL_WINDOW_CLR_ARGS);
+}
+#undef FSCL_WINDOW_CLR_PARAMS
+#undef FSCL_WINDOW_CLR_ARGS
+
+int cell_chunks(int NC) { return (NC + kCellChunk - 1) / kCellChunk; }
+
+int pick_bn(int A) { return A <= 32 ? 32 : 128; }
+
+// the rings and, at BN = 32, a slot of 64 x BN float32 sums: the running
+// total, or, split, one for each run of cells a split walks
+size_t smem_bytes(int R, int BN, int NC, int splits) {
   const int R16 = (R + 15) & ~15;
-  return (size_t)2 * (2 * kBM * (2 * R16 + kPad) + 2 * R16 * 2 * (BN + kPad));
+  const int slots =
+      BN != 32 ? 0 : splits > 1 ? (cell_chunks(NC) + splits - 1) / splits : 1;
+  return (size_t)2 * (2 * kBM * (2 * R16 + kPad) +
+                      2 * R16 * 2 * (BN + kPad)) +
+         (size_t)slots * kBM * BN * 4;
+}
+
+// The split count, at BN = 32 only: 1 from two waves of blocks up;
+// below, the count s that walks the fewest runs of cells end to end:
+// waves of ceil(NQ / s) runs and, split, one run more for the prologue
+// and the cluster's reduction (the smallest such s), at most kClusterMax,
+// with each split walking at least kMinCells cells.  A wave is the blocks
+// the SMs hold: b an SM, two by registers at R <= 64 (one above) or fewer
+// where the slots' shared memory does not fit two; split, whole clusters
+// of s blocks a GPC, floor(16 b / s) of them (the H100's cudaOccupancy-
+// MaxActiveClusters reads 224-248 blocks at b = 2, s = 3-8).
+int splits_for(int64_t M, int NC, int R, int A, int n_sm) {
+  const int BN = pick_bn(A);
+  const int64_t blocks = (M + kBM - 1) / kBM * ((A + BN - 1) / BN);
+  auto wave = [&](int s) {
+    const int64_t b = std::min<int64_t>(
+        R <= 64 ? 2 : 1, kSmemSM / (smem_bytes(R, BN, NC, s) + 1024));
+    return s == 1 ? n_sm * b : n_sm / kGpcSMs * (kGpcSMs * b / s) * s;
+  };
+  if (BN != 32 || blocks >= 2 * wave(1)) return 1;
+  const int NQ = cell_chunks(NC);
+  auto cost = [&](int s) {
+    const int64_t w = wave(s);
+    return (blocks * s + w - 1) / w * ((NQ + s - 1) / s + (s > 1));
+  };
+  int best = 1;
+  for (int s = 2; s <= kClusterMax && s <= NC / kMinCells && s <= NQ; ++s)
+    if (smem_bytes(R, BN, NC, s) <= (size_t)kSmemMax && wave(s) > 0 &&
+        cost(s) < cost(best))
+      best = s;
+  return best;
 }
 
 template <typename T, int BN, int UPT>
 int launch(const void* ps, const void* bounds, const void* fbar,
            const void* pack, void* out, int C, int NC, int P, int R,
-           int64_t n_rows, int A, int A_pack, cudaStream_t st) {
-  auto kern = window_clr_kernel<T, BN, UPT>;
-  const size_t smem = smem_bytes(R, BN);
+           int64_t n_rows, int A, int A_pack, int splits, cudaStream_t st) {
+  void (*kern)(const T*, const int32_t*, const float*, const __nv_bfloat16*,
+               float*, int, int, int, int, int64_t, int, int, int);
+  if constexpr (BN == 32 && UPT == 2)
+    kern = window_clr_kernel<T>;
+  else
+    kern = window_clr_kernel<T, BN, UPT>;
+  const size_t smem = smem_bytes(R, BN, NC, splits);
+  if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   const int64_t M = (int64_t)C * P;
-  const dim3 grid((unsigned)((M + kBM - 1) / kBM), (unsigned)((A + BN - 1) / BN));
-  kern<<<grid, kThreads, smem, st>>>(
-      (const T*)ps, (const int32_t*)bounds, (const float*)fbar,
-      (const __nv_bfloat16*)pack, (float*)out, C, NC, P, R, n_rows, A,
-      A_pack);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)((M + kBM - 1) / kBM),
+                     (unsigned)((A + BN - 1) / BN), (unsigned)splits);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = st;
+  cudaLaunchAttribute cluster[1];
+  cluster[0].id = cudaLaunchAttributeClusterDimension;
+  cluster[0].val.clusterDim.x = 1;
+  cluster[0].val.clusterDim.y = 1;
+  cluster[0].val.clusterDim.z = (unsigned)splits;
+  cfg.attrs = cluster;
+  cfg.numAttrs = splits > 1 ? 1 : 0;
+  e = cudaLaunchKernelEx(&cfg, kern, (const T*)ps, (const int32_t*)bounds,
+                         (const float*)fbar, (const __nv_bfloat16*)pack,
+                         (float*)out, C, NC, P, R, n_rows, A, A_pack, splits);
+  if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* ps, const void* bounds, const void* fbar,
              const void* pack, void* out, int C, int NC, int P, int R,
-             int64_t n_rows, int A, int A_pack, cudaStream_t st) {
+             int64_t n_rows, int A, int A_pack, int splits, cudaStream_t st) {
   // units of 8 lanes: 8*R per block over 256 threads
+#define FSCL_LAUNCH(BN, UPT)                                                 \
+  launch<T, BN, UPT>(ps, bounds, fbar, pack, out, C, NC, P, R, n_rows, A,   \
+                     A_pack, splits, st)
   const bool wide = R > 64;
-  if (A <= 32)
-    return wide ? launch<T, 32, 4>(ps, bounds, fbar, pack, out, C, NC, P, R,
-                                   n_rows, A, A_pack, st)
-                : launch<T, 32, 2>(ps, bounds, fbar, pack, out, C, NC, P, R,
-                                   n_rows, A, A_pack, st);
-  return wide ? launch<T, 128, 4>(ps, bounds, fbar, pack, out, C, NC, P, R,
-                                  n_rows, A, A_pack, st)
-              : launch<T, 128, 2>(ps, bounds, fbar, pack, out, C, NC, P, R,
-                                  n_rows, A, A_pack, st);
+  if (pick_bn(A) == 32) return wide ? FSCL_LAUNCH(32, 4) : FSCL_LAUNCH(32, 2);
+  return wide ? FSCL_LAUNCH(128, 4) : FSCL_LAUNCH(128, 2);
+#undef FSCL_LAUNCH
 }
 
 }  // namespace
 
 extern "C" {
 
+// The split over cells that fscl_window_clr takes for c*P = M rows
+// (1 = none).  n_sm: the card's SM count.
+int fscl_window_clr_splits(int64_t M, int NC, int R, int A, int n_sm) {
+  if (M <= 0 || A <= 0 || NC < 1 || R < 8 || R > 128 || n_sm < 1) return 1;
+  return splits_for(M, NC, R, A, n_sm);
+}
+
 // ps [n_rows, P*R] of dtype_code 0 = int16, 1 = int32, 2 = float32,
 // 16-byte aligned; bounds [C, 2, NC+1] int32 rows of ps; fbar [C, 2, NC]
 // f32; pack [2*NC*R, A_pack] bf16, 16-byte aligned, A_pack >= A a
 // multiple of 8; out [C, P, A] f32.  R a multiple of 8, at most 128;
-// NC >= 1.  Returns the launch's CUDA error (0 = success); nothing to
-// compute is success without a launch.
+// NC >= 1; 1 <= splits <= min(ceil(NC / 8), 8), the blocks of a tile's
+// splits one cluster, their slots within a block's shared memory.
+// Returns the launch's CUDA error (0 = success); nothing to compute is
+// success without a launch.
 int fscl_window_clr(const void* ps, const void* bounds, const void* fbar,
                     const void* pack, void* out, int C, int NC, int P, int R,
                     int64_t n_rows, int dtype_code, int A, int A_pack,
-                    void* stream) {
+                    int splits, void* stream) {
   if ((int64_t)C * P == 0 || A == 0) return 0;
-  if (NC < 1 || R < 8 || R > 128 || R % 8 || A_pack < A || A_pack % 8)
+  if (NC < 1 || R < 8 || R > 128 || R % 8 || A_pack < A || A_pack % 8 ||
+      splits < 1 || splits > kClusterMax || splits > cell_chunks(NC) ||
+      (splits > 1 && pick_bn(A) != 32))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   switch (dtype_code) {
     case 0:
       return dispatch<int16_t>(ps, bounds, fbar, pack, out, C, NC, P, R,
-                               n_rows, A, A_pack, st);
+                               n_rows, A, A_pack, splits, st);
     case 1:
       return dispatch<int32_t>(ps, bounds, fbar, pack, out, C, NC, P, R,
-                               n_rows, A, A_pack, st);
+                               n_rows, A, A_pack, splits, st);
     case 2:
       return dispatch<float>(ps, bounds, fbar, pack, out, C, NC, P, R,
-                             n_rows, A, A_pack, st);
+                             n_rows, A, A_pack, splits, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -129,9 +129,11 @@ def load():
     ]
     lib.fscl_window_operand.restype = i
     lib.fscl_window_clr.argtypes = [
-        vp, vp, vp, vp, vp, i, i, i, i, i64, i, i, i, vp,
+        vp, vp, vp, vp, vp, i, i, i, i, i64, i, i, i, i, vp,
     ]
     lib.fscl_window_clr.restype = i
+    lib.fscl_window_clr_splits.argtypes = [i64, i, i, i, i]
+    lib.fscl_window_clr_splits.restype = i
     lib.fscl_window_clr_f32.argtypes = [
         vp, vp, vp, vp, vp, vp, i, i, i, i, i64, i, i, i, i, vp,
     ]
@@ -167,7 +169,8 @@ def load():
 def launch_counts() -> dict:
     """Every wrapper's count of its kernel's launches in this process,
     by kernel (each wrapper adds one where it launches, and nowhere
-    else)."""
+    else), and ``window_clr_split``: the window_clr launches split over
+    cells."""
     from .ops import clr, gather, lattice, permute, prefix_sums, window_clr
 
     return dict(
@@ -178,6 +181,7 @@ def launch_counts() -> dict:
         row_gather=gather.gather_launches,
         window_operand=gather.window_launches,
         window_clr=window_clr.window_clr_launches,
+        window_clr_split=window_clr.window_clr_split_launches,
         window_clr_f32=window_clr.window_clr_f32_launches,
         window_clr_f32_reduce=window_clr.window_clr_f32_reduce_launches,
         clr_lattice=lattice.lattice_clr_launches,

@@ -12,7 +12,11 @@ sums in float32:
 operand rounded to bfloat16 against t3b = bf16_pack(t3), the pack rounded
 to bfloat16 once per table.  A product of two bfloat16 values is exact in
 float32, so the kernel (csrc/window_clr.cu) and the plain version differ
-only in the order of their float32 sums.
+only in the order of their float32 sums.  At up to 32 alphas, where the
+grid would not fill the card, the kernel splits the cells over the
+blocks of a thread-block cluster and adds their sums inside the same
+launch (window_clr_splits); an entry's bits depend on neither the split
+nor the other rows.
 
 ``window_clr_f32(ps, bounds, fbar, t3p, ...)`` is the mm_bf16=False route,
 whose CLRs the scan reports (its tie stage): the float32 operand against
@@ -30,7 +34,8 @@ window_operand_plain, then a float32 torch.matmul, a candidate chunk at a
 time so the operand stays within OPERAND_BYTES.  The wrappers run it for
 CPU tensors and the CUDA kernel for CUDA tensors, never falling back from
 one to the other.  ``window_clr_launches`` and ``window_clr_f32_launches``
-count the kernels' launches, ``window_clr_f32_reduce_launches`` the
+count the kernels' launches, ``window_clr_split_launches`` those of the
+bf16 kernel split over cells, ``window_clr_f32_reduce_launches`` the
 launches of the f32 kernel's split reduction.
 """
 
@@ -44,6 +49,7 @@ from .gather import _DTYPE_CODE, _device, window_operand_plain
 from .prefix_sums import _check_inputs
 
 window_clr_launches = 0  # CUDA kernel launches by window_clr
+window_clr_split_launches = 0  # those split over cells (splits > 1)
 window_clr_f32_launches = 0  # CUDA kernel launches by window_clr_f32
 window_clr_f32_reduce_launches = 0  # its split reductions
 OPERAND_BYTES = 1 << 28  # the plain versions' operand per candidate chunk
@@ -155,17 +161,32 @@ def window_clr(ps, bounds, fbar, t3b, *, n_rep, n_cells, n_rows, n_alpha):
     from .. import kernels
 
     lib = kernels.load()
+    splits = window_clr_splits(c * n_rep, n_cells=n_cells, n_rows=n_rows,
+                               n_alpha=n_alpha, device=dev)
     with torch.cuda.device(dev):
         rc = lib.fscl_window_clr(
             ps.data_ptr(), bounds.data_ptr(), fbar.data_ptr(),
             t3b.data_ptr(), out.data_ptr(), c, n_cells, n_rep, n_rows,
             ps.shape[0], _DTYPE_CODE[ps.dtype], n_alpha, t3b.shape[1],
-            torch.cuda.current_stream(dev).cuda_stream,
+            splits, torch.cuda.current_stream(dev).cuda_stream,
         )
     kernels.check(lib, rc, "window_clr")
-    global window_clr_launches
+    global window_clr_launches, window_clr_split_launches
     window_clr_launches += 1
+    window_clr_split_launches += splits > 1
     return out
+
+
+def window_clr_splits(rows, *, n_cells, n_rows, n_alpha, device):
+    """The split over cells window_clr's kernel takes for rows = c*P flat
+    rows on the card `device` (1 = none; else the blocks of a tile's
+    splits run as one cluster): a pure function of the shape and the
+    card's SM count."""
+    from .. import kernels
+
+    n_sm = torch.cuda.get_device_properties(device).multi_processor_count
+    return kernels.load().fscl_window_clr_splits(rows, n_cells, n_rows,
+                                                 n_alpha, n_sm)
 
 
 def window_clr_f32_splits(rows, *, n_cells, n_rows, n_alpha, device):

@@ -17,7 +17,12 @@ bfloat16 route of the hist statistic against the JAX package.
   * on the card (marker ``gpu``): the kernel against its plain version at
     the main path's shapes, within 2e-4 S + 1e-5 per entry, and a one-hot
     pack that reads the kernel's operand back bitwise against
-    window_operand(mm_bf16=True).
+    window_operand(mm_bf16=True), at a launch split over cells;
+  * on the card, the split over cells: at the permutation tail's launch
+    shapes the kernel splits and agrees with plain; an entry's bits are
+    the same launched alone, at every split count the C entry takes and
+    in repeat launches; a grid of two waves, and tiles of 128 columns, do
+    not split.
 
 This file imports nothing of tests/: on the card machine such imports do
 not collect.
@@ -258,6 +263,8 @@ def test_window_clr_kernel_operand_is_window_operand_bitwise(dtype):
     dev = _card()
     P, R, NC = 4, 56, 61
     args, _, _ = _card_case(dev, dtype, P, R, 8, c=70, NC=NC)
+    assert W.window_clr_splits(70 * P, n_cells=NC, n_rows=R, n_alpha=32,
+                               device=dev) > 1
     K = 2 * NC * R
     # first and last k of both operand halves, a lane past R16's boundary
     # and random ones; int16 prefixes are wrapped on every lane
@@ -274,3 +281,98 @@ def test_window_clr_kernel_operand_is_window_operand_bitwise(dtype):
     torch.cuda.synchronize()
     want = 2.0 * k[:, torch.as_tensor(k_a, device=dev)]
     assert torch.equal(got.reshape(-1, A), want)
+
+
+# the permutation tail's launches: a stack of 1-3 chromosomes' 7 positions
+# each, a 32-replicate slice of depth-48 prefix rows, 32 alphas, about 200
+# cells (NC odd: the last run of cells is short)
+TAIL = dict(P=32, R=48, A=32, NC=203)
+
+
+def _tail_case(dev, c, seed):
+    args, t3, kw = _card_case(dev, np.int16, TAIL["P"], TAIL["R"],
+                              TAIL["A"], c=c, NC=TAIL["NC"], seed=seed)
+    return args, W.bf16_pack(t3), t3, kw
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [7, 21])
+def test_window_clr_kernel_splits_at_the_tail_shapes_on_card(c):
+    dev = _card()
+    args, pack, t3, kw = _tail_case(dev, c, seed=15 + c)
+    splits = W.window_clr_splits(c * TAIL["P"], n_cells=TAIL["NC"],
+                                 n_rows=TAIL["R"], n_alpha=TAIL["A"],
+                                 device=dev)
+    assert 1 < splits <= 8
+    before = W.window_clr_launches, W.window_clr_split_launches
+    got = W.window_clr(*args, pack, **kw)
+    want = W.window_clr_plain(*args, pack, **kw)
+    torch.cuda.synchronize()
+    assert (W.window_clr_launches, W.window_clr_split_launches) == (
+        before[0] + 1, before[1] + 1)
+    k = G.window_operand_plain(*args, n_rep=TAIL["P"], n_cells=TAIL["NC"],
+                               n_rows=TAIL["R"], mm_bf16=True)
+    s = _abs_sum(k, t3).reshape(got.shape)
+    err = (got.double() - want.double()).abs()
+    assert bool((err <= 2e-4 * s + 1e-5).all()), float(err.max())
+
+
+@pytest.mark.gpu
+def test_window_clr_entry_bits_do_not_depend_on_the_launch_on_card():
+    """The full launch, the same at split counts the C entry takes at this
+    shape (1 to 8, the portable cluster sizes), and candidates launched
+    alone (one block, split their own way): bit for bit."""
+    dev = _card()
+    args, pack, _, kw = _tail_case(dev, 21, seed=40)
+    from chip_smoke import _window_clr_at  # the C entry, split as asked
+
+    full = W.window_clr(*args, pack, **kw)
+    for splits in range(1, 9):
+        got = _window_clr_at(*args, pack, splits=splits, **kw)
+        torch.testing.assert_close(_bits(got), _bits(full), rtol=0, atol=0)
+    ps, bounds, fbar = args
+    for ci in (0, 9, 20):
+        one = W.window_clr(ps, bounds[ci:ci + 1], fbar[ci:ci + 1], pack,
+                           **kw)
+        torch.testing.assert_close(_bits(one), _bits(full[ci:ci + 1]),
+                                   rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c", [21, 300])
+def test_window_clr_repeat_launches_are_bitwise_equal_on_card(c):
+    dev = _card()
+    args, pack, _, kw = _tail_case(dev, c, seed=41)
+    a = W.window_clr(*args, pack, **kw)
+    b = W.window_clr(*args, pack, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("c, A", [(1200, 32), (21, 128)])
+def test_window_clr_does_not_split_on_card(c, A):
+    """1,200 candidates x 32 replicates: 600 blocks, over two waves of
+    132 SMs at two blocks each; 21 candidates at 128 alphas: tiles of 128
+    columns, which keep one chain over the cells.  Neither splits; their
+    entries are still those of candidates launched alone."""
+    dev = _card()
+    args, t3, kw = _card_case(dev, np.int16, TAIL["P"], TAIL["R"], A, c=c,
+                              NC=TAIL["NC"], seed=42)
+    pack = W.bf16_pack(t3)
+    assert W.window_clr_splits(c * TAIL["P"], n_cells=TAIL["NC"],
+                               n_rows=TAIL["R"], n_alpha=A,
+                               device=dev) == 1
+    before = W.window_clr_launches, W.window_clr_split_launches
+    full = W.window_clr(*args, pack, **kw)
+    assert (W.window_clr_launches, W.window_clr_split_launches) == (
+        before[0] + 1, before[1])
+    ps, bounds, fbar = args
+    for ci in (0, c // 2, c - 1):
+        one = W.window_clr(ps, bounds[ci:ci + 1], fbar[ci:ci + 1], pack,
+                           **kw)
+        assert torch.equal(_bits(one), _bits(full[ci:ci + 1]))
