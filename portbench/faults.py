@@ -4,7 +4,9 @@ control.py --fault reads them on the card at a cell's own size.  A run
 of the benchmark plants none.
 
 Each fault is ``fault(program)``; ``planted(name)`` gives it wrapped so
-that it is undone when the run releases its program.
+that it is undone when the run releases its program, and named
+(``.name``), so that a kind whose ranks live in several processes
+(traffic/permute_split.py) plants it in every rank's program.
 
   unchanged_pass   a permutation pass returns the result unchanged
   altered_nulls    each round's null maximum is raised by 0.5 where the
@@ -20,10 +22,18 @@ that it is undone when the run releases its program.
                    candidates' values in a shuffled order; the f32 tie
                    stage, which values what the selection picked, is
                    left whole
+  split_rows       under a split, rank 0 evaluates rank 1's replicate
+                   rows of each permutation chunk in place of its own
+  no_gather        under a split, the permutation chunks' exchange is
+                   left out: each rank's gathered statistic holds its own
+                   rows and zeros in the other ranks'
 """
 
 from __future__ import annotations
 
+import dataclasses
+
+import numpy as np
 import torch
 
 
@@ -103,9 +113,58 @@ def selection(prog):
     prog._restore = lambda: setattr(histclr, "window_clr", orig)
 
 
+def _in_permute(prog, name, replace):
+    """``fscl_tpu_torch.parallel.shard.<name>`` replaced by
+    ``replace(original)`` while the program's permutation passes run (the
+    scan's exchanges stay whole)."""
+    from fscl_tpu_torch.parallel import shard
+
+    orig = getattr(shard, name)
+    new = replace(orig)
+    permute = prog.permute
+
+    def f(result, **kw):
+        setattr(shard, name, new)
+        try:
+            return permute(result, **kw)
+        finally:
+            setattr(shard, name, orig)
+
+    prog.permute = f
+
+
+def split_rows(prog):
+    def replace(split_range):
+        def f(n, split):
+            if split is not None and split.world > 1 and split.rank == 0:
+                return split_range(n, dataclasses.replace(split, rank=1))
+            return split_range(n, split)
+        return f
+
+    _in_permute(prog, "split_range", replace)
+
+
+def no_gather(prog):
+    from fscl_tpu_torch.parallel import shard
+
+    def replace(gather_rows):
+        def f(x, n, split):
+            x = np.asarray(x)
+            if split is None or split.world <= 1:
+                return x
+            r0, r1 = shard.split_range(n, split)
+            out = np.zeros((n, *x.shape[1:]), x.dtype)
+            out[r0:r1] = x
+            return out
+        return f
+
+    _in_permute(prog, "gather_rows", replace)
+
+
 FAULTS = {f.__name__: f for f in (unchanged_pass, altered_nulls,
                                   half_candidates, half_lattice,
-                                  altered_clr, selection)}
+                                  altered_clr, selection, split_rows,
+                                  no_gather)}
 
 
 def planted(name):
@@ -121,4 +180,5 @@ def planted(name):
             release()
 
         prog.release = f
+    apply.name = name
     return apply

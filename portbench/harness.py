@@ -15,7 +15,10 @@ or a metric:
                           program (``build_s``), and has ``setup(seconds)``
                           (warm-up), ``step(index)`` (a ``Step``),
                           ``release()`` and ``check(steps, precision)``
-                          (the numbers compared and their worst items)
+                          (the numbers compared and their worst items);
+                          a kind whose ranks live in several processes
+                          also has ``cards()`` and ``trace_ranks()``
+                          (below)
   metrics/<name>.py       one reader a per-layer metric: ``UNIT``,
                           ``read(Reading)`` (None where it finds nothing),
                           and the work families it needs (``FAMILIES``)
@@ -29,6 +32,23 @@ work over all of its time.  With ``--trace 1`` the window is recorded by
 torch.profiler (CUDA activity) and the per-layer readers take their
 numbers from the trace, the captured launches, the program's counters
 and the host's clocks; the end-to-end metrics are left out of that line.
+
+Cards: a kind without ``cards()`` runs in this process, and ``device``
+reads the cards this process used (``count``: those holding memory;
+``memory_peak_bytes``: the fullest one's ``max_memory_allocated``).  A
+kind whose ranks live in several processes (traffic/permute_split.py)
+is rank 0 in this one; its ``cards()``, called after the window and
+before ``release()``, gives one entry a rank (rank, card, name, peak
+bytes), which each rank reads of its own card, and with ``--trace 1``
+the busy seconds of that rank's own trace, which ``trace_ranks()``
+started on every other rank just before this process's profiler.
+Then ``count`` is the cards that hold memory over all ranks,
+``memory_peak_bytes`` the fullest card's, ``busy_s`` the mean over the
+ranks, and ``device["ranks"]`` lists the entries.  Everything else is
+rank 0's process alone: under ``--trace 1`` the trace (``idle``, the
+per-layer readers' ``trace``), ``breakdown`` and the captured launches;
+the spans; the counters, but for those the kind gathers from every rank
+itself; and ``host``.
 """
 
 from __future__ import annotations
@@ -122,16 +142,26 @@ def host_clocks():
             "preempted": ru.ru_nivcsw}
 
 
-def _cards():
-    """(cards holding memory, peak bytes on the fullest), read before
-    the reference runs."""
+def _cards(gen=None, device="cuda"):
+    """(cards holding memory, peak bytes on the fullest, the kind's rank
+    entries or None), read before the reference runs: over every rank
+    where the kind ``gen`` has ``cards()``, else over this process's
+    cards (on the tests' CPU: one, no bytes)."""
     import torch
 
+    if hasattr(gen, "cards"):
+        ranks = gen.cards()
+        held = {e["card"] for e in ranks if e["memory_peak_bytes"] > 0}
+        return (len(held),
+                max((e["memory_peak_bytes"] for e in ranks), default=0),
+                ranks)
+    if device != "cuda":
+        return 1, 0, None
     if not torch.cuda.is_available():
-        return 0, 0
+        return 0, 0, None
     peaks = [torch.cuda.max_memory_allocated(d)
              for d in range(torch.cuda.device_count())]
-    return sum(p > 0 for p in peaks), max(peaks, default=0)
+    return sum(p > 0 for p in peaks), max(peaks, default=0), None
 
 
 def run_cell(args, t_start, device="cuda", faults=None, root=HERE,
@@ -170,6 +200,8 @@ def run_cell(args, t_start, device="cuda", faults=None, root=HERE,
     families = sorted({f for r in readers.values()
                        for f in getattr(r, "FAMILIES", ())})
     cap = work.Capture(families).install() if families else None
+    if args.trace and hasattr(gen, "trace_ranks"):
+        gen.trace_ranks()
     prof = devtrace.start(device == "cuda") if args.trace else None
 
     steps, counters = [], {}
@@ -190,7 +222,7 @@ def run_cell(args, t_start, device="cuda", faults=None, root=HERE,
     events = devtrace.stop(prof) if prof is not None else []
     if cap is not None:
         cap.remove()
-    n_cards, peak = _cards() if device == "cuda" else (1, 0)
+    n_cards, peak, ranks = _cards(gen, device)
     cap_stats = cap.stats() if cap is not None else {}
     least = cap.least() if cap is not None else {}
     del cap
@@ -220,6 +252,8 @@ def run_cell(args, t_start, device="cuda", faults=None, root=HERE,
         "count": n_cards,
         "memory_peak_bytes": int(peak),
     }
+    if ranks is not None:
+        device_info["ranks"] = ranks
     if args.trace:
         tr = devtrace.Trace(events, window_s)
         reading = Reading(trace=tr, least=least, counters=counters,
@@ -230,7 +264,11 @@ def run_cell(args, t_start, device="cuda", faults=None, root=HERE,
             if v is not None and math.isfinite(v):
                 metrics[name] = {"value": float(v), "unit": mod.UNIT}
         result["metrics"] = metrics
-        device_info["busy_s"] = tr.busy_s()
+        busy = [tr.busy_s()]
+        if ranks is not None:
+            ranks[0]["busy_s"] = busy[0]
+            busy += [e["busy_s"] for e in ranks[1:] if "busy_s" in e]
+        device_info["busy_s"] = sum(busy) / len(busy)
         device_info["window_s"] = window_s
         result["breakdown"] = tr.breakdown()
     else:

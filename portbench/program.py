@@ -1,6 +1,7 @@
 """The system under test, fscl_tpu_torch, behind the calls the traffic
 kinds make: its data container, its sweep-model tables, ``scan_genome`` and
-``scan_permute`` at the configuration's settings on one card, and the
+``scan_permute`` at the configuration's settings on one card (or, with
+a ``split``, on this rank's card of a split over ranks), and the
 permutation driver's counters (``last_stats``).
 
 The benchmark hands the program the generated sites and nothing else; it
@@ -76,22 +77,26 @@ class Program:
         d.attach_model(self.tables)
         return d
 
-    def scan(self, data):
+    def scan(self, data, split=None):
+        """scan_genome on ``data``; ``split``: this rank's
+        fscl_tpu_torch.parallel.Split (None, the drivers' default: one
+        card)."""
         from fscl_tpu_torch.engine import scan_genome
 
         return scan_genome(data, self.tables, self.scan_cfg,
-                           device=self.device)
+                           device=self.device, split=split)
 
-    def permute(self, result, *, n_permute, chunk_replicates, seed):
+    def permute(self, result, *, n_permute, chunk_replicates, seed,
+                split=None):
         """One scan_permute pass on ``result`` (mutated); the pass's
-        counters."""
+        counters.  ``split`` as in ``scan``."""
         from fscl_tpu_torch.engine import permute as TP
 
         pc = self._PermuteConfig(n_permute=n_permute,
                                  chunk_replicates=chunk_replicates,
                                  seed=seed, **self._perm_kw)
         TP.scan_permute(self.data, self.tables, result, self.scan_cfg, pc,
-                        device=self.device)
+                        device=self.device, split=split)
         return {k: int(TP.last_stats.get(k, 0)) for k in COUNTERS}
 
     def release(self):

@@ -19,7 +19,7 @@ TINY = pathlib.Path(__file__).resolve().parent / "tiny"
 
 
 @pytest.mark.parametrize("workload", [
-    "tiny.tail", "tiny.perm", "tiny.scan", "tiny_exact.scan"])
+    "tiny.tail", "tiny.perm", "tiny.split", "tiny.scan", "tiny_exact.scan"])
 @pytest.mark.parametrize("seed", [50, 51, 52])
 def test_control_fails_where_the_program_passes(workload, seed):
     args = argparse.Namespace(workload=workload, seed=seed, seconds=0,

@@ -4,8 +4,10 @@ broken underneath reads ``correct`` false, and the unbroken program
 reads true.  Faults (faults.py): a pass that leaves its state unchanged;
 half of the candidates left out of the statistic (the rest's maximum
 taken); an answer altered where it is produced: the nulls, the reported
-CLR, and the hist scan's bf16 selection with its f32 tie stage whole.
-(One chip: no exchange to leave out.)"""
+CLR, and the hist scan's bf16 selection with its f32 tie stage whole;
+in the split cell also the exchange between ranks left out (each rank's
+gather holds its own rows), which the saved nulls and ``rank_mismatch``
+read, and rank 0 evaluating rank 1's rows (test_pb_split.py)."""
 
 from __future__ import annotations
 
@@ -31,7 +33,7 @@ def run(workload, faults=None, seed=51):
 
 
 @pytest.mark.parametrize("workload", [
-    "tiny.tail", "tiny.perm", "tiny.scan", "tiny_exact.scan"])
+    "tiny.tail", "tiny.perm", "tiny.split", "tiny.scan", "tiny_exact.scan"])
 def test_sound_program_is_correct(workload):
     assert run(workload)["correct"]
 
@@ -41,6 +43,10 @@ def test_sound_program_is_correct(workload):
     ("tiny.tail", "altered_nulls"),
     ("tiny.tail", "half_candidates"),
     ("tiny.perm", "unchanged_pass"),
+    ("tiny.split", "unchanged_pass"),
+    ("tiny.split", "half_candidates"),
+    ("tiny.split", "altered_nulls"),
+    ("tiny.split", "no_gather"),
     ("tiny.scan", "altered_clr"),
     ("tiny.scan", "half_candidates"),
     ("tiny.scan", "selection"),
@@ -50,6 +56,14 @@ def test_sound_program_is_correct(workload):
 def test_broken_program_is_not_correct(workload, fault):
     res = run(workload, planted(fault))
     assert not res["correct"], res["checks"]
+
+
+def test_left_out_exchange_splits_the_ranks():
+    """Without the exchange each rank records its own rows alone, so the
+    ranks' results differ as well as rank 0's nulls."""
+    res = run("tiny.split", planted("no_gather"))
+    failed = {c["name"] for c in res["checks"] if c["value"] > c["limit"]}
+    assert {"rank_mismatch", "null_gap"} <= failed, res["checks"]
 
 
 def test_selection_fault_is_judged_by_shortfall():
