@@ -79,6 +79,14 @@ non-zero:
                and phase 7's RDP slice; kernel, plain and two yardsticks
                timed: window_operand + float32 matmul (the route it
                replaces) and + TF32 matmul (cuBLAS, one TF32 pass)
+  3w. wide  - the window kernels' wide variants (128 < R <= 256) at the
+               yri_1kg tail's 216 rows against their plain versions as in
+               3f and 3g: window_clr at an RDP slice's launch
+               (RDP_REP_SUB replicates), at a 16-replicate launch split
+               over a cluster and at the scan's P = 1, 128-alpha launch;
+               window_clr_f32 at the scan's tie stage (P = 1, 128 alphas,
+               826 cells); every launch counted as wide; and 3a at RDP's
+               site prefix (one replicate over 14.4M sites, int32)
   4. 20k     - the bench.py task (bench/data/bench_20k.sf, 50
                permutations) through the port's entry points; the
                prefix kernel's launches are counted over this run, and
@@ -1146,6 +1154,103 @@ def _tail_window_cases(dev):
                       (7, torch.int16))]
 
 
+# rows of one replicate in the yri_1kg genome's site prefix: its 14.4M
+# sites after the K >= 2 filter (portbench/configs/yri_1kg.json)
+YRI_SITES = 14_400_000
+YRI_ROWS = 216  # its exact one-hot tables: 214 rows of depth 216, padded
+
+
+def phase_wide(dev):
+    """Phase 3w: the kernels at the yri_1kg tail's 216 table rows.  3f
+    (window_clr, its wide variant) at an RDP slice's launch (RDP_REP_SUB
+    replicates, the candidates of one _chunk_rows chunk, 208 cells, 32
+    alphas), at a first chunk's 16-replicate launch of one position's
+    candidates (split over a cluster) and at the scan's P = 1, 128-alpha
+    launch; 3g (window_clr_f32, its wide variant) at the scan's tie stage
+    (P = 1, 128 alphas, 826 cells at decimation 2).  Every launch of
+    each case counted as wide, the counters zeroed before it.  3a (the
+    row-id kernel) at RDP's site prefix: one replicate over the whole
+    genome, int32, bitwise its plain version, repeat launches equal,
+    timed."""
+    import numpy as np
+    import torch
+
+    from fscl_tpu_torch.engine import permute as TP
+    from fscl_tpu_torch.ops import histclr as H
+    from fscl_tpu_torch.ops import prefix_sums as ps
+    from fscl_tpu_torch.ops import window_clr as W
+
+    R, NC = YRI_ROWS, 208
+    c_rdp = min(H._chunk_rows(NC, TP.RDP_REP_SUB, R), 22 * 7)
+    bf16 = [("yri RDP slice", c_rdp, TP.RDP_REP_SUB, 32, NC, 12288, True),
+            ("yri first chunk, one position", 7, 16, 32, NC, 61440, True),
+            ("yri scan", 300, 1, 128, NC, 61440, False)]
+    fkern = []
+    for label, c, P, A, nc, rows, must_split in bf16:
+        inp = _tail_window_inputs(dev, c, torch.int32, seed=c + P, rows=rows,
+                                  P=P, R=R, A=A, NC=nc)
+        splits = W.window_clr_splits(c * P, n_cells=nc, n_rows=R, n_alpha=A,
+                                     device=dev)
+        if must_split and splits <= 1:
+            fail(f"wide: {label} ({c * P} rows, A={A}) is not split over "
+                 "a cluster")
+        _zero_window_counts()
+        fkern.append(_window_clr_case(f"{label}, R={R}, int32", **inp))
+        n = _window_counts()
+        if not (n["window_clr"] > 0
+                and n["window_clr_wide"] == n["window_clr"]
+                and n["window_clr_split"] == n["window_clr"] * (splits > 1)):
+            fail(f"wide: {label}: launches counted {n}")
+        del inp
+        torch.cuda.empty_cache()
+    inp = _tail_window_inputs(dev, 64, torch.int32, seed=826, rows=61440,
+                              P=1, R=R, A=128, NC=826)
+    _zero_window_counts()
+    f32kern = [_window_clr_f32_case(f"yri scan tie stage, R={R}, int32",
+                                    **inp, iters=5)]
+    n = _window_counts()
+    if not (n["window_clr_f32"] > 0
+            and n["window_clr_f32_wide"] == n["window_clr_f32"]):
+        fail(f"wide: yri tie stage: launches counted {n}")
+    del inp
+    torch.cuda.empty_cache()
+    log(f"[wide] window kernels at R={R}: every launch wide")
+
+    rng = np.random.default_rng(216)
+    row = torch.as_tensor(rng.integers(0, R + 1, YRI_SITES, dtype=np.int32),
+                          device=dev)
+    label = f"yri site prefix, P=1 W={YRI_SITES} R={R}"
+
+    def kern():
+        return H.build_site_prefix(row, n_rows=R)
+
+    before = ps.rowid_launches
+    got = kern()
+    n_launch = ps.rowid_launches - before
+    # the plain version's one-hot and cumsum hold 40 GB beside the
+    # kernel's 12.4 GB: compared with torch.equal, nothing more is made
+    same = torch.equal(got, ps.rowid_prefix_sums_plain(
+        row[None], n_rows=R, out_dtype=torch.int32))
+    torch.cuda.empty_cache()
+    if got.dtype != torch.int32 or not same or n_launch != 1:
+        fail(f"rkernel at {label}: {got.dtype}, bitwise equal to plain "
+             f"{same}, {n_launch} launches")
+    ms = _repeat_checks("rkernel", label, kern, got)
+    b_ms, b_by = bound((row,), (got,), 2 * got.numel())
+    mb = got.numel() * 4 / 1e6
+    del got
+    torch.cuda.empty_cache()
+    log(f"[rkernel] {label}: int32 bitwise equal, repeat launches equal; "
+        f"kernel {ms:.4f} ms ({mb / ms:.1f} GB/s written, "
+        f"{100 * b_ms / ms:.1f}% of bound), bound {b_ms:.4f} ms ({b_by})")
+    rec = dict(label=label, shape=f"P=1 W={YRI_SITES} R={R}", dtype="int32",
+               max_abs_err=0.0, out_mb=mb, bound_ms=b_ms, bound_by=b_by,
+               ms=ms)
+    del row
+    torch.cuda.empty_cache()
+    return dict(fkernel=fkern, f32kernel=f32kern, rkernel=[rec])
+
+
 def _window_clr_f32_case(label, ps, bounds, fbar, *, n_rep, n_cells, n_rows,
                          t3, n_alpha, iters=20):
     """Phase 3g: the float32 window contraction (window_clr_f32) vs its
@@ -1520,7 +1625,8 @@ def _run_main_path(data, tables, scan_cfg, perm_cfg, dev, tsv, label):
     scan and over the permutations: the bfloat16 kernel must run in the
     scan (its dense and refine stages) and in the permutations at
     hist_bf16=True, the float32 kernel in the scan (its tie stage) and in
-    the permutations at hist_bf16=False, and the window operand nowhere."""
+    the permutations at hist_bf16=False, the window operand nowhere, and
+    neither wide variant (the smoke's main paths have at most 128 rows)."""
     import torch
 
     from fscl_tpu_torch.engine import scan_genome, scan_permute
@@ -1544,7 +1650,9 @@ def _run_main_path(data, tables, scan_cfg, perm_cfg, dev, tsv, label):
     ok = (w_scan["window_clr"] > 0 and w_scan["window_clr_f32"] > 0
           and (w_perm["window_clr"] > 0) == bf
           and (w_perm["window_clr_f32"] > 0) != bf
-          and w_scan["window_operand"] == w_perm["window_operand"] == 0)
+          and w_scan["window_operand"] == w_perm["window_operand"] == 0
+          and not any(w[k] for w in (w_scan, w_perm)
+                      for k in ("window_clr_wide", "window_clr_f32_wide")))
     if not ok:
         fail(f"{label}: window kernel launches (scan, permutations) "
              f"{launches}, hist_bf16={bf}")
@@ -1559,8 +1667,9 @@ def _zero_window_counts():
     from fscl_tpu_torch.ops import window_clr as W
 
     G.window_launches = W.window_clr_launches = 0
-    W.window_clr_split_launches = 0
+    W.window_clr_split_launches = W.window_clr_wide_launches = 0
     W.window_clr_f32_launches = W.window_clr_f32_reduce_launches = 0
+    W.window_clr_f32_wide_launches = 0
 
 
 def _window_counts():
@@ -1570,7 +1679,9 @@ def _window_counts():
 
     return dict(window_clr=W.window_clr_launches,
                 window_clr_split=W.window_clr_split_launches,
+                window_clr_wide=W.window_clr_wide_launches,
                 window_clr_f32=W.window_clr_f32_launches,
+                window_clr_f32_wide=W.window_clr_f32_wide_launches,
                 window_clr_f32_reduce=W.window_clr_f32_reduce_launches,
                 window_operand=G.window_launches)
 
@@ -3555,12 +3666,12 @@ def phase_rdp(dev):
     log(f"[rdp] (iii) the same chunk with bfloat16 operands: hist_clr_reps "
         f"vs rdp_clr_reps max |diff| {d_16:.3g}; launches {bf16_launches}")
 
-    # phases 3d and 3e at the RDP tail's shapes: the first slice
-    # (HIST_REP_SUB replicates, what one rdp_clr_reps call takes) of the
-    # first chunk, its first candidate chunk
-    P, R, NC = TP.HIST_REP_SUB, ht.n_rows, ht.n_cells
-    s, d, z = (x[:P].to(device=dev, dtype=torch.int32) for x in (src, dst,
-                                                                 sz))
+    # phases 3d and 3e at the RDP tail's shapes: a slice of RDP_REP_SUB
+    # replicates (what one rdp_clr_reps call takes in a chunk of at least
+    # that many, as the deep tail's are), its first candidate chunk
+    P, R, NC = TP.RDP_REP_SUB, ht.n_rows, ht.n_cells
+    s, d, z = (x.to(device=dev, dtype=torch.int32)
+               for x in runs_source(P, 0))
     tabs = H._rdp_tables(tail.psite, s, d, z, pg=PERM_GROUP,
                          n_groups=hs.n_groups)
     bc = bounds[:H._chunk_rows(NC, P, R)]
@@ -4927,6 +5038,7 @@ def main():
                ("P=256 R=1", 30000, 555, 20000, 20480, 256, 1),
                ("n=0", 3000, 100, 0, 1024, 16, 8)]
     pkern = phase_pkernel(dev, pshapes, pstress)
+    wide = phase_wide(dev)
     r20 = phase_20k(dev)
     if (r20["w_seg_p"], r20["sub_rep"], r20["n_rows"]) != (20480, sub_20k, 56):
         fail(f"20k main path ran at w={r20['w_seg_p']} P={r20['sub_rep']} "
@@ -4960,16 +5072,19 @@ def main():
     gkern = rr["gkernel"] + gkern  # the RDP path's shape first
     okern = (r20["okernel"] + rg["okernel"] + rm["okernel"]
              + rr["okernel"])
-    fkern = r20["fkernel"] + rg["fkernel"] + rm["fkernel"]
+    fkern = (r20["fkernel"] + rg["fkernel"] + rm["fkernel"]
+             + wide["fkernel"])
     f32kern = (r20["f32kernel"] + rg["f32kernel"] + rm["f32kernel"]
-               + rr["f32kernel"])
+               + rr["f32kernel"] + wide["f32kernel"])
+    rkern = rkern + wide["rkernel"]
     detail = dict(device=name, nvidia_smi=smi, kernel=kern, wkernel=wkern,
                   rkernel=rkern, pkernel=pkern, gkernel=gkern,
                   okernel=okern, fkernel=fkern, f32kernel=f32kern,
                   lkernel=rl["lkernel"] + r1024["lkernel"] + rb["lkernel"],
                   bench_20k=r20, bench_20k_nohist=rl,
                   bench_20k_grid1024=r1024, big_chromosome=rb, genome=rg,
-                  mixed100k=rm, cgkernel=cg["cgkernel"], exact=rx,
+                  mixed100k=rm, wide=wide, cgkernel=cg["cgkernel"],
+                  exact=rx,
                   check=chk, rdp=rr, ms=rms, resume=rres, split=rsplit,
                   load=rload, stream=rstream)
     (OUT / "smoke.json").write_text(json.dumps(detail, indent=1) + "\n")

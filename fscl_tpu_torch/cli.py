@@ -10,8 +10,10 @@ writes it (io/spectra_io.py).
 run; ``cpu`` runs the plain PyTorch versions of the kernels.
 
 Mixed-depth data (more than ROWS_MAX distinct table rows, up to
-COMPRESS_ROWS_MAX) runs on the SVD-compressed hist tables.  --no-hist,
-and datasets past the hist gate, run the per-site lattice path; its
+COMPRESS_ROWS_MAX) runs on the SVD-compressed hist tables where they
+compress within tolerance; one large depth (up to WIDE_ROWS_MAX rows)
+keeps exact one-hot tables.  --no-hist, and datasets past the hist
+gate, run the per-site lattice path; its
 packs are built only when a run takes it.  --checkpoint saves the
 permutation state after every chunk and resumes from the file when it
 exists (with -m, one file per block: FILE.block0, FILE.block1, ...).

@@ -92,6 +92,21 @@
 // candidates, over two waves) the MMAs sum every cell in one chain and
 // never split: a total there would take 32 KB of shared memory or 32
 // registers, and the int16 kernel is at 128 registers already.
+//
+// Wide variant, 128 < R <= 256 (window_clr_kernel_wide: the exact
+// one-hot tables of one large depth, 216 haplotypes: R = 216).  One cell's
+// K tile at R = 216 would take 2 x 224 k values: 114 KB of operand ring
+// and, at BN = 128, 238 KB of pack ring, past a block's shared memory;
+// and its units would take twice the registers.  So it walks each cell in
+// two K steps, the first ceil(R/16) 8-lane groups and the rest, each laid
+// out and contracted as a cell of up to 128 lanes is above (the rings and
+// UPT = 4 of R = 128).  A step cannot keep the previous bound row in
+// registers (its lanes were last read two steps back), so it loads both
+// bound rows of its cell, once more from L2.  Steps alternate between the
+// halves of the double buffers, so a buffer holds one half's tiles only
+// and the lanes and pack rows past the second half's stay zero.  Runs of
+// cells, the split and the reduction are as above.  A separate template
+// instantiation: the R <= 128 kernels keep their code.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
@@ -163,10 +178,11 @@ struct Unit {
   int64_t lane;       // first lane p*R + 8*g in a prefix row
   int tile;           // its element offset in an operand tile buffer
   bool live;
+  bool live1;  // wide: the unit also has lanes in a cell's second step
 };
 
 // One block's 64 x BN tile of out (split: its share of it).
-template <typename T, int BN, int UPT>
+template <typename T, int BN, int UPT, bool kWide = false>
 __device__ __forceinline__ void window_clr_tile(
     const T* __restrict__ ps, const int32_t* __restrict__ bounds,
     const float* __restrict__ fbar, const __nv_bfloat16* __restrict__ pack,
@@ -176,7 +192,10 @@ __device__ __forceinline__ void window_clr_tile(
   constexpr int kFrag = kNT8 * kThreads;  // float4 fragments of a tile
   constexpr bool kRuns = BN == 32;  // summed by runs of cells, splittable
   extern __shared__ __align__(16) unsigned char smem[];
-  const int R16 = (R + 15) & ~15;
+  const int G8 = R >> 3;  // 8-lane groups per row m
+  // 8-lane groups of one K step: all, or (wide) a cell's first half
+  const int GS = kWide ? (G8 + 1) / 2 : G8;
+  const int R16 = ((kWide ? 8 * GS : R) + 15) & ~15;
   const int KT = 2 * R16;       // k values of one cell's tile
   const int lda = KT + kPad;    // operand tile row stride (bf16)
   constexpr int ldb = BN + kPad;  // pack tile row stride (bf16)
@@ -210,15 +229,15 @@ __device__ __forceinline__ void window_clr_tile(
       reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
   }
 
-  const int G8 = R >> 3;  // 8-lane groups per row m
   Unit u[UPT];
 #pragma unroll
   for (int i = 0; i < UPT; ++i) {
     const int q = tid + i * kThreads;
-    const int ml = q / G8;
-    const int g = q - ml * G8;
+    const int ml = q / GS;
+    const int g = q - ml * GS;
     const int64_t m = m0 + ml;
     u[i].live = ml < kBM && m < M;
+    if constexpr (kWide) u[i].live1 = u[i].live && GS + g < G8;
     const int64_t c = u[i].live ? m / P : 0;
     const int64_t p = u[i].live ? m - c * P : 0;
     u[i].b0 = bounds + c * 2 * (NC + 1);
@@ -227,20 +246,24 @@ __device__ __forceinline__ void window_clr_tile(
     u[i].tile = ml * lda + 8 * g;
   }
 
-  // the pack tile of cell j: rows (s*NC + j)*R + r for r < R, columns
-  // n0 .. n0 + BN (zero past A_pack, a multiple of 8)
-  auto load_pack = [&](int j, int buf) {
+  // the pack tile of step h of cell j: rows (s*NC + j)*R + r0 + r for
+  // r < rh (all R rows, or wide the step's), columns n0 .. n0 + BN (zero
+  // past A_pack, a multiple of 8)
+  auto load_pack = [&](int j, int h, int buf) {
     constexpr int kChunks = BN / 8;  // 16-byte chunks per row
+    const int r0 = kWide ? 8 * GS * h : 0;
+    const int rh = kWide ? min(8 * GS, R - r0) : R;
     __nv_bfloat16* dst0 = sB + buf * KT * ldb;
-    for (int i = tid; i < 2 * R * kChunks; i += kThreads) {
+    for (int i = tid; i < 2 * rh * kChunks; i += kThreads) {
       const int row = i / kChunks;
       const int ch = i - row * kChunks;
-      const int s = row >= R;
-      const int r = row - s * R;
+      const int s = row >= rh;
+      const int r = row - s * rh;
       const int col = n0 + 8 * ch;
       const bool in = col < A_pack;
       const __nv_bfloat16* src =
-          in ? pack + ((int64_t)(s * NC + j) * R + r) * A_pack + col : pack;
+          in ? pack + ((int64_t)(s * NC + j) * R + r0 + r) * A_pack + col
+             : pack;
       cp_async16(dst0 + (s * R16 + r) * ldb + 8 * ch, src, in ? 16 : 0);
     }
     cp_async_commit();
@@ -265,12 +288,28 @@ __device__ __forceinline__ void window_clr_tile(
       }
     }
   };
-  // operand tile of the cell in cur into buffer buf; prev = cur
-  auto build = [&](int buf) {
+  // wide: both bound rows of step h of cell j and its fbar
+  auto load_rows_wide = [&](int j, int h) {
+#pragma unroll
+    for (int i = 0; i < UPT; ++i) {
+      if (!(h ? u[i].live1 : u[i].live)) continue;
+      const int32_t* b0 = u[i].b0 + j;
+      const int64_t ln = u[i].lane + 8 * GS * h;
+      load8(table_row(ps, __ldg(b0), n_rows, L) + ln, prev0[i]);
+      load8(table_row(ps, __ldg(b0 + NC + 1), n_rows, L) + ln, prev1[i]);
+      load8(table_row(ps, __ldg(b0 + 1), n_rows, L) + ln, cur0[i]);
+      load8(table_row(ps, __ldg(b0 + NC + 2), n_rows, L) + ln, cur1[i]);
+      g0[i] = __ldg(u[i].f0 + j);
+      g1[i] = __ldg(u[i].f0 + NC + j);
+    }
+  };
+  // operand tile of the cell (wide: its step h) in cur into buffer buf;
+  // prev = cur
+  auto build = [&](int buf, int h) {
     __nv_bfloat16* dst0 = sA + buf * kBM * lda;
 #pragma unroll
     for (int i = 0; i < UPT; ++i) {
-      if (!u[i].live) continue;
+      if (!(kWide && h ? u[i].live1 : u[i].live)) continue;
       __nv_bfloat16 w0b[8], w1b[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
@@ -280,8 +319,10 @@ __device__ __forceinline__ void window_clr_tile(
         window_lerp(h0, h1, g0[i], g1[i], w0, w1);
         w0b[e] = __float2bfloat16_rn(w0);
         w1b[e] = __float2bfloat16_rn(w1);
-        prev0[i][e] = cur0[i][e];
-        prev1[i][e] = cur1[i][e];
+        if constexpr (!kWide) {
+          prev0[i][e] = cur0[i][e];
+          prev1[i][e] = cur1[i][e];
+        }
       }
       uint4 v0, v1;
       memcpy(&v0, w0b, 16);
@@ -292,21 +333,25 @@ __device__ __forceinline__ void window_clr_tile(
   };
 
   // prologue: prev = rows b[j_lo], cur = rows b[j_lo + 1]; the tile of
-  // cell j_lo in buffer 0
+  // cell j_lo (wide: its first step) in buffer 0
+  if constexpr (kWide) {
+    load_rows_wide(j_lo, 0);
+  } else {
 #pragma unroll
-  for (int i = 0; i < UPT; ++i) {
-    if (!u[i].live) continue;
-    const int32_t* b0 = u[i].b0 + j_lo;
-    load8(table_row(ps, __ldg(b0), n_rows, L) + u[i].lane, prev0[i]);
-    load8(table_row(ps, __ldg(b0 + NC + 1), n_rows, L) + u[i].lane,
-          prev1[i]);
-    nb0[i] = __ldg(b0 + 1);
-    nb1[i] = __ldg(b0 + NC + 2);
+    for (int i = 0; i < UPT; ++i) {
+      if (!u[i].live) continue;
+      const int32_t* b0 = u[i].b0 + j_lo;
+      load8(table_row(ps, __ldg(b0), n_rows, L) + u[i].lane, prev0[i]);
+      load8(table_row(ps, __ldg(b0 + NC + 1), n_rows, L) + u[i].lane,
+            prev1[i]);
+      nb0[i] = __ldg(b0 + 1);
+      nb1[i] = __ldg(b0 + NC + 2);
+    }
+    load_rows(j_lo);
   }
-  load_rows(j_lo);
   __syncthreads();  // the zero fill is done before any tile lands
-  load_pack(j_lo, 0);
-  build(0);
+  load_pack(j_lo, 0, 0);
+  build(0, 0);
   cp_async_wait_all();
   __syncthreads();
 
@@ -320,13 +365,8 @@ __device__ __forceinline__ void window_clr_tile(
   const int b_off = (lane & 15) * ldb + wn + (lane >> 4) * 8;
 
   float4* run = slots + tid;  // the total, or split this run's slot
-  for (int j = j_lo; j < j_hi; ++j) {
-    const int buf = (j - j_lo) & 1;
-    const bool more = j + 1 < j_hi;
-    if (more) {
-      load_pack(j + 1, buf ^ 1);
-      load_rows(j + 1);
-    }
+  // this K step's MMAs from buffer buf
+  auto mma_step = [&](int buf) {
     const __nv_bfloat16* a_base = sA + buf * kBM * lda + a_off;
     const __nv_bfloat16* b_base = sB + buf * KT * ldb + b_off;
     for (int k0 = 0; k0 < KT; k0 += 16) {
@@ -340,9 +380,12 @@ __device__ __forceinline__ void window_clr_tile(
         mma_bf16(acc[t + 1], a, b[2], b[3]);
       }
     }
+  };
+  // after cell j's MMAs: where a run of cells ends, add its sum to the
+  // total, or keep it for the cluster's reduction; the next run starts
+  // from zero
+  auto end_cell = [&](int j) {
     if (kRuns && ((j + 1) % kCellChunk == 0 || j + 1 == NC)) {
-      // a run of cells ends: add its sum to the total, or keep it for the
-      // cluster's reduction; the next run starts from zero
 #pragma unroll
       for (int t = 0; t < kNT8; ++t) {
         float4 v = make_float4(acc[t][0], acc[t][1], acc[t][2], acc[t][3]);
@@ -356,9 +399,37 @@ __device__ __forceinline__ void window_clr_tile(
       }
       if (splits > 1) run += kFrag;
     }
-    if (more) build(buf ^ 1);
-    cp_async_wait_all();
-    __syncthreads();
+  };
+  if constexpr (kWide) {
+    // steps t: cell j_lo + t/2, its half h = t%2 in buffer h
+    const int n_steps = 2 * (j_hi - j_lo);
+    for (int t = 0; t < n_steps; ++t) {
+      const int j = j_lo + (t >> 1), h = t & 1;
+      const bool more = t + 1 < n_steps;
+      if (more) {
+        load_pack(j + h, h ^ 1, h ^ 1);
+        load_rows_wide(j + h, h ^ 1);
+      }
+      mma_step(h);
+      if (h) end_cell(j);
+      if (more) build(h ^ 1, h ^ 1);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+  } else {
+    for (int j = j_lo; j < j_hi; ++j) {
+      const int buf = (j - j_lo) & 1;
+      const bool more = j + 1 < j_hi;
+      if (more) {
+        load_pack(j + 1, 0, buf ^ 1);
+        load_rows(j + 1);
+      }
+      mma_step(buf);
+      end_cell(j);
+      if (more) build(buf ^ 1, 0);
+      cp_async_wait_all();
+      __syncthreads();
+    }
   }
 
   // epilogue: fragment element e of tile t of thread (warp, lane) is row
@@ -437,6 +508,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     window_clr_kernel(FSCL_WINDOW_CLR_PARAMS) {
   window_clr_tile<T, 32, 2>(FSCL_WINDOW_CLR_ARGS);
 }
+
+// The wide variant, 128 < R <= 256: two K steps a cell (above).
+template <typename T, int BN>
+__global__ void __launch_bounds__(kThreads)
+    window_clr_kernel_wide(FSCL_WINDOW_CLR_PARAMS) {
+  window_clr_tile<T, BN, 4, true>(FSCL_WINDOW_CLR_ARGS);
+}
 #undef FSCL_WINDOW_CLR_PARAMS
 #undef FSCL_WINDOW_CLR_ARGS
 
@@ -444,10 +522,19 @@ int cell_chunks(int NC) { return (NC + kCellChunk - 1) / kCellChunk; }
 
 int pick_bn(int A) { return A <= 32 ? 32 : 128; }
 
+constexpr int kWideR = 128;  // the widest R walked in one K step a cell
+
+// lanes of one K step, rounded up to 16: R's, or past kWideR the first
+// half of its 8-lane groups'
+int step_r16(int R) {
+  const int lanes = R <= kWideR ? R : 8 * ((R / 8 + 1) / 2);
+  return (lanes + 15) & ~15;
+}
+
 // the rings and, at BN = 32, a slot of 64 x BN float32 sums: the running
 // total, or, split, one for each run of cells a split walks
 size_t smem_bytes(int R, int BN, int NC, int splits) {
-  const int R16 = (R + 15) & ~15;
+  const int R16 = step_r16(R);
   const int slots =
       BN != 32 ? 0 : splits > 1 ? (cell_chunks(NC) + splits - 1) / splits : 1;
   return (size_t)2 * (2 * kBM * (2 * R16 + kPad) +
@@ -486,13 +573,15 @@ int splits_for(int64_t M, int NC, int R, int A, int n_sm) {
   return best;
 }
 
-template <typename T, int BN, int UPT>
+template <typename T, int BN, int UPT, bool kWide = false>
 int launch(const void* ps, const void* bounds, const void* fbar,
            const void* pack, void* out, int C, int NC, int P, int R,
            int64_t n_rows, int A, int A_pack, int splits, cudaStream_t st) {
   void (*kern)(const T*, const int32_t*, const float*, const __nv_bfloat16*,
                float*, int, int, int, int, int64_t, int, int, int);
-  if constexpr (BN == 32 && UPT == 2)
+  if constexpr (kWide)
+    kern = window_clr_kernel_wide<T, BN>;
+  else if constexpr (BN == 32 && UPT == 2)
     kern = window_clr_kernel<T>;
   else
     kern = window_clr_kernel<T, BN, UPT>;
@@ -531,6 +620,12 @@ int dispatch(const void* ps, const void* bounds, const void* fbar,
   launch<T, BN, UPT>(ps, bounds, fbar, pack, out, C, NC, P, R, n_rows, A,   \
                      A_pack, splits, st)
   const bool wide = R > 64;
+  if (R > kWideR)
+    return pick_bn(A) == 32
+               ? launch<T, 32, 4, true>(ps, bounds, fbar, pack, out, C, NC, P,
+                                        R, n_rows, A, A_pack, splits, st)
+               : launch<T, 128, 4, true>(ps, bounds, fbar, pack, out, C, NC,
+                                         P, R, n_rows, A, A_pack, splits, st);
   if (pick_bn(A) == 32) return wide ? FSCL_LAUNCH(32, 4) : FSCL_LAUNCH(32, 2);
   return wide ? FSCL_LAUNCH(128, 4) : FSCL_LAUNCH(128, 2);
 #undef FSCL_LAUNCH
@@ -543,14 +638,16 @@ extern "C" {
 // The split over cells that fscl_window_clr takes for c*P = M rows
 // (1 = none).  n_sm: the card's SM count.
 int fscl_window_clr_splits(int64_t M, int NC, int R, int A, int n_sm) {
-  if (M <= 0 || A <= 0 || NC < 1 || R < 8 || R > 128 || n_sm < 1) return 1;
+  if (M <= 0 || A <= 0 || NC < 1 || R < 8 || R > 2 * kWideR || n_sm < 1)
+    return 1;
   return splits_for(M, NC, R, A, n_sm);
 }
 
 // ps [n_rows, P*R] of dtype_code 0 = int16, 1 = int32, 2 = float32,
 // 16-byte aligned; bounds [C, 2, NC+1] int32 rows of ps; fbar [C, 2, NC]
 // f32; pack [2*NC*R, A_pack] bf16, 16-byte aligned, A_pack >= A a
-// multiple of 8; out [C, P, A] f32.  R a multiple of 8, at most 128;
+// multiple of 8; out [C, P, A] f32.  R a multiple of 8, at most 256 (past
+// 128 the wide variant);
 // NC >= 1; 1 <= splits <= min(ceil(NC / 8), 8), the blocks of a tile's
 // splits one cluster, their slots within a block's shared memory.
 // Returns the launch's CUDA error (0 = success); nothing to compute is
@@ -560,7 +657,8 @@ int fscl_window_clr(const void* ps, const void* bounds, const void* fbar,
                     int64_t n_rows, int dtype_code, int A, int A_pack,
                     int splits, void* stream) {
   if ((int64_t)C * P == 0 || A == 0) return 0;
-  if (NC < 1 || R < 8 || R > 128 || R % 8 || A_pack < A || A_pack % 8 ||
+  if (NC < 1 || R < 8 || R > 2 * kWideR || R % 8 || A_pack < A ||
+      A_pack % 8 ||
       splits < 1 || splits > kClusterMax || splits > cell_chunks(NC) ||
       (splits > 1 && pick_bn(A) != 32))
     return (int)cudaErrorInvalidValue;

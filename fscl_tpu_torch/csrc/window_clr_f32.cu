@@ -70,6 +70,15 @@
 // end against 3 x 126.  It is a pure function of (c*P, NC, R, A, SM count)
 // (fscl_window_clr_f32_splits).  No atomics: a launch is deterministic.
 //
+// Wide variant, 128 < R <= 256 (window_clr_f32_kernel_wide: the tie stage
+// on the exact one-hot tables of one large depth).  As window_clr.cu's:
+// each cell is walked in two K steps of up to 128 lanes (2R k values would
+// take 353 KB of rings at R = 216 and BN = 32), each step loads both bound
+// rows of its cell, and each step's products are summed on the tensor
+// cores from zero and added to the running sum, so a tensor-core chain
+// stays at most 3 x 128 / 4 MMAs long.  A separate template
+// instantiation: the R <= 128 kernels keep their code.
+//
 // wgmma is not used.  It needs the operand in its own swizzled shared
 // layout and 128-thread warpgroups per 64 rows, and with a float32
 // operand split three ways it would have to take the split tiles from
@@ -135,24 +144,26 @@ struct Unit {
   int64_t lane;       // first lane p*R + 8*g in a prefix row
   int tile;           // its element offset in an operand tile buffer
   bool live;
+  bool live1;  // wide: the unit also has lanes in a cell's second step
 };
 
-template <typename T, int BN, int UPT>
-__global__ void __launch_bounds__(kThreads)
-    window_clr_f32_kernel(const T* __restrict__ ps,
-                          const int32_t* __restrict__ bounds,
-                          const float* __restrict__ fbar,
-                          const float* __restrict__ pack,
-                          float* __restrict__ out, float* __restrict__ part,
-                          int C, int NC, int P, int R, int64_t n_rows, int A,
-                          int A_pack, int splits) {
+template <typename T, int BN, int UPT, bool kWide = false>
+__device__ __forceinline__ void window_clr_f32_tile(
+    const T* __restrict__ ps, const int32_t* __restrict__ bounds,
+    const float* __restrict__ fbar, const float* __restrict__ pack,
+    float* __restrict__ out, float* __restrict__ part, int C, int NC, int P,
+    int R, int64_t n_rows, int A, int A_pack, int splits) {
   constexpr int kWM = BN >= 64 ? 2 : 4;  // warps along m
   constexpr int kWN = 8 / kWM;           // and along n
   constexpr int kMT = kBM / kWM / 16;    // m16 tiles per warp
   constexpr int kNT = BN / kWN / 8;      // n8 tiles per warp
   constexpr int ldb = BN + kPadB;        // pack tile row stride (floats)
   extern __shared__ __align__(16) unsigned char smem[];
-  const int KT = 2 * R;        // k values of one cell's tile
+  const int G8 = R >> 3;  // 8-lane groups per row m
+  // 8-lane groups of one K step: all, or (wide) a cell's first half
+  const int GS = kWide ? (G8 + 1) / 2 : G8;
+  const int RS = kWide ? 8 * GS : R;  // lanes of one K step
+  const int KT = 2 * RS;       // k values of one step's tile
   const int lda = KT + kPadA;  // operand tile row stride (floats)
   float* sA = reinterpret_cast<float*>(smem);  // [2][BM][lda]
   float* sB = sA + 2 * kBM * lda;              // [2][KT][ldb]
@@ -174,15 +185,15 @@ __global__ void __launch_bounds__(kThreads)
       reinterpret_cast<uint4*>(smem)[i] = make_uint4(0, 0, 0, 0);
   }
 
-  const int G8 = R >> 3;  // 8-lane groups per row m
   Unit u[UPT];
 #pragma unroll
   for (int i = 0; i < UPT; ++i) {
     const int q = tid + i * kThreads;
-    const int ml = q / G8;
-    const int g = q - ml * G8;
+    const int ml = q / GS;
+    const int g = q - ml * GS;
     const int64_t m = m0 + ml;
     u[i].live = ml < kBM && m < M;
+    if constexpr (kWide) u[i].live1 = u[i].live && GS + g < G8;
     const int64_t c = u[i].live ? m / P : 0;
     const int64_t p = u[i].live ? m - c * P : 0;
     u[i].b0 = bounds + c * 2 * (NC + 1);
@@ -191,21 +202,25 @@ __global__ void __launch_bounds__(kThreads)
     u[i].tile = ml * lda + 8 * g;
   }
 
-  // the pack tile of cell j: rows (s*NC + j)*R + r, columns n0 .. n0 + BN
-  // (zero past A_pack, a multiple of 4)
-  auto load_pack = [&](int j, int buf) {
+  // the pack tile of step h of cell j: rows (s*NC + j)*R + r0 + r for
+  // r < rh (all R rows, or wide the step's), columns n0 .. n0 + BN (zero
+  // past A_pack, a multiple of 4)
+  auto load_pack = [&](int j, int h, int buf) {
     constexpr int kChunks = BN / 4;  // 16-byte chunks per row
+    const int r0 = kWide ? RS * h : 0;
+    const int rh = kWide ? min(RS, R - r0) : R;
     float* dst0 = sB + buf * KT * ldb;
-    for (int i = tid; i < KT * kChunks; i += kThreads) {
+    for (int i = tid; i < 2 * rh * kChunks; i += kThreads) {
       const int row = i / kChunks;
       const int ch = i - row * kChunks;
-      const int s = row >= R;
-      const int r = row - s * R;
+      const int s = row >= rh;
+      const int r = row - s * rh;
       const int col = n0 + 4 * ch;
       const bool in = col < A_pack;
       const float* src =
-          in ? pack + ((int64_t)(s * NC + j) * R + r) * A_pack + col : pack;
-      cp_async16(dst0 + row * ldb + 4 * ch, src, in ? 16 : 0);
+          in ? pack + ((int64_t)(s * NC + j) * R + r0 + r) * A_pack + col
+             : pack;
+      cp_async16(dst0 + (s * RS + r) * ldb + 4 * ch, src, in ? 16 : 0);
     }
     cp_async_commit();
   };
@@ -229,23 +244,41 @@ __global__ void __launch_bounds__(kThreads)
       }
     }
   };
-  // operand tile of the cell in cur into buffer buf; prev = cur
-  auto build = [&](int buf) {
+  // wide: both bound rows of step h of cell j and its fbar
+  auto load_rows_wide = [&](int j, int h) {
+#pragma unroll
+    for (int i = 0; i < UPT; ++i) {
+      if (!(h ? u[i].live1 : u[i].live)) continue;
+      const int32_t* b0 = u[i].b0 + j;
+      const int64_t ln = u[i].lane + RS * h;
+      load8(table_row(ps, __ldg(b0), n_rows, L) + ln, prev0[i]);
+      load8(table_row(ps, __ldg(b0 + NC + 1), n_rows, L) + ln, prev1[i]);
+      load8(table_row(ps, __ldg(b0 + 1), n_rows, L) + ln, cur0[i]);
+      load8(table_row(ps, __ldg(b0 + NC + 2), n_rows, L) + ln, cur1[i]);
+      g0[i] = __ldg(u[i].f0 + j);
+      g1[i] = __ldg(u[i].f0 + NC + j);
+    }
+  };
+  // operand tile of the cell (wide: its step h) in cur into buffer buf;
+  // prev = cur
+  auto build = [&](int buf, int h) {
     float* dst0 = sA + buf * kBM * lda;
 #pragma unroll
     for (int i = 0; i < UPT; ++i) {
-      if (!u[i].live) continue;
+      if (!(kWide && h ? u[i].live1 : u[i].live)) continue;
       float w0[8], w1[8];
 #pragma unroll
       for (int e = 0; e < 8; ++e) {
         const float h0 = side_diff(cur0[i][e], prev0[i][e], true);
         const float h1 = side_diff(cur1[i][e], prev1[i][e], false);
         window_lerp(h0, h1, g0[i], g1[i], w0[e], w1[e]);
-        prev0[i][e] = cur0[i][e];
-        prev1[i][e] = cur1[i][e];
+        if constexpr (!kWide) {
+          prev0[i][e] = cur0[i][e];
+          prev1[i][e] = cur1[i][e];
+        }
       }
       float4* d0 = reinterpret_cast<float4*>(dst0 + u[i].tile);
-      float4* d1 = reinterpret_cast<float4*>(dst0 + u[i].tile + R);
+      float4* d1 = reinterpret_cast<float4*>(dst0 + u[i].tile + RS);
       d0[0] = make_float4(w0[0], w0[1], w0[2], w0[3]);
       d0[1] = make_float4(w0[4], w0[5], w0[6], w0[7]);
       d1[0] = make_float4(w1[0], w1[1], w1[2], w1[3]);
@@ -253,21 +286,26 @@ __global__ void __launch_bounds__(kThreads)
     }
   };
 
-  // prologue: prev = rows b[j0], cur = rows b[j0 + 1]; tile j0 in buffer 0
+  // prologue: prev = rows b[j0], cur = rows b[j0 + 1]; tile j0 (wide:
+  // its first step) in buffer 0
+  if constexpr (kWide) {
+    load_rows_wide(j0, 0);
+  } else {
 #pragma unroll
-  for (int i = 0; i < UPT; ++i) {
-    if (!u[i].live) continue;
-    const int32_t* b0 = u[i].b0;
-    load8(table_row(ps, __ldg(b0 + j0), n_rows, L) + u[i].lane, prev0[i]);
-    load8(table_row(ps, __ldg(b0 + NC + 1 + j0), n_rows, L) + u[i].lane,
-          prev1[i]);
-    nb0[i] = __ldg(b0 + j0 + 1);
-    nb1[i] = __ldg(b0 + NC + 1 + j0 + 1);
+    for (int i = 0; i < UPT; ++i) {
+      if (!u[i].live) continue;
+      const int32_t* b0 = u[i].b0;
+      load8(table_row(ps, __ldg(b0 + j0), n_rows, L) + u[i].lane, prev0[i]);
+      load8(table_row(ps, __ldg(b0 + NC + 1 + j0), n_rows, L) + u[i].lane,
+            prev1[i]);
+      nb0[i] = __ldg(b0 + j0 + 1);
+      nb1[i] = __ldg(b0 + NC + 1 + j0 + 1);
+    }
+    load_rows(j0);
   }
-  load_rows(j0);
   __syncthreads();  // the zero fill is done before any tile lands
-  load_pack(j0, 0);
-  build(0);
+  load_pack(j0, 0, 0);
+  build(0, 0);
   cp_async_wait_all();
   __syncthreads();
 
@@ -283,13 +321,9 @@ __global__ void __launch_bounds__(kThreads)
   const int wm = (warp % kWM) * (kBM / kWM);  // the warp's rows
   const int wn = (warp / kWM) * (BN / kWN);   // and its columns
 
-  for (int j = j0; j < j1; ++j) {
-    const int buf = (j - j0) & 1;
-    const bool more = j + 1 < j1;
-    if (more) {
-      load_pack(j + 1, buf ^ 1);
-      load_rows(j + 1);
-    }
+  // this K step's products, summed on the tensor cores from zero, then
+  // added to acc by one float32 add each
+  auto mma_step = [&](int buf) {
     const float* a_base = sA + buf * kBM * lda + (wm + gq) * lda + tq;
     const float* b_base = sB + buf * KT * ldb + tq * ldb + wn + gq;
     float cell[kMT][kNT][4];
@@ -340,9 +374,35 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           acc[mt][nt][e] = __fadd_rn(acc[mt][nt][e], cell[mt][nt][e]);
-    if (more) build(buf ^ 1);
-    cp_async_wait_all();
-    __syncthreads();
+  };
+  if constexpr (kWide) {
+    // steps t: cell j0 + t/2, its half h = t%2 in buffer h
+    const int n_steps = 2 * (j1 - j0);
+    for (int t = 0; t < n_steps; ++t) {
+      const int j = j0 + (t >> 1), h = t & 1;
+      const bool more = t + 1 < n_steps;
+      if (more) {
+        load_pack(j + h, h ^ 1, h ^ 1);
+        load_rows_wide(j + h, h ^ 1);
+      }
+      mma_step(h);
+      if (more) build(h ^ 1, h ^ 1);
+      cp_async_wait_all();
+      __syncthreads();
+    }
+  } else {
+    for (int j = j0; j < j1; ++j) {
+      const int buf = (j - j0) & 1;
+      const bool more = j + 1 < j1;
+      if (more) {
+        load_pack(j + 1, 0, buf ^ 1);
+        load_rows(j + 1);
+      }
+      mma_step(buf);
+      if (more) build(buf ^ 1, 0);
+      cp_async_wait_all();
+      __syncthreads();
+    }
   }
 
   // epilogue: accumulator (row gq (+8), columns 2*tq + {0,1}); 2 * acc
@@ -369,6 +429,29 @@ __global__ void __launch_bounds__(kThreads)
     }
 }
 
+#define FSCL_WINDOW_CLR_F32_PARAMS                                           \
+  const T *__restrict__ ps, const int32_t *__restrict__ bounds,             \
+      const float *__restrict__ fbar, const float *__restrict__ pack,       \
+      float *__restrict__ out, float *__restrict__ part, int C, int NC,     \
+      int P, int R, int64_t n_rows, int A, int A_pack, int splits
+#define FSCL_WINDOW_CLR_F32_ARGS \
+  ps, bounds, fbar, pack, out, part, C, NC, P, R, n_rows, A, A_pack, splits
+
+template <typename T, int BN, int UPT>
+__global__ void __launch_bounds__(kThreads)
+    window_clr_f32_kernel(FSCL_WINDOW_CLR_F32_PARAMS) {
+  window_clr_f32_tile<T, BN, UPT>(FSCL_WINDOW_CLR_F32_ARGS);
+}
+
+// The wide variant, 128 < R <= 256: two K steps a cell (above).
+template <typename T, int BN>
+__global__ void __launch_bounds__(kThreads)
+    window_clr_f32_kernel_wide(FSCL_WINDOW_CLR_F32_PARAMS) {
+  window_clr_f32_tile<T, BN, 4, true>(FSCL_WINDOW_CLR_F32_ARGS);
+}
+#undef FSCL_WINDOW_CLR_F32_PARAMS
+#undef FSCL_WINDOW_CLR_F32_ARGS
+
 // out[i] = 2 * (part[0][i] + part[1][i] + ...), in split order
 __global__ void reduce_splits(const float* __restrict__ part,
                               float* __restrict__ out, int64_t n,
@@ -381,8 +464,15 @@ __global__ void reduce_splits(const float* __restrict__ part,
   }
 }
 
+constexpr int kWideR = 128;  // the widest R walked in one K step a cell
+
+// lanes of one K step: R, or past kWideR the first half of its 8-lane
+// groups
+int step_r(int R) { return R <= kWideR ? R : 8 * ((R / 8 + 1) / 2); }
+
 size_t smem_bytes(int R, int BN) {
-  return (size_t)4 * (2 * kBM * (2 * R + kPadA) + 2 * 2 * R * (BN + kPadB));
+  const int RS = step_r(R);
+  return (size_t)4 * (2 * kBM * (2 * RS + kPadA) + 2 * 2 * RS * (BN + kPadB));
 }
 
 int pick_bn(int R, int A) {
@@ -413,12 +503,17 @@ int splits_for(int64_t M, int NC, int R, int A, int n_sm) {
   return 1;
 }
 
-template <typename T, int BN, int UPT>
+template <typename T, int BN, int UPT, bool kWide = false>
 int launch(const void* ps, const void* bounds, const void* fbar,
            const void* pack, void* out, void* part, int C, int NC, int P,
            int R, int64_t n_rows, int A, int A_pack, int splits,
            cudaStream_t st) {
-  auto kern = window_clr_f32_kernel<T, BN, UPT>;
+  void (*kern)(const T*, const int32_t*, const float*, const float*, float*,
+               float*, int, int, int, int, int64_t, int, int, int);
+  if constexpr (kWide)
+    kern = window_clr_f32_kernel_wide<T, BN>;
+  else
+    kern = window_clr_f32_kernel<T, BN, UPT>;
   const size_t smem = smem_bytes(R, BN);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -450,6 +545,13 @@ int dispatch(const void* ps, const void* bounds, const void* fbar,
   launch<T, BN, UPT>(ps, bounds, fbar, pack, out, part, C, NC, P, R, n_rows, \
                      A, A_pack, splits, st)
   const int bn = pick_bn(R, A);
+  if (R > kWideR)
+    return bn == 32 ? launch<T, 32, 4, true>(ps, bounds, fbar, pack, out,
+                                             part, C, NC, P, R, n_rows, A,
+                                             A_pack, splits, st)
+                    : launch<T, 64, 4, true>(ps, bounds, fbar, pack, out,
+                                             part, C, NC, P, R, n_rows, A,
+                                             A_pack, splits, st);
   if (R <= 64) return bn == 32 ? FSCL_LAUNCH(32, 2) : FSCL_LAUNCH(128, 2);
   return bn == 32 ? FSCL_LAUNCH(32, 4) : FSCL_LAUNCH(64, 4);
 #undef FSCL_LAUNCH
@@ -471,7 +573,8 @@ int fscl_window_clr_f32_splits(int64_t M, int NC, int R, int A, int n_sm) {
 // 16-byte aligned; bounds [C, 2, NC+1] int32 rows of ps; fbar [C, 2, NC]
 // f32; pack [2*NC*R, A_pack] f32, 16-byte aligned, A_pack >= A a multiple
 // of 4; out [C, P, A] f32; part [splits, C*P, A] f32 when splits > 1
-// (unused at 1).  R a multiple of 8, at most 128; 1 <= splits <= NC.
+// (unused at 1).  R a multiple of 8, at most 256 (past 128 the wide
+// variant); 1 <= splits <= NC.
 // Launches the kernel, and the reduction of its partial sums when
 // splits > 1.  Returns the first CUDA error (0 = success); nothing to
 // compute is success without a launch.
@@ -480,7 +583,8 @@ int fscl_window_clr_f32(const void* ps, const void* bounds, const void* fbar,
                         int NC, int P, int R, int64_t n_rows, int dtype_code,
                         int A, int A_pack, int splits, void* stream) {
   if ((int64_t)C * P == 0 || A == 0) return 0;
-  if (NC < 1 || R < 8 || R > 128 || R % 8 || A_pack < A || A_pack % 4 ||
+  if (NC < 1 || R < 8 || R > 2 * kWideR || R % 8 || A_pack < A ||
+      A_pack % 4 ||
       splits < 1 || splits > NC || (splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;

@@ -118,12 +118,11 @@ from ..ops.histclr import (
     build_prefix_sums_seg,
     build_site_prefix,
     hist_clr_reps_ps,
-    hist_geometry_ok,
-    hist_supported,
     make_row_index_group_table,
     rdp_clr_reps,
 )
 from ..ops.lattice import two_stage_lattice_max
+from ..ops.prefix_sums import ONEHOT_LANES_MAX
 from ..ops.permute import (
     PERM_GROUP,
     block_permutation_groups,
@@ -137,6 +136,7 @@ from ..parallel.mesh import SOLO
 from ..utils.timing import span, traced
 from .checkpoint import Checkpointer
 from .scan import (
+    _port_cache,
     get_hist_device_arrays,
     get_lattice_tables,
     make_scan_hist_tables,
@@ -156,6 +156,11 @@ PS_BUDGET_BYTES = 2_400_000_000
 # fscl_tpu/engine/permute.py:93-102); "on"/"off" force it
 RDP_FORCE = os.environ.get("FSCL_RDP", "auto")
 RDP_BOUNDS_FACTOR = 24
+# replicates per RDP slice: each slice builds [slice, groups] run tables
+# and launches its gathers and statistic a candidate chunk at a time, so
+# fewer, larger slices keep the host's launches behind the card (at 14M
+# sites and 216 rows, slices of 16 left the card idle half the time)
+RDP_REP_SUB = 128
 POINT_BUCKET = 64  # scan points per lattice statistic call
 # elements of one chunk's sigma at the largest tier: the boost tiers are
 # clamped to it (fscl_tpu/engine/permute.py:131), so at genome1m's 24,304
@@ -333,11 +338,14 @@ def _ladder_pad(n):
 def _sub_rep_for(ht, n_seg_pad, w_seg_p):
     """Largest replicate slice (<= 2*HIST_REP_SUB) whose prefix buffer
     fits PS_BUDGET_BYTES: 2 bytes an element for one-hot counts, 4 for
-    compressed f32 weight channels (fscl_tpu/engine/permute.py:1049)."""
+    compressed f32 weight channels (fscl_tpu/engine/permute.py:1049);
+    and whose P*R lanes the one-hot kernel takes (ONEHOT_LANES_MAX: at
+    the widest tables, R = 256, 32 replicates)."""
     bpe = 4 if ht.weights is not None else 2
     p = HIST_REP_SUB * 2
     while p > 1 and (
         n_seg_pad * w_seg_p * p * ht.n_rows * bpe > PS_BUDGET_BYTES
+        or p * ht.n_rows > ONEHOT_LANES_MAX
     ):
         p //= 2
     return p
@@ -534,10 +542,15 @@ def setup_hist(data, tables, result, scan_cfg, cfg, device):
         data, tables, n_alpha=cfg.hist_alphas, decimate=cfg.hist_decimate,
         device=device,
     )
-    row_cg = torch.as_tensor(
-        ht.row_map[np.asarray(data.row)].astype(np.int32), device=device
-    )
-    table = make_row_index_group_table(row_cg, sentinel=ht.sentinel)
+    cache = _port_cache(data, device)
+    key = ("row-cg", ht.n_rows, ht.sentinel)
+    if key not in cache:
+        row_cg = torch.as_tensor(
+            ht.row_map[np.asarray(data.row)].astype(np.int32), device=device
+        )
+        cache[key] = (row_cg, make_row_index_group_table(
+            row_cg, sentinel=ht.sentinel))
+    row_cg, table = cache[key]
     n_groups = table.shape[0] - 1  # sentinel row index
     by_len: dict = {}
     for c, cl in enumerate(data.chr_limits):
@@ -634,7 +647,7 @@ class _RdpTail:
 
     def chunk(self, active, R, start):
         """(pts, [R, len(pts)] statistic maxima) of replicates
-        start..start+R-1, HIST_REP_SUB replicates a slice."""
+        start..start+R-1, RDP_REP_SUB replicates a slice."""
         hs = self.hs
         ht = hs.ht
         if self.psite is None:
@@ -656,7 +669,7 @@ class _RdpTail:
         out = _rdp_stat(
             ht.t3, bounds, fbar, self.psite, src, dst, sz,
             n_cells=ht.n_cells, n_rows=ht.n_rows, n_alpha=ht.n_alpha,
-            pg=PERM_GROUP, n_groups=hs.n_groups, sub_rep=HIST_REP_SUB,
+            pg=PERM_GROUP, n_groups=hs.n_groups, sub_rep=RDP_REP_SUB,
             n_pts=len(pts), Jf=self.Jf, mm_bf16=self.mm_bf16,
         )
         last_stats["rdp_dispatches"] += 1
@@ -689,19 +702,25 @@ def scan_permute(data, tables, result, scan_cfg, cfg: PermuteConfig,
         raise ValueError(f"FSCL_RDP={RDP_FORCE!r}: use auto, on or off")
     use_hist = cfg.use_hist
     if use_hist:
-        rows_used = np.unique(np.asarray(data.row))
-        max_n = max((cl.n_snps for cl in data.chr_limits), default=0)
-        geom_ok = all(
-            hist_geometry_ok(
-                data.pos[cl.start_index : cl.start_index + cl.n_snps])
-            for cl in data.chr_limits if cl.n_snps > 0
-        )
-        use_hist = hist_supported(len(rows_used), max_n) and geom_ok
+        # the hist gate (rows, sites, block geometry and, past
+        # WIDE_ROWS_MAX rows, the rank ladder), decided once a data
+        # object where its tables are built and memoized for setup_hist
+        with span("permute.setup"):
+            use_hist = make_scan_hist_tables(
+                data, tables, n_alpha=cfg.hist_alphas,
+                decimate=cfg.hist_decimate, device=device,
+            ) is not None
         if not use_hist:
             logmsg(MSG_STATUS, "histogram permutation path unsupported here "
                    "(%d distinct rows, %d sites); using the lattice path",
-                   len(rows_used), max_n)
-    gpos = data.genome_pos()
+                   len(np.unique(np.asarray(data.row))),
+                   max((cl.n_snps for cl in data.chr_limits), default=0))
+    # memoized a data object, so that the stream reuses its group
+    # positions and brackets (ops/permute.py) from pass to pass
+    cache = _port_cache(data, device)
+    if "gpos" not in cache:
+        cache["gpos"] = data.genome_pos()
+    gpos = cache["gpos"]
     width_bp = cfg.scan_width_mb * 1e6
     if sigma_source is None:
         def sigma_source(n, start):

@@ -167,12 +167,15 @@ def make_scan_hist_tables(data, tables, n_alpha=128, decimate=1,
     """Genome-wide HistTables (memoized per (n_alpha, decimation)), or
     None where the hist engine does not cover the dataset (more than
     COMPRESS_ROWS_MAX distinct rows, a chromosome over SITES_MAX sites,
-    or sites too dense for the block table): callers then take the
-    lattice path (fscl_tpu/engine/scan.py:710-761).
+    sites too dense for the block table, or more than WIDE_ROWS_MAX rows
+    that the rank ladder cannot compress): callers then take the lattice
+    path (fscl_tpu/engine/scan.py:710-761).
 
     Decimation is capped so the decimated lattice step stays under ~0.1
     log_ad units.  Above ROWS_MAX distinct rows the tables are
-    SVD-compressed, their channels centred by the dataset's site mix."""
+    SVD-compressed, their channels centred by the dataset's site mix,
+    where the rank ladder reaches its tolerance, else exact one-hot
+    (build_hist_tables decides, once a table set)."""
     device = parse_device(device)
     base_step = (LOG_AD_MAX - LOG_AD_MIN) / max(tables.grid_points - 1, 1)
     decimate = max(1, min(int(decimate), int(0.1 / base_step)))
@@ -337,13 +340,15 @@ def _chrom_row_stream(data, ht, st):
 def _build_scan_ps(row_c, *, n_rows, mod16):
     """[w_pad+1, R] one-hot prefix sums of one chromosome's site stream
     (single replicate; fscl_tpu builds these with an XLA cumsum too).
-    ``mod16`` keeps int16 through mod-2^16 wraparound."""
+    ``mod16`` keeps int16 through mod-2^16 wraparound.  The cumsum
+    writes behind the zero row in place: at 216 rows a 1.25M-site
+    chromosome's [W+1, R] int32 prefix is 1.1 GB."""
     W = row_c.shape[0]
     oh = row_c[:, None] == torch.arange(
         n_rows, dtype=row_c.dtype, device=row_c.device
     )
-    ps = torch.cumsum(oh.to(torch.int32), 0, dtype=torch.int32)
-    ps = torch.nn.functional.pad(ps, (0, 0, 1, 0))
+    ps = torch.zeros((W + 1, n_rows), dtype=torch.int32, device=row_c.device)
+    torch.cumsum(oh.to(torch.int32), 0, dtype=torch.int32, out=ps[1:])
     idt = torch.int16 if (W <= 32767 or mod16) else torch.int32
     return ps.to(idt)
 

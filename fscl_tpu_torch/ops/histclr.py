@@ -21,9 +21,13 @@ distance clamp to >= 1 bp, active-site cutoff at x <= LOG_AD_MAX, CLR =
 
 Up to ROWS_MAX distinct table rows run the exact one-hot mode (integer
 prefix counts).  Above it, up to COMPRESS_ROWS_MAX, the row family is
-SVD-compressed to f32 weight channels (_build_hist_tables_compressed):
-each site contributes its weight row instead of a one-hot indicator, and
-the prefix sums become f32 sums of weights.
+SVD-compressed to f32 weight channels (_build_hist_tables_compressed)
+where the rank ladder reaches COMPRESS_TOL: each site contributes its
+weight row instead of a one-hot indicator, and the prefix sums become
+f32 sums of weights.  A family the ladder cannot compress (one large
+depth: its frequency classes are not low rank) keeps exact one-hot
+tables up to WIDE_ROWS_MAX rows, and past that takes the lattice path
+(build_hist_tables returns None).
 
 Step 1 has several sources, one statistic: the stacked segmented prefix
 (build_prefix_sums_seg, the permutation driver's main path), the prefix
@@ -63,19 +67,27 @@ from .windows import candidate_windows
 
 DEFAULT_N_ALPHA = 128
 ROWS_MAX = 128  # exact one-hot gate: above this the tables are compressed
+# widest exact one-hot tables, taken above ROWS_MAX where the rank ladder
+# does not reach COMPRESS_TOL (the window kernels' wide variants)
+WIDE_ROWS_MAX = 256
 COMPRESS_ROWS_MAX = 8192  # hard cap for the SVD row-compression path
 COMPRESS_TOL = 1e-3  # max-entry residual target for the rank choice
+COMPRESS_RANKS = (8, 16, 24, 32, 48, 64, 96)  # the rank ladder
+# table sets built, by mode: exact one-hot up to ROWS_MAX rows, exact
+# one-hot above it (the ladder missed its tolerance), SVD-compressed
+table_modes = {"exact": 0, "exact_wide": 0, "compressed": 0}
 SITES_MAX = 4_000_000  # [W, R] state cap
 # transient bytes of one rdp_clr_reps candidate chunk (the assembled
 # [c, 2, NC+1, P*R] int32 prefix rows): bounds device memory only, the
 # values do not depend on it
-CHUNK_BYTES = 1 << 28
+CHUNK_BYTES = 1 << 30
 
 
 def hist_supported(n_rows_used, n_sites):
-    """Whether the hist engine covers this dataset: exact one-hot mode up
-    to ROWS_MAX distinct rows, compressed mode up to COMPRESS_ROWS_MAX
-    (fscl_tpu/ops/histclr.py:64)."""
+    """Whether the hist engine may cover this dataset: exact one-hot mode
+    up to ROWS_MAX distinct rows, compressed or exact-wide mode up to
+    COMPRESS_ROWS_MAX (fscl_tpu/ops/histclr.py:64).  Above WIDE_ROWS_MAX
+    the rank ladder decides (build_hist_tables)."""
     return n_rows_used <= COMPRESS_ROWS_MAX and n_sites <= SITES_MAX
 
 
@@ -104,6 +116,9 @@ class HistTables:
     # (SVD factors, site-mix-centred, + a count channel; the last row is
     # the all-zero sentinel).  None = exact one-hot mode.
     weights: torch.Tensor | None = None
+    # compressed mode: the largest entry residual |M - Uw @ V| of the rank
+    # taken; None in exact one-hot mode
+    residual: float | None = None
 
     @property
     def sentinel(self) -> int:
@@ -118,10 +133,15 @@ def build_hist_tables(table_np, grid_points, null_row, rows_used, extent_bp,
 
     table_np: [n_rows_total, G]; null_row: [n_rows_total] per-row null
     logl.  decimate=s > 1 keeps every s-th lattice column
-    (fscl_tpu/ops/histclr.py:103-182).  compress (default: when more than
-    ROWS_MAX rows are used) builds the SVD-compressed tables;
-    site_row_counts ([n_rows_total] site counts) weights the centring of
-    their channels by the data's site mix.
+    (fscl_tpu/ops/histclr.py:103-182).  compress=None (the gate) keeps
+    exact one-hot tables up to ROWS_MAX rows; above it, SVD-compressed
+    tables where the rank ladder reaches COMPRESS_TOL, else exact one-hot
+    tables up to WIDE_ROWS_MAX rows, else None (the lattice path).
+    compress=True forces the compressed tables (the ladder's largest rank
+    where no rank reaches the tolerance; ``residual`` says how far off),
+    compress=False the exact ones.  site_row_counts ([n_rows_total] site
+    counts) weights the centring of the compressed channels by the
+    data's site mix.
     """
     device = parse_device(device)
     if len(rows_used) > COMPRESS_ROWS_MAX:
@@ -129,15 +149,25 @@ def build_hist_tables(table_np, grid_points, null_row, rows_used, extent_bp,
             f"{len(rows_used)} distinct table rows (> {COMPRESS_ROWS_MAX}): "
             "past the hist gate, the engines take the lattice path"
         )
-    if compress is None:
-        compress = len(rows_used) > ROWS_MAX
-    if compress:
-        return _build_hist_tables_compressed(
-            table_np, grid_points, null_row, rows_used, extent_bp,
-            n_alpha=n_alpha, row_pad=row_pad, decimate=decimate,
-            site_row_counts=site_row_counts, device=device,
-        )
     s = max(int(decimate), 1)
+    if compress or (compress is None and len(rows_used) > ROWS_MAX):
+        M = (
+            np.asarray(table_np, dtype=np.float64)[rows_used][
+                :, np.arange(0, grid_points, s)]
+            - np.asarray(null_row, dtype=np.float64)[rows_used][:, None]
+        )
+        svd, r, resid = _rank_ladder(M)
+        if r is not None or compress:
+            table_modes["compressed"] += 1
+            return _build_hist_tables_compressed(
+                table_np, grid_points, null_row, rows_used, extent_bp, svd,
+                r or COMPRESS_RANKS[-1], resid, n_alpha=n_alpha,
+                row_pad=row_pad, decimate=decimate,
+                site_row_counts=site_row_counts, device=device,
+            )
+        if len(rows_used) > WIDE_ROWS_MAX:
+            return None
+    table_modes["exact" if len(rows_used) <= ROWS_MAX else "exact_wide"] += 1
     if s > 1:
         cols = np.arange(0, grid_points, s)
         table_np = np.asarray(table_np)[:, cols]
@@ -185,25 +215,44 @@ def build_hist_tables(table_np, grid_points, null_row, rows_used, extent_bp,
     )
 
 
+def _rank_ladder(M, tol=COMPRESS_TOL):
+    """((U, S, Vt), r, residual) of M's f64 SVD: r the smallest rank of
+    COMPRESS_RANKS whose largest entry residual is below tol (all of S
+    where a rank reaches its length), or None where none does; residual
+    that rank's, or the largest rank's where r is None."""
+    U, S, Vt = np.linalg.svd(M, full_matrices=False)
+    r, resid = None, None
+    for cand_r in COMPRESS_RANKS:
+        k = min(cand_r, len(S))
+        resid = float(np.abs(M - (U[:, :k] * S[:k]) @ Vt[:k]).max())
+        if cand_r >= len(S):
+            r = len(S)
+            break
+        if resid < tol:
+            r = cand_r
+            break
+    return (U, S, Vt), r, resid
+
+
 def _build_hist_tables_compressed(table_np, grid_points, null_row, rows_used,
-                                  extent_bp, *, n_alpha, row_pad, decimate,
-                                  site_row_counts, device, tol=COMPRESS_TOL):
+                                  extent_bp, svd, r, resid, *, n_alpha,
+                                  row_pad, decimate, site_row_counts, device):
     """SVD row compression, the mixed-depth mode
     (fscl_tpu/ops/histclr.py:198-295, same numpy operations in the same
     order, so weights and t3 equal the JAX package's on one machine).
 
     M[row, g] = table - null at the decimated columns is numerically low
-    rank (depths derive from one spectrum by smooth downsampling).  The
-    f64 SVD M ~= Uw @ V with the smallest rank of the ladder whose max
-    entry residual is below tol gives each row an f32 weight vector Uw[row]
-    in place of its one-hot indicator.  Channels are centred by the
-    site-mix mean (prefix magnitudes then grow as sqrt(W)), and one count
-    channel restores the means exactly through the pack row mu @ V.
+    rank where depths derive from one spectrum by smooth downsampling
+    (many depths); the frequency classes of one large depth are not.  The
+    f64 SVD M ~= Uw @ V at rank r (_rank_ladder: svd, r and its entry
+    residual resid) gives each row an f32 weight vector Uw[row] in place
+    of its one-hot indicator.  Channels are centred by the site-mix mean
+    (prefix magnitudes then grow as sqrt(W)), and one count channel
+    restores the means exactly through the pack row mu @ V.
     """
     s = max(int(decimate), 1)
-    cols = np.arange(0, grid_points, s)
     step = (LOG_AD_MAX - LOG_AD_MIN) / (grid_points - 1) * s
-    G = len(cols)
+    G = len(range(0, grid_points, s))
     inv_step = 1.0 / step
     NC = min(G, int(np.log(max(float(extent_bp), 2.0)) * inv_step) + 2)
     q = dense_alpha_offsets(G, n_alpha)
@@ -213,21 +262,7 @@ def _build_hist_tables_compressed(table_np, grid_points, null_row, rows_used,
     row_map = np.full(np.asarray(table_np).shape[0], Ru, dtype=np.int32)
     row_map[rows_used] = np.arange(Ru, dtype=np.int32)
 
-    M = (
-        np.asarray(table_np, dtype=np.float64)[rows_used][:, cols]
-        - np.asarray(null_row, dtype=np.float64)[rows_used][:, None]
-    )
-    U, S, Vt = np.linalg.svd(M, full_matrices=False)
-    r = None
-    for cand_r in (8, 16, 24, 32, 48, 64, 96):
-        if cand_r >= len(S):
-            r = len(S)
-            break
-        resid = np.abs(M - (U[:, :cand_r] * S[:cand_r]) @ Vt[:cand_r]).max()
-        if resid < tol:
-            r = cand_r
-            break
-    r = r or 96
+    U, S, Vt = svd
     Uw = U[:, :r] * S[:r]  # [Ru, r]
     V = Vt[:r]  # [r, G]
 
@@ -267,6 +302,7 @@ def _build_hist_tables_compressed(table_np, grid_points, null_row, rows_used,
         offsets=q,
         lalpha=lalpha,
         weights=torch.as_tensor(Wt.astype(np.float32), device=dev),
+        residual=resid,
     )
 
 
@@ -552,15 +588,13 @@ def build_prefix_sums(row_rep, *, n_rows):
 
 def build_site_prefix(row_compact, *, n_rows):
     """[W+1, R] int32 prefix of the unpermuted genome one-hot stream
-    (fscl_tpu/ops/histclr.py:930): built once per dataset, the table
-    rdp_clr_reps assembles every replicate's permuted prefix from."""
-    row = row_compact.to(torch.int32)
-    oh = row[:, None] == torch.arange(n_rows, dtype=torch.int32,
-                                      device=row.device)
-    out = torch.zeros((row.shape[0] + 1, n_rows), dtype=torch.int32,
-                      device=row.device)
-    out[1:] = torch.cumsum(oh.to(torch.int32), 0, dtype=torch.int32)
-    return out
+    (fscl_tpu/ops/histclr.py:930): built once a permutation run, the
+    table rdp_clr_reps assembles every replicate's permuted prefix from.
+    The row-id prefix sum of one replicate (rowid_prefix_sums, mode (a):
+    the chained-scan kernel on the card; a cumsum along the sites there
+    runs one thread a row lane, 6 s at 14M sites and 216 rows)."""
+    return rowid_prefix_sums(row_compact.to(torch.int32)[None].contiguous(),
+                             n_rows=n_rows, out_dtype=torch.int32)
 
 
 def _clr_from_windows(ps, bounds, fbar, t3, *, n_rep, n_cells, n_rows,

@@ -66,6 +66,9 @@ perm_launches = 0  # CUDA kernel launches by perm_prefix_sums
 # memory)
 ROWID_LANES_MAX = 8192
 ROWID_REPS_MAX = 256
+# lanes (P*R) and replicates of one onehot_prefix_sums launch
+ONEHOT_LANES_MAX = 8192
+ONEHOT_REPS_MAX = 64
 
 
 def _out_dtype(w_seg_p, out_dtype):
@@ -140,10 +143,11 @@ def onehot_prefix_sums(table, sig, seg_g0, *, w_seg_p, n_rows,
         ("seg_g0", seg_g0, torch.int32)))
     if odt not in (torch.int16, torch.int32):
         raise ValueError(f"onehot_prefix_sums: output dtype {odt}")
-    if w_seg_p % pg or L > 8192 or P > 64:
+    if w_seg_p % pg or L > ONEHOT_LANES_MAX or P > ONEHOT_REPS_MAX:
         raise ValueError(
             f"onehot_prefix_sums: w_seg_p={w_seg_p} must be a multiple of "
-            f"{pg}, P*R={L} <= 8192 and P={P} <= 64"
+            f"{pg}, P*R={L} <= {ONEHOT_LANES_MAX} and P={P} <= "
+            f"{ONEHOT_REPS_MAX}"
         )
     from .. import kernels
 

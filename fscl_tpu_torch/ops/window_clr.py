@@ -36,7 +36,10 @@ CPU tensors and the CUDA kernel for CUDA tensors, never falling back from
 one to the other.  ``window_clr_launches`` and ``window_clr_f32_launches``
 count the kernels' launches, ``window_clr_split_launches`` those of the
 bf16 kernel split over cells, ``window_clr_f32_reduce_launches`` the
-launches of the f32 kernel's split reduction.
+launches of the f32 kernel's split reduction, and
+``window_clr_wide_launches`` and ``window_clr_f32_wide_launches`` those
+of either kernel at more than WIDE_R rows (its wide variant, which walks
+each cell's lanes in two halves; the exact tables of one large depth).
 """
 
 from __future__ import annotations
@@ -52,8 +55,11 @@ window_clr_launches = 0  # CUDA kernel launches by window_clr
 window_clr_split_launches = 0  # those split over cells (splits > 1)
 window_clr_f32_launches = 0  # CUDA kernel launches by window_clr_f32
 window_clr_f32_reduce_launches = 0  # its split reductions
+window_clr_wide_launches = 0  # window_clr launches at R > WIDE_R
+window_clr_f32_wide_launches = 0  # window_clr_f32 launches at R > WIDE_R
 OPERAND_BYTES = 1 << 28  # the plain versions' operand per candidate chunk
-R_MAX = 128  # the kernels' widest prefix row per replicate (8 lanes x 4 units)
+WIDE_R = 128  # widest R a kernel walks in one step a cell (8 lanes x 4 units)
+R_MAX = 256  # the kernels' widest prefix row per replicate (two steps a cell)
 _packs: dict = {}  # (id(t3), dtype) -> (weakref to t3, t3._version, pack)
 
 
@@ -172,8 +178,10 @@ def window_clr(ps, bounds, fbar, t3b, *, n_rep, n_cells, n_rows, n_alpha):
         )
     kernels.check(lib, rc, "window_clr")
     global window_clr_launches, window_clr_split_launches
+    global window_clr_wide_launches
     window_clr_launches += 1
     window_clr_split_launches += splits > 1
+    window_clr_wide_launches += n_rows > WIDE_R
     return out
 
 
@@ -231,6 +239,8 @@ def window_clr_f32(ps, bounds, fbar, t3p, *, n_rep, n_cells, n_rows,
         )
     kernels.check(lib, rc, "window_clr_f32")
     global window_clr_f32_launches, window_clr_f32_reduce_launches
+    global window_clr_f32_wide_launches
     window_clr_f32_launches += 1
     window_clr_f32_reduce_launches += splits > 1
+    window_clr_f32_wide_launches += n_rows > WIDE_R
     return out
